@@ -1,0 +1,25 @@
+from .checksum import (
+    CHECKSUM_LANES,
+    DeviceChecksum,
+    checksum_device,
+    checksum_to_u128,
+    lane_sums,
+    pytree_checksum,
+)
+from .digest import lane_sums_rows, lane_sums_rows_plain
+from .replay import ReplayPrograms, build_replay_programs
+from .ring import DeviceStateRing
+
+__all__ = [
+    "CHECKSUM_LANES",
+    "DeviceChecksum",
+    "DeviceStateRing",
+    "ReplayPrograms",
+    "build_replay_programs",
+    "checksum_device",
+    "checksum_to_u128",
+    "lane_sums",
+    "lane_sums_rows",
+    "lane_sums_rows_plain",
+    "pytree_checksum",
+]
