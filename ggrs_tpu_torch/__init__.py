@@ -3,7 +3,8 @@
 Beside ``ggrs_tpu`` (JAX on a TPU, the reference), this package runs the
 device rollback replay on an NVIDIA H100: the batched SyncTest tick, the
 state ring, batched sessions, and the 4-lane state digest as a hand-written
-CUDA kernel (``csrc/digest.cu``).  It imports torch and numpy only; entry
+CUDA kernel (``csrc/digest.cu``) that digests a whole batch of states from
+their leaves in one launch.  It imports torch and numpy only; entry
 points take ``device=None``, meaning the CUDA card.
 """
 

@@ -10,9 +10,11 @@ the host for the wire.
 Differences of form, none of value:
 
 - ``checksum_device`` is batch-aware: state leaves carry a leading session
-  axis ``(B, ...)`` and the result is ``(B, 4)``.  All sessions' words go
-  into one ``(B, W)`` matrix and ONE ``lane_sums_rows`` call digests them
-  (exact by the chunk-additivity of ``lane_sums``).
+  axis ``(B, ...)`` and the result is ``(B, 4)``.  It is ONE
+  ``digest.state_digest`` call: on the card one kernel launch reads every
+  leaf in place and writes the salted digests; on the CPU the plain version
+  packs, concatenates and mixes (``checksum_device_plain`` takes that path
+  on any device).
 - digests are ``int32`` tensors holding the u32 bit patterns (torch's
   ``uint32`` has no shifts, sums or ``arange``); compare them as numpy
   ``uint32``.
@@ -29,7 +31,15 @@ import torch
 
 from ..core.device import DeviceLike, resolve_device
 from ..utils.tree import tree_leaves, tree_map
-from .digest import MASK32, PRIME_B, lane_sums_rows, lane_sums_rows_plain, u32_to_i32
+from .digest import (
+    MASK32,
+    PRIME_B,
+    as_u32_words,
+    lane_sums_rows_plain,
+    state_digest,
+    state_digest_plain,
+    u32_to_i32,
+)
 
 CHECKSUM_LANES = 4
 
@@ -55,37 +65,8 @@ _NP_KIND = {
     torch.float64: ("f", 8),
 }
 
-# the same-width signed view used to reach a leaf's bytes
-_WORD_VIEW = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int32}
-
-
-def _as_u32_words(x: torch.Tensor) -> torch.Tensor:
-    """``(B, ...)`` leaf -> ``(B, n)`` int32 words (u32 bit patterns), per
-    session exactly the JAX ``_as_u32_words`` of that session's leaf.
-
-    - 4-byte dtypes are bitcast;
-    - 8-byte dtypes split into two words, low word then high (little-endian);
-    - bool widens to u8 first;
-    - 1- and 2-byte dtypes pack little-endian into words, zero-padded to a
-      4-byte multiple, so a 0-d uint8 leaf is one word."""
-    b = x.shape[0]
-    flat = x.reshape(b, math.prod(x.shape[1:]))
-    if flat.dtype == torch.bool:
-        flat = flat.to(torch.uint8)
-    nbytes = flat.element_size()
-    words = flat.contiguous().view(_WORD_VIEW[nbytes])
-    if nbytes >= 4:
-        return words
-    small = words.to(torch.int64) & ((1 << (8 * nbytes)) - 1)
-    per = 4 // nbytes
-    pad = (-small.shape[1]) % per
-    if pad:
-        small = torch.nn.functional.pad(small, (0, pad))
-    packed = small.reshape(b, -1, per)
-    acc = packed[..., 0]
-    for j in range(1, per):
-        acc = acc | (packed[..., j] << (8 * nbytes * j))
-    return u32_to_i32(acc)
+# the byte view the kernel reads in place; bitwise the JAX _as_u32_words
+_as_u32_words = as_u32_words
 
 
 def _leaf_shape_key(x: torch.Tensor) -> Tuple[Tuple[int, ...], torch.dtype]:
@@ -115,37 +96,38 @@ def _structure_salt(leaves: List[Tuple[Tuple[int, ...], torch.dtype]]) -> np.nda
 
 
 @functools.lru_cache(maxsize=64)
-def _salt_mix(structure: Tuple, device: torch.device) -> torch.Tensor:
-    """``salt * GOLDEN mod 2^32`` as a (4,) int64 device tensor, built once
-    per (structure, device) so the per-frame digest copies nothing from the
-    host."""
+def _salt_mix(structure: Tuple) -> Tuple[int, int, int, int]:
+    """``salt * GOLDEN mod 2^32`` as four ints, built once per structure: the
+    kernel takes them as launch arguments, so the per-frame digest copies
+    nothing from the host."""
     salt = _structure_salt(list(structure))
-    mix = [(int(s) * _GOLDEN) & MASK32 for s in salt]
-    return torch.tensor(mix, dtype=torch.int64, device=device)
+    return tuple((int(s) * _GOLDEN) & MASK32 for s in salt)
 
 
-def _digest_words(words: List[torch.Tensor]) -> torch.Tensor:
-    """(B, 4) lanes over the logical concatenation of the ``(B, n_i)`` word
-    matrices: ONE ``lane_sums_rows`` call over the ``(B, W)`` concatenation
-    -- the single routing point to the kernel."""
-    return lane_sums_rows(words[0] if len(words) == 1 else torch.cat(words, dim=1))
+def _digest(state: Any, device: DeviceLike, digest) -> torch.Tensor:
+    leaves = tree_leaves(state)
+    if not leaves:
+        init = torch.tensor(_INIT_LANES, dtype=torch.int64, device=resolve_device(device))
+        return u32_to_i32(init).reshape(1, CHECKSUM_LANES)
+    return digest(leaves, _salt_mix(tuple(_leaf_shape_key(l) for l in leaves)))
 
 
 def checksum_device(state: Any, device: DeviceLike = None) -> torch.Tensor:
     """Digest a batch of states into ``(B, 4)`` int32 lanes, on device.
 
     Leaves are ``(B, ...)`` tensors, one state per session; row ``b`` equals
-    the JAX package's ``checksum_device`` of session ``b``'s state.  The
-    empty pytree digests to ``_INIT_LANES`` as a ``(1, 4)`` tensor on
-    ``device`` (the only case that reads ``device``)."""
-    leaves = tree_leaves(state)
-    if not leaves:
-        init = torch.tensor(_INIT_LANES, dtype=torch.int64, device=resolve_device(device))
-        return u32_to_i32(init).reshape(1, CHECKSUM_LANES)
-    structure = tuple(_leaf_shape_key(l) for l in leaves)
-    lanes = _digest_words([_as_u32_words(l) for l in leaves]).to(torch.int64) & MASK32
-    acc = (_salt_mix(structure, lanes.device) + lanes) & MASK32
-    return u32_to_i32(acc ^ (acc >> 15))
+    the JAX package's ``checksum_device`` of session ``b``'s state.  Each
+    leaf's rows must be evenly strided with contiguous bytes (any contiguous
+    leaf, or a ring slot view ``buf[:, i]``); at most ``digest.MAX_LEAVES``
+    leaves.  The empty pytree digests to ``_INIT_LANES`` as a ``(1, 4)``
+    tensor on ``device`` (the only case that reads ``device``)."""
+    return _digest(state, device, state_digest)
+
+
+def checksum_device_plain(state: Any, device: DeviceLike = None) -> torch.Tensor:
+    """``checksum_device`` through the plain PyTorch version on any device:
+    what the kernel is held against on the card."""
+    return _digest(state, device, state_digest_plain)
 
 
 def lane_sums(words: torch.Tensor, offset: int = 0) -> torch.Tensor:

@@ -27,9 +27,11 @@ Digests are int32 tensors holding u32 bit patterns.  Frames are host ints
 (sessions tick in lockstep), so every ring access is a shared-index slice.
 ``run_*`` never reads a value back to the host and never synchronises.
 
-The d resimulated states are digested one step at a time inside the loop,
-d+1 digest launches per steady tick as in the JAX scan, rather than in one
-launch over (d*B) rows after it.
+The d resimulated states are digested together: the stacked ``(B, d, ...)``
+window that ``save_many`` writes is digested as B*d rows in ONE
+``checksum`` call (one kernel launch on the card), where the JAX scan digests
+each step inside its body.  Every digest is per row, so the values are
+bitwise the same.  A tick, warmup or steady, makes two digest calls.
 """
 
 from __future__ import annotations
@@ -147,20 +149,17 @@ class ReplayPrograms:
         window_inputs = tree_map(
             lambda buf: ring.read_window(buf, frame - d, d), carry["inputs"]
         )
-        states, digests = [], []
+        states = []
         for j in range(d):
             st = self.advance(st, _tick_slice(window_inputs, j))
             states.append(st)
-            digests.append(self.checksum(st))
-        # one save_many for the whole window: states F-d+1 .. F
+        # the window F-d+1 .. F: one digest call over its B*d rows (a view of
+        # the stack), one save_many
         first = frame - d + 1
-        resim_cs = torch.stack(digests, dim=1)  # (B, d, 4)
-        ring.save_many(
-            carry["ring"],
-            first,
-            tree_map(lambda *leaves: torch.stack(leaves, dim=1), *states),
-            resim_cs,
-        )
+        window = tree_map(lambda *leaves: torch.stack(leaves, dim=1), *states)
+        rows = self.checksum(tree_map(lambda leaf: leaf.flatten(0, 1), window))
+        resim_cs = rows.reshape(-1, d, CHECKSUM_LANES)  # (B, d, 4)
+        ring.save_many(carry["ring"], first, window, resim_cs)
         # every window frame has a first-seen digest (frame F's was recorded
         # by the previous tick's live advance), so the whole window is checked
         seen = ring.read_window(carry["hist"], first, d)

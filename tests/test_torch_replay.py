@@ -29,6 +29,8 @@ from ggrs_tpu_torch import (
     build_replay_programs,
     to_numpy,
 )
+from ggrs_tpu_torch.ops.checksum import checksum_device
+from ggrs_tpu_torch.utils.tree import tree_leaves
 
 
 def _inputs(n, players, seed, high=16):
@@ -197,3 +199,63 @@ def test_replay_programs_validate_their_window():
     assert progs.split_at_warmup(0, 20) == 9
     assert progs.split_at_warmup(5, 20) == 4
     assert progs.split_at_warmup(9, 20) == 0
+
+
+# -- the folded resim digest -------------------------------------------------
+
+
+@pytest.mark.parametrize("d", [1, 2, 5, 8])
+def test_folded_steady_ticks_carry_matches_jax(d):
+    # warmup, then 20 steady ticks whose d resim digests are one call each
+    ticks = d + 1 + 20
+    inputs = _inputs(ticks, 3, seed=20 + d)
+    port = DeviceSyncTestSession(
+        BoxGame(3).advance, BoxGame(3).init_state_np(), np.zeros(3, np.uint8),
+        check_distance=d, device="cpu",
+    )
+    jx = JaxSession(
+        JaxBoxGame(3).advance, JaxBoxGame(3).init_state(), jnp.zeros((3,), jnp.uint8),
+        check_distance=d,
+    )
+    port.run_ticks(inputs)
+    jx.run_ticks(inputs)
+    _assert_trees_equal(to_numpy(port.carry), jax.device_get(jx._carry))
+
+
+def test_chipvm_folded_steady_ticks_carry_matches_jax():
+    b, d = 4, 3
+    inputs = np.random.default_rng(21).integers(0, 256, size=(b, d + 1 + 20, 2)).astype(np.uint8)
+    vm = ChipVM(2)
+    port = BatchedSessions(
+        vm.advance, vm.init_state_np(), np.zeros(2, np.uint8), batch_size=b,
+        check_distance=d, max_prediction=d, device="cpu",
+    )
+    jvm = JaxChipVM(2)
+    jx = JaxBatchedSessions(
+        jvm.advance, jvm.init_state(), jnp.zeros((2,), jnp.uint8), batch_size=b,
+        mesh=make_mesh(1), check_distance=d, max_prediction=d,
+    )
+    assert port.run_ticks(inputs) == jx.run_ticks(inputs)
+    _assert_trees_equal(to_numpy(port.carry), jax.device_get(jx._carry))
+
+
+@pytest.mark.parametrize("b,d", [(1, 8), (3, 2)])
+def test_every_tick_makes_two_digest_calls(b, d):
+    calls = []
+
+    def counting(state):
+        calls.append(tree_leaves(state)[0].shape[0])
+        return checksum_device(state)
+
+    game = BoxGame(2)
+    progs = build_replay_programs(game.advance, ring_length=d + 1, check_distance=d,
+                                  checksum=counting)
+    carry = progs.init_carry(game.init_state_np(), np.zeros(2, np.uint8), batch_size=b,
+                             device="cpu")
+    inputs = torch.from_numpy(_inputs(b * (d + 1 + 4), 2, seed=3).reshape(b, d + 1 + 4, 2))
+    progs.run_warmup(carry, inputs[:, : d + 1], 0)
+    assert calls == [b, b] * (d + 1)
+    del calls[:]
+    progs.run_steady(carry, inputs[:, d + 1:], d + 1)
+    assert calls == [b * d, b] * 4  # the window's B*d rows, then the live advance
+    assert int(carry["mismatches"].sum()) == 0
