@@ -26,6 +26,21 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    d = 8, 64 ticks: 0 mismatches; sessions 0-7 rerun on the CPU bitwise
    equal; exactly 2 digest launches per tick.  Kernel launch counts are
    zeroed just before this drive and read just after it.
+5. executor (the request-list path) -- ``SessionBuilder`` -> host
+   ``SyncTestSession`` (check_distance 7, max_prediction 8) ->
+   ``DeviceRequestExecutor`` on the card, for BoxGame(2) over 2,000 frames
+   and ChipVM(2) over 500.  Every ``executor.run`` runs under
+   ``torch.cuda.set_sync_debug_mode("error")``, so a device->host read
+   there fails the run.  Every saved checksum and the final live state
+   equal the same run on the CPU (BoxGame also the NumPy oracle), and the
+   digest launches exactly once per frame (counts zeroed just before each
+   drive).  Host ms per frame, and the digest's device us at the 1 and 7
+   rows the executor digests, with both held bitwise against the plain
+   version.
+6. checkpoint -- the ChipVM B = 16,384, d = 8 batch saved after 32 ticks,
+   loaded into a fresh ``BatchedSessions`` and run 32 more ticks: its carry
+   (16,384 x 2,964 bytes) is bitwise the uninterrupted run's.  File size,
+   save and load seconds.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi prints them, and, last, ``{"ok": true, "device": {...}}``.
@@ -36,8 +51,10 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -47,8 +64,12 @@ from ggrs_tpu_torch import (
     BatchedSessions,
     BoxGame,
     ChipVM,
+    DeviceRequestExecutor,
     DeviceSyncTestSession,
+    SaveGameState,
+    SessionBuilder,
     _build,
+    boxgame_config,
     to_numpy,
 )
 from ggrs_tpu_torch.ops.checksum import checksum_device, checksum_device_plain
@@ -68,6 +89,10 @@ KERNEL_SHAPES = [  # (rows, width, offset)
 ]
 BIG_LEAF_WORDS = 1 << 26  # one 256 MiB leaf
 MAIN_CASE = "chipvm_live"
+EXEC_D, EXEC_MAX_PREDICTION = 7, 8
+EXEC_GAMES = [("BoxGame(2)", BoxGame(2), 2000, 16), ("ChipVM(2)", ChipVM(2), 500, 256)]
+CKPT_TICKS = 32
+CHIPVM_STATE_BYTES = 256 + 4 + 1
 
 
 class SmokeFailure(Exception):
@@ -424,6 +449,154 @@ def phase_batched() -> int:
     return launches
 
 
+def executor_inputs(pairs) -> np.ndarray:
+    return np.asarray([p[0] for p in pairs], np.uint8)
+
+
+def drive_executor(game, inputs: np.ndarray, device):
+    """Play ``inputs`` through SessionBuilder -> SyncTestSession ->
+    DeviceRequestExecutor.  On the card every ``run`` is under the sync
+    debug mode "error", and the digest launch counts are zeroed just before
+    the first frame (after the warmup).  Each frame's saved checksums are
+    read back after its ``run``, as the session reads them next frame.
+    Returns (executor, saved (frame, checksum) per frame, loop seconds, the
+    last frame's saved states)."""
+    sess = (SessionBuilder(boxgame_config()).with_check_distance(EXEC_D)
+            .with_max_prediction_window(EXEC_MAX_PREDICTION).start_synctest_session())
+    ex = DeviceRequestExecutor(game.advance, game.init_state_np(), executor_inputs, device=device)
+    ex.warmup(inputs[0], burst_depths=range(2, EXEC_MAX_PREDICTION + 2))
+    card = ex.device.type == "cuda"
+    saved, saves = [], []
+    state_digest.launches = lane_sums_rows.launches = 0
+    t0 = time.perf_counter()
+    for f in range(len(inputs)):
+        sess.add_local_input(0, int(inputs[f, 0]))
+        sess.add_local_input(1, int(inputs[f, 1]))
+        reqs = sess.advance_frame()
+        if card:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            ex.run(reqs)
+        finally:
+            if card:
+                torch.cuda.set_sync_debug_mode(0)
+        saves = [r for r in reqs if isinstance(r, SaveGameState)]
+        saved.append([(r.frame, r.cell.checksum) for r in saves])
+    ex.block_until_ready()
+    seconds = time.perf_counter() - t0
+    return ex, saved, seconds, [r.cell.data() for r in saves]
+
+
+def sync_caught(fn) -> bool:
+    """Whether ``fn`` raises under the sync debug mode "error"."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError:
+        return True
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return False
+
+
+def phase_executor() -> int:
+    """The request-list path on the card against the CPU; returns the digest
+    launches of the card's drives."""
+    # the guard around executor.run must catch a device->host read
+    item_caught = sync_caught(lambda: torch.ones(1, device="cuda").item())
+    check(item_caught, "executor: the sync debug mode let .item() through")
+    emit({"phase": "executor", "sync_debug_control": {
+        "item_caught": item_caught,
+        "pageable_copy_caught": sync_caught(lambda: torch.ones(2).to("cuda"))}})
+    total = 0
+    for name, game, frames, high in EXEC_GAMES:
+        inputs = np.random.default_rng(17).integers(0, high, size=(frames, 2)).astype(np.uint8)
+        ex, saved, seconds, last = drive_executor(game, inputs, None)
+        launches = state_digest.launches
+        check(lane_sums_rows.launches == 0, f"executor {name}: the digest went around state_digest")
+        check(launches == frames, f"executor {name}: {launches} digest launches, not one per frame ({frames})")
+        cpu, cpu_saved, _, _ = drive_executor(game, inputs, "cpu")
+        check(saved == cpu_saved, f"executor {name}: saved checksums != CPU run")
+        check(trees_equal(to_numpy(ex.state), to_numpy(cpu.state)), f"executor {name}: live state != CPU run")
+        oracle = None
+        if isinstance(game, BoxGame):
+            ref = game.init_state_np()
+            for f in range(frames):
+                ref = game.advance_np(ref, inputs[f])
+            oracle = trees_equal(to_numpy(ex.state), ref)
+            check(oracle, f"executor {name}: live state != NumPy oracle")
+        check(len(last) == EXEC_D, f"executor {name}: the last frame saved {len(last)} states")
+        digest = {}
+        for rows, st in ((1, tree_map(lambda l: l.unsqueeze(0), ex.state)),
+                         (EXEC_D, tree_map(lambda *ls: torch.stack(ls), *last))):
+            got, want = checksum_device(st), checksum_device_plain(st)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"executor {name}: digest of {rows} rows != plain")
+            row_bytes = sum(math.prod(l.shape[1:]) * l.element_size() for l in tree_leaves(st))
+            digest[rows] = {"device_us": graph_us(checksum_device, [st]),
+                            "plain_ms": device_ms(lambda: checksum_device_plain(st), iters=20),
+                            "bound_us": bound_us(row_bytes * rows, rows),
+                            "max_abs_err": u32_err(got, want)}
+        emit({"phase": "executor", "game": name, "check_distance": EXEC_D,
+              "max_prediction": EXEC_MAX_PREDICTION, "frames": frames,
+              "saves": sum(len(s) for s in saved), "equal_to_cpu": True,
+              "equal_to_oracle": oracle, "sync_debug_mode": "error",
+              "host_ms_per_frame": seconds / frames * 1e3,
+              "digest_launches": launches, "digest_launches_per_frame": launches / frames,
+              "digest_us_1_row": digest[1]["device_us"],
+              f"digest_us_{EXEC_D}_rows": digest[EXEC_D]["device_us"],
+              "digest_plain_ms_1_row": digest[1]["plain_ms"],
+              f"digest_plain_ms_{EXEC_D}_rows": digest[EXEC_D]["plain_ms"],
+              "digest_bound_us_1_row": digest[1]["bound_us"],
+              f"digest_bound_us_{EXEC_D}_rows": digest[EXEC_D]["bound_us"],
+              "digest_max_abs_err": max(d["max_abs_err"] for d in digest.values())})
+        total += launches
+    return total
+
+
+def phase_checkpoint() -> None:
+    vm = ChipVM(2)
+    inputs = torch.from_numpy(np.random.default_rng(13).integers(
+        0, 256, size=(BATCH, 2 * CKPT_TICKS, 2)).astype(np.uint8)).cuda()
+
+    def fresh():
+        return BatchedSessions(vm.advance, vm.init_state_np(), np.zeros(2, np.uint8),
+                               batch_size=BATCH, check_distance=D, max_prediction=D)
+
+    a = fresh()
+    a.run_ticks(inputs[:, :CKPT_TICKS], check=False)
+    carry_bytes = sum(l.numel() * l.element_size() for l in tree_leaves(a.carry))
+    ring = D + 1  # states, digests, frames, inputs, history; live; 3 counters
+    per_session = ring * (CHIPVM_STATE_BYTES + 16 + 4 + 2 + 16) + CHIPVM_STATE_BYTES + 12
+    check(carry_bytes == BATCH * per_session,
+          f"checkpoint: carry holds {carry_bytes} bytes, the layout counts {BATCH * per_session}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "batch.npz")
+        a.block_until_ready()
+        t0 = time.perf_counter()
+        a.save_checkpoint(path)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        a.run_ticks(inputs[:, CKPT_TICKS:], check=False)
+        b = fresh()
+        b.block_until_ready()
+        t0 = time.perf_counter()
+        b.load_checkpoint(path)
+        b.block_until_ready()
+        load_s = time.perf_counter() - t0
+    check(b.current_frame == CKPT_TICKS, f"checkpoint: resumed at frame {b.current_frame}")
+    b.run_ticks(inputs[:, CKPT_TICKS:], check=False)
+    stats = a.verify()
+    check(stats["mismatches"] == 0, f"checkpoint: {stats['mismatches']} mismatches")
+    check(b.verify() == stats, "checkpoint: resumed batch's stats differ")
+    check(all(torch.equal(x, y) for x, y in zip(tree_leaves(a.carry), tree_leaves(b.carry))),
+          "checkpoint: resumed carry != uninterrupted carry")
+    emit({"phase": "checkpoint", "game": "ChipVM(2)", "sessions": BATCH, "check_distance": D,
+          "ticks_before": CKPT_TICKS, "ticks_after": CKPT_TICKS, "carry_bytes": carry_bytes,
+          "bytes_per_session": per_session, "file_bytes": size, "save_s": save_s,
+          "load_s": load_s, "resumed_bitwise_equal": True, "mismatches": 0})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs the card",
@@ -437,11 +610,13 @@ def main() -> int:
     worst = max([worst] + [c["max_abs_err"] for c in cases.values()])
     phase_flagship()
     launches = phase_batched()
+    exec_launches = phase_executor()
+    phase_checkpoint()
     main_case = cases[MAIN_CASE]
     emit({"kernels": [{
         "name": "digest", "route": "cuda", "source": "ggrs_tpu_torch/csrc/digest.cu",
         "replaces": "ggrs_tpu/ops/pallas_checksum.py:66",
-        "launches": launches, "max_abs_err": worst,
+        "launches": launches, "launches_executor": exec_launches, "max_abs_err": worst,
         "ms": main_case["device_us"] / 1e3, "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_us"] / 1e3, "bound_by": "bytes", "library_ms": None,
     }]})

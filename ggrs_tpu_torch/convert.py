@@ -23,28 +23,38 @@ from .core.device import DeviceLike, resolve_device
 DIGEST_KEYS = ("hist", "checksums")
 
 
-def _to_tensor(leaf: Any, device: torch.device) -> torch.Tensor:
-    if isinstance(leaf, torch.Tensor):
-        return leaf.to(device)
+def _host_tensor(leaf: Any) -> torch.Tensor:
     arr = np.array(leaf)  # copies: device_get's arrays are read-only
     if arr.dtype == np.uint32:
         arr = arr.view(np.int32)
-    return torch.from_numpy(arr).to(device)
+    return torch.from_numpy(arr)
 
 
 def from_numpy(tree: Any, device: DeviceLike = None) -> Any:
     """Pytree of numpy arrays (or scalars, or tensors) -> pytree of tensors on
-    ``device``; dict keys come back sorted, as ``jax.tree_util`` orders them."""
+    ``device``; dict keys come back sorted, as ``jax.tree_util`` orders them.
+
+    Host arrays bound for a CUDA device are copied into pinned memory and
+    sent with ``non_blocking=True``, so they never make the host wait for
+    the card; PyTorch's caching host allocator keeps the pinned block until
+    its copy has completed.  Tensors are moved with ``.to(device)``."""
     dev = resolve_device(device)
-    return _map(lambda leaf, _key: _to_tensor(leaf, dev), tree)
+
+    def conv(leaf: Any, _key: Any) -> torch.Tensor:
+        if isinstance(leaf, torch.Tensor):
+            return leaf.to(dev)
+        t = _host_tensor(leaf)
+        return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
+
+    return _map(conv, tree)
 
 
 def to_numpy(tree: Any) -> Any:
-    """Pytree of tensors -> pytree of numpy arrays on the host; leaves under a
-    ``DIGEST_KEYS`` key come back as ``uint32``."""
+    """Pytree of tensors (or numpy arrays) -> pytree of numpy arrays on the
+    host; int32 leaves under a ``DIGEST_KEYS`` key come back as ``uint32``."""
 
-    def conv(leaf: torch.Tensor, key: Any) -> np.ndarray:
-        arr = leaf.detach().cpu().numpy()
+    def conv(leaf: Any, key: Any) -> np.ndarray:
+        arr = leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
         if key in DIGEST_KEYS and arr.dtype == np.int32:
             arr = arr.view(np.uint32)
         return arr

@@ -1,0 +1,196 @@
+"""Session parameterization: the analog of the reference's ``Config`` trait.
+
+The port's own copy of ``ggrs_tpu/core/config.py`` (reference: GGRS
+src/lib.rs:244-262 and the fork's pluggable ``InputPredictor``,
+lib.rs:374-406).  ``Config`` is a frozen dataclass carrying the behavioral
+pieces: the default ("blank") input, the wire encoding, equality, and the
+prediction strategy.
+"""
+
+from __future__ import annotations
+
+import struct
+from dataclasses import dataclass, field
+from typing import Any, Callable, Generic, Optional, TypeVar
+
+from .varrec import envelope_pack, envelope_size, envelope_unpack
+
+I = TypeVar("I")
+
+
+class InputPredictor(Generic[I]):
+    """Strategy for predicting the next input from the previous one.
+
+    When no previous input exists the session uses the default input without
+    consulting the predictor (reference: src/input_queue.rs:144-148)."""
+
+    def predict(self, previous: I) -> I:
+        raise NotImplementedError
+
+
+class PredictRepeatLast(InputPredictor[I]):
+    """Predicts the next input is identical to the last received input
+    (reference: src/lib.rs:388-393)."""
+
+    def predict(self, previous: I) -> I:
+        return previous
+
+
+class PredictDefault(InputPredictor[I]):
+    """Always predicts the default input (reference: src/lib.rs:401-406)."""
+
+    def __init__(self, default_factory: Optional[Callable[[], I]] = None) -> None:
+        if default_factory is not None and not callable(default_factory):
+            raise TypeError(
+                "PredictDefault takes a zero-arg default FACTORY, not a "
+                f"default value (got {default_factory!r}); pass "
+                "PredictDefault() to use the config's own default"
+            )
+        self._default_factory = default_factory
+
+    def predict(self, previous: I) -> I:
+        if self._default_factory is None:
+            raise ValueError(
+                "PredictDefault has no default factory; Config binds one at "
+                "construction -- construct the predictor via Config(...) or pass "
+                "default_factory explicitly"
+            )
+        return self._default_factory()
+
+
+class PredictCustom(InputPredictor[I]):
+    """Wraps a user callable ``previous -> next`` as a predictor."""
+
+    def __init__(self, fn: Callable[[I], I]) -> None:
+        self._fn = fn
+
+    def predict(self, previous: I) -> I:
+        return self._fn(previous)
+
+
+def _default_eq(a: Any, b: Any) -> bool:
+    return a == b
+
+
+@dataclass(frozen=True)
+class Config:
+    """Bundles the session's type behavior (reference: src/lib.rs:244-262).
+
+    input_default  -- zero-arg factory for the "no input" value (blank inputs
+                      and disconnected players).
+    input_encode   -- input -> bytes, the only game data that crosses the wire.
+    input_decode   -- bytes -> input.
+    input_eq       -- equality used for misprediction detection; defaults to ==.
+    predictor      -- InputPredictor strategy, default repeat-last.
+    native_input_size -- byte width of every encoded input when the encoding
+                      is fixed-size and injective with an all-zero default
+                      (set by for_uint / for_struct / for_varrec), else None.
+    """
+
+    input_default: Callable[[], Any]
+    input_encode: Callable[[Any], bytes]
+    input_decode: Callable[[bytes], Any]
+    input_eq: Callable[[Any, Any], bool] = field(default=_default_eq)
+    predictor: InputPredictor = field(default_factory=PredictRepeatLast)
+    native_input_size: Optional[int] = None
+
+    def __post_init__(self) -> None:
+        # a bare PredictDefault() predicts the config's own default input;
+        # rebuilt with the same type so subclasses keep theirs
+        if (
+            isinstance(self.predictor, PredictDefault)
+            and self.predictor._default_factory is None
+        ):
+            object.__setattr__(
+                self, "predictor", type(self.predictor)(self.input_default)
+            )
+
+    # -- constructors for common input shapes ------------------------------
+
+    @staticmethod
+    def for_uint(bits: int = 32, predictor: Optional[InputPredictor] = None) -> "Config":
+        """Input is a non-negative int packed little-endian into bits//8 bytes."""
+        if bits not in (8, 16, 32, 64):
+            raise ValueError("bits must be one of 8, 16, 32, 64")
+        fmt = {8: "<B", 16: "<H", 32: "<I", 64: "<Q"}[bits]
+        return Config(
+            input_default=lambda: 0,
+            input_encode=lambda v: struct.pack(fmt, v),
+            input_decode=lambda b: struct.unpack(fmt, b)[0],
+            predictor=predictor if predictor is not None else PredictRepeatLast(),
+            native_input_size=bits // 8,
+        )
+
+    @staticmethod
+    def for_bytes(predictor: Optional[InputPredictor] = None) -> "Config":
+        """Input is a raw ``bytes`` object (variable length allowed)."""
+        return Config(
+            input_default=lambda: b"",
+            input_encode=lambda v: bytes(v),
+            input_decode=lambda b: bytes(b),
+            predictor=predictor if predictor is not None else PredictRepeatLast(),
+        )
+
+    @staticmethod
+    def for_varrec(
+        capacity: int,
+        encode: Optional[Callable[[Any], bytes]] = None,
+        decode: Optional[Callable[[bytes], Any]] = None,
+        default: Optional[Callable[[], Any]] = None,
+        predictor: Optional[InputPredictor] = None,
+    ) -> "Config":
+        """Variable-length byte records in a fixed envelope (``core/varrec``).
+
+        ``encode`` must be injective up to ``input_eq``, and the default
+        record must encode to ``b""`` (the all-zero envelope)."""
+        size = envelope_size(capacity)
+        rec_encode = encode if encode is not None else bytes
+        rec_decode = decode if decode is not None else bytes
+        rec_default = default if default is not None else (lambda: b"")
+        if rec_encode(rec_default()) != b"":
+            raise ValueError(
+                "for_varrec requires the default record to encode to b'' "
+                "(the all-zero envelope must be the default input)"
+            )
+
+        def _encode(v: Any) -> bytes:
+            return envelope_pack(rec_encode(v), capacity)
+
+        def _decode(b: bytes) -> Any:
+            return rec_decode(envelope_unpack(b))
+
+        return Config(
+            input_default=rec_default,
+            input_encode=_encode,
+            input_decode=_decode,
+            predictor=predictor if predictor is not None else PredictRepeatLast(),
+            native_input_size=size,
+        )
+
+    @staticmethod
+    def for_struct(fmt: str, predictor: Optional[InputPredictor] = None) -> "Config":
+        """Input is a tuple packed with ``struct`` format ``fmt``."""
+        size = struct.calcsize(fmt)
+
+        def _default() -> tuple:
+            return struct.unpack(fmt, b"\x00" * size)
+
+        def _encode(v: tuple) -> bytes:
+            return struct.pack(fmt, *v)
+
+        def _decode(b: bytes) -> tuple:
+            return struct.unpack(fmt, b)
+
+        return Config(
+            input_default=_default,
+            input_encode=_encode,
+            input_decode=_decode,
+            predictor=predictor if predictor is not None else PredictRepeatLast(),
+            # byte equality is value equality only for integer codes and pad
+            # bytes: floats, 's'/'p' and '?' break it
+            native_input_size=(
+                size
+                if all(ch in "bBhHiIlLqQnNx<>=!@0123456789 \t" for ch in fmt)
+                else None
+            ),
+        )

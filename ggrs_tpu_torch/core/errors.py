@@ -1,16 +1,25 @@
-"""Error taxonomy: the port's own copy of the three classes the device
-replay raises (the JAX package's ``ggrs_tpu/core/errors.py`` defines the
-full set; reference: GGRS src/error.rs:8-55)."""
+"""Error taxonomy: the port's own copy of ``ggrs_tpu/core/errors.py``
+(reference: GGRS src/error.rs:8-55)."""
 
 from __future__ import annotations
 
 from typing import List
 
-Frame = int
+from .types import Frame
 
 
 class GgrsError(Exception):
     """Base class for all framework errors."""
+
+
+class PredictionThreshold(GgrsError):
+    """The prediction threshold has been reached; cannot accept more local
+    inputs without catching up."""
+
+    def __init__(self) -> None:
+        super().__init__(
+            "Prediction threshold is reached, cannot proceed without catching up."
+        )
 
 
 class InvalidRequest(GgrsError):
@@ -31,3 +40,51 @@ class MismatchedChecksum(GgrsError):
         )
         self.current_frame = current_frame
         self.mismatched_frames = mismatched_frames
+
+
+class NotSynchronized(GgrsError):
+    """Raised by advance_frame while the opt-in sync handshake is still
+    completing."""
+
+    def __init__(self) -> None:
+        super().__init__("The session is not yet synchronized with all remote sessions.")
+
+
+class SpectatorTooFarBehind(GgrsError):
+    """The spectator fell so far behind the host that catching up is impossible."""
+
+    def __init__(self) -> None:
+        super().__init__(
+            "The spectator got so far behind the host that catching up is impossible."
+        )
+
+
+class NetworkStatsError(GgrsError):
+    """Network statistics are unavailable or requested for a bad handle
+    (reference: src/error.rs:8-13)."""
+
+
+class StatsUnavailable(NetworkStatsError):
+    def __init__(self) -> None:
+        super().__init__("Network statistics are unavailable for this player.")
+
+
+class BadPlayerHandle(NetworkStatsError):
+    def __init__(self) -> None:
+        super().__init__("Network statistics were requested for an invalid player handle.")
+
+
+class CrossThreadAccess(GgrsError):
+    """A session was driven from a thread other than its owner.
+
+    Sessions are ``Send`` but not ``Sync`` in the reference: one may be
+    handed off between threads, but never driven from two at once.  The
+    first driving call pins the owning thread; ``transfer_ownership()``
+    from the new thread hands a session off."""
+
+    def __init__(self) -> None:
+        super().__init__(
+            "Session driven from a thread other than its owner. Sessions "
+            "are single-threaded (the reference's Send-not-Sync contract); "
+            "call transfer_ownership() from the new thread to hand off."
+        )

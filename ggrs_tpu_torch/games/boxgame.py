@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..convert import from_numpy
+from ..core.config import Config
 from ..core.device import DeviceLike
 
 BOX_INPUT_UP = 1 << 0
@@ -134,3 +135,8 @@ class BoxGame:
         window = np.asarray([WINDOW_W, WINDOW_H], np.int32)
         pos = np.remainder(state["pos"] + vel, window).astype(np.int32)
         return {"pos": pos, "vel": vel, "rot": rot}
+
+
+def boxgame_config() -> Config:
+    """Host-session Config for BoxGame inputs (one u8 bitmask per player)."""
+    return Config.for_uint(bits=8)

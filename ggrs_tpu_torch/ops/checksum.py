@@ -160,7 +160,11 @@ def pytree_checksum(state: Any, device: DeviceLike = None) -> int:
 class DeviceChecksum:
     """A lazily-materialized checksum: holds the ``(4,)`` int32 lane tensor
     on device and converts to the u128 wire integer only when something
-    needs the value (``int(cs)`` / ``materialize()``)."""
+    needs the value (``int(cs)`` / ``materialize()``).
+
+    The lanes may be one row of a ``(k, 4)`` digest of several states (the
+    executor's burst digests all its saves in one launch): the row is a view,
+    so it keeps the whole ``(k, 4)`` result alive until it is read."""
 
     __slots__ = ("_lanes", "_value")
 

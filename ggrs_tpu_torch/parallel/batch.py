@@ -5,7 +5,7 @@ card and no mesh: the JAX package vmaps a per-session program and shards the
 batch over chips with ``shard_map``; here every game ``advance`` is
 batch-native, so B sessions are one batched replay, and the health
 reductions (``psum`` / ``pmin`` over the mesh there) are a plain ``sum`` /
-``min`` on device.  Multi-GPU batching and checkpoints are not ported yet.
+``min`` on device.  Multi-GPU batching is not ported yet.
 """
 
 from __future__ import annotations
@@ -16,7 +16,9 @@ import torch
 
 from ..convert import from_numpy, to_numpy
 from ..core.device import DeviceLike, resolve_device
+from ..core.errors import InvalidRequest
 from ..ops.replay import I32_MAX, ReplayPrograms, build_replay_programs
+from ..utils.checkpoint import load_pytree, save_pytree
 from ..utils.tracing import trace_span
 from ..utils.tree import tree_leaves, tree_map
 
@@ -106,6 +108,40 @@ class BatchedSessions:
     def live_states(self) -> Any:
         """All B live states, fetched to host (leading axis B)."""
         return to_numpy(self._carry["live"])
+
+    # -- durable checkpoints (the reference keeps its saved states in memory) --
+
+    def save_checkpoint(self, path: str) -> None:
+        """Write every session's carry, ``(B, ...)`` leaves, and the tick
+        count to ``path``, in the JAX package's ``BatchedSessions`` layout."""
+        save_pytree(
+            path,
+            self._carry,
+            {
+                "ticks_run": self._ticks_run,
+                "check_distance": self.check_distance,
+                "batch_size": self.batch_size,
+            },
+        )
+
+    def load_checkpoint(self, path: str) -> None:
+        """Restore a checkpoint written by either package's
+        ``save_checkpoint`` into this batch (same game, batch_size and
+        check_distance), into its preallocated carry."""
+        carry, meta = load_pytree(path, self._carry)
+        if meta["check_distance"] != self.check_distance:
+            raise InvalidRequest(
+                f"checkpoint was taken at check_distance="
+                f"{meta['check_distance']}, batch uses {self.check_distance}"
+            )
+        if meta["batch_size"] != self.batch_size:
+            raise InvalidRequest(
+                f"checkpoint holds {meta['batch_size']} sessions, batch was "
+                f"built for {self.batch_size}"
+            )
+        tree_map(lambda dst, src: dst.copy_(src), self._carry, from_numpy(carry, self.device))
+        self._ticks_run = int(meta["ticks_run"])
+        self._last_stats = None
 
     def block_until_ready(self) -> None:
         if self.device.type == "cuda":

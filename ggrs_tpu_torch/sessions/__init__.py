@@ -1,3 +1,5 @@
+from .builder import SessionBuilder
 from .device_synctest import DeviceSyncTestSession
+from .synctest import SyncTestSession
 
-__all__ = ["DeviceSyncTestSession"]
+__all__ = ["DeviceSyncTestSession", "SessionBuilder", "SyncTestSession"]

@@ -26,6 +26,7 @@ from ..core.device import DeviceLike, resolve_device
 from ..core.errors import InvalidRequest, MismatchedChecksum
 from ..ops.checksum import checksum_device
 from ..ops.replay import I32_MAX, ReplayPrograms, build_replay_programs
+from ..utils.checkpoint import load_pytree, save_pytree
 from ..utils.tracing import trace_span
 from ..utils.tree import tree_leaves, tree_map
 
@@ -66,6 +67,31 @@ class DeviceSyncTestSession:
     @property
     def programs(self) -> ReplayPrograms:
         return self._programs
+
+    # -- durable checkpoints (the reference keeps its saved states in memory) --
+
+    def save_checkpoint(self, path: str) -> None:
+        """Write the whole carry (state, input and digest rings, live state,
+        desync counters) and the tick count to ``path``, in the JAX package's
+        single-session layout: a JAX ``DeviceSyncTestSession`` loads it."""
+        save_pytree(
+            path, self.carry,
+            {"ticks_run": self._ticks_run, "check_distance": self.check_distance},
+        )
+
+    def load_checkpoint(self, path: str) -> None:
+        """Restore a checkpoint written by either package's
+        ``save_checkpoint`` for the same game and config (leaf shapes and
+        dtypes and check_distance are validated), into the session's
+        preallocated carry."""
+        carry, meta = load_pytree(path, self.carry)
+        if meta["check_distance"] != self.check_distance:
+            raise InvalidRequest(
+                f"checkpoint was taken at check_distance="
+                f"{meta['check_distance']}, session uses {self.check_distance}"
+            )
+        tree_map(lambda dst, src: dst.copy_(src), self.carry, from_numpy(carry, self.device))
+        self._ticks_run = int(meta["ticks_run"])
 
     @property
     def carry(self) -> Any:

@@ -2,25 +2,34 @@
 """Where a tick's time goes in the PyTorch / CUDA port, on one card.
 
     python3 scripts/port_tick_profile.py [--batch 16384] [--ticks 4]
+    python3 scripts/port_tick_profile.py --executor [--frames 32]
 
 Runs the port's batched replay (ChipVM(2), B sessions, check_distance 8) and
 the flagship (BoxGame(2), one session, check_distance 8) past warmup, then
 times a few steady ticks of each, then traces as many more with
-``torch.profiler``.  Prints one JSON line per workload: host wall time per
-tick (untraced, and traced), device busy time per tick (sum of
-kernel times; one stream, so kernels do not overlap), the device's idle
-share, kernel launches per tick, and the kernels that take the most device
-time.  The whole digest is the digest kernel (found by name) plus every
-other kernel launched inside the replay's checksum calls, which are wrapped
-in a ``ggrs:digest`` range for the traced ticks only: so the packing ops of
-an older digest count too.  (The profiler does not tie a kernel launched
-through ctypes to the range around it, hence the name.)  If the profiler
-records no device time, the device numbers print as "not measured".
+``torch.profiler``.  With ``--executor`` it does the same for frames of the
+request-list path instead: ``SessionBuilder`` -> ``SyncTestSession`` ->
+``DeviceRequestExecutor`` at check_distance 7 (max_prediction 8), for
+BoxGame(2) and ChipVM(2); a frame is ``advance_frame``, ``run`` and reading
+back the frame's saved checksums, as the session reads them next frame.
+
+Prints one JSON line per workload: host wall time per tick or frame
+(untraced, and traced), device busy time (sum of kernel times; one stream,
+so kernels do not overlap), the device's idle share, kernel launches, and
+the kernels that take the most device time; for the executor also the host
+ms of ``advance_frame`` and of ``run``.  The whole digest is the digest
+kernel (found by name) plus every other kernel launched inside the digest
+calls, which are wrapped in a ``ggrs:digest`` range for the traced window
+only: so the packing ops of an older digest count too.  (The profiler does
+not tie a kernel launched through ctypes to the range around it, hence the
+name.)  If the profiler records no device time, the device numbers print as
+"not measured".
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -34,9 +43,20 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from ggrs_tpu_torch import BatchedSessions, BoxGame, ChipVM, DeviceSyncTestSession  # noqa: E402
+from ggrs_tpu_torch import (  # noqa: E402
+    BatchedSessions,
+    BoxGame,
+    ChipVM,
+    DeviceRequestExecutor,
+    DeviceSyncTestSession,
+    SaveGameState,
+    SessionBuilder,
+    boxgame_config,
+)
+from ggrs_tpu_torch.ops import executor as executor_mod  # noqa: E402
 
 D = 8
+EXEC_D, EXEC_MAX_PREDICTION = 7, 8
 DIGEST_KERNELS = ("state_digest", "lane_sums_rows")  # the digest kernel, now and before its redesign
 
 
@@ -60,20 +80,40 @@ def _span_kernels(evt):
     return us, n
 
 
-def _trace_digest(owner) -> None:
-    """Wrap ``owner._programs.checksum`` in a ``ggrs:digest`` range."""
-    plain = owner._programs.checksum
-
+def _in_digest_range(fn):
     def traced(state):
         with record_function("ggrs:digest"):
-            return plain(state)
+            return fn(state)
 
-    owner._programs = dataclasses.replace(owner._programs, checksum=traced)
+    return traced
 
 
-def profile_ticks(name: str, run_tick, sync, ticks: int, owner) -> dict:
+@contextlib.contextmanager
+def replay_digest_range(owner):
+    """Wrap ``owner._programs.checksum`` in a ``ggrs:digest`` range."""
+    untraced = owner._programs
+    owner._programs = dataclasses.replace(untraced, checksum=_in_digest_range(untraced.checksum))
+    try:
+        yield
+    finally:
+        owner._programs = untraced
+
+
+@contextlib.contextmanager
+def executor_digest_range():
+    """Wrap the executor's ``checksum_device`` in a ``ggrs:digest`` range."""
+    untraced = executor_mod.checksum_device
+    executor_mod.checksum_device = _in_digest_range(untraced)
+    try:
+        yield
+    finally:
+        executor_mod.checksum_device = untraced
+
+
+def profile_ticks(name: str, run_tick, sync, ticks: int, digest_range) -> dict:
     """Time ``ticks`` steady ticks untraced (the wall the idle share is taken
-    against: tracing slows the host), then trace ``ticks`` more."""
+    against: tracing slows the host), then trace ``ticks`` more with the
+    digest calls inside ``digest_range()``."""
     run_tick()
     sync()
     t0 = time.perf_counter()
@@ -81,15 +121,12 @@ def profile_ticks(name: str, run_tick, sync, ticks: int, owner) -> dict:
         run_tick()
     sync()
     plain_wall = time.perf_counter() - t0
-    untraced = owner._programs
-    _trace_digest(owner)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with digest_range(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(ticks):
             run_tick()
         sync()
         traced_wall = time.perf_counter() - t0
-    owner._programs = untraced
     # record_function ranges ("ggrs:...") also appear as device-side
     # annotations spanning their kernels; only kernels count as busy time
     kernels = [
@@ -139,11 +176,55 @@ def profile_ticks(name: str, run_tick, sync, ticks: int, owner) -> dict:
     return rec
 
 
+def profile_executor(name: str, game, high: int, frames: int, sync) -> dict:
+    """Frames of the request-list path past warmup: ``frames`` untraced,
+    then ``frames`` traced; also the host ms per frame of ``advance_frame``,
+    of ``run`` and of reading the saved checksums back (where the host
+    waits for the card), over both windows."""
+    sess = (SessionBuilder(boxgame_config()).with_check_distance(EXEC_D)
+            .with_max_prediction_window(EXEC_MAX_PREDICTION).start_synctest_session())
+    ex = DeviceRequestExecutor(
+        game.advance, game.init_state_np(),
+        lambda pairs: np.asarray([p[0] for p in pairs], np.uint8))
+    ex.warmup(np.zeros(2, np.uint8), burst_depths=range(2, EXEC_MAX_PREDICTION + 2))
+    inputs = np.random.default_rng(7).integers(0, high, size=(EXEC_D + 4 + 3 * frames, 2))
+    split = {"advance_frame": 0.0, "run": 0.0, "read_checksums": 0.0}
+    it = iter(range(len(inputs)))
+
+    def frame() -> None:
+        f = next(it)
+        sess.add_local_input(0, int(inputs[f, 0]))
+        sess.add_local_input(1, int(inputs[f, 1]))
+        t0 = time.perf_counter()
+        reqs = sess.advance_frame()
+        t1 = time.perf_counter()
+        ex.run(reqs)
+        t2 = time.perf_counter()
+        for r in reqs:
+            if isinstance(r, SaveGameState):
+                r.cell.checksum  # the session reads these next frame
+        split["advance_frame"] += t1 - t0
+        split["run"] += t2 - t1
+        split["read_checksums"] += time.perf_counter() - t2
+
+    for _ in range(EXEC_D + 3):
+        frame()
+    sync()
+    split.update(advance_frame=0.0, run=0.0, read_checksums=0.0)
+    rec = profile_ticks(name, frame, sync, frames, executor_digest_range)
+    # split covers the untimed first frame, the untraced and the traced window
+    return rec, {k: v / (2 * frames + 1) * 1e3 for k, v in split.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=16384)
     ap.add_argument("--ticks", type=int, default=4,
                     help="ChipVM ticks per window; the flagship runs 32 times as many")
+    ap.add_argument("--executor", action="store_true",
+                    help="profile frames of the request-list path instead")
+    ap.add_argument("--frames", type=int, default=32,
+                    help="executor frames per window (ChipVM runs a quarter as many)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("port_tick_profile: needs a CUDA card", file=sys.stderr)
@@ -154,6 +235,13 @@ def main() -> int:
     ).stdout.strip()
     print(json.dumps({"card": smi}), flush=True)
     sync = torch.cuda.synchronize
+    if args.executor:
+        for name, game, high, frames in (("BoxGame(2)", BoxGame(2), 16, args.frames),
+                                         ("ChipVM(2)", ChipVM(2), 256, max(1, args.frames // 4))):
+            _, split = profile_executor(f"executor frame {name} d={EXEC_D}", game, high, frames, sync)
+            print(json.dumps({"workload": f"executor frame {name} d={EXEC_D}",
+                              "host_ms_per_frame": split}), flush=True)
+        return 0
     rng = np.random.default_rng(5)
 
     vm = ChipVM(2)
@@ -166,7 +254,7 @@ def main() -> int:
     it = iter(range(D + 3, n))
     profile_ticks(f"batched ChipVM(2) B={args.batch} d={D}",
                   lambda: batch.run_ticks(inputs[:, next(it)].unsqueeze(1), check=False),
-                  sync, args.ticks, batch)
+                  sync, args.ticks, lambda: replay_digest_range(batch))
     if batch.verify()["mismatches"]:
         print("port_tick_profile: batched run mismatched", file=sys.stderr)
         return 1
@@ -181,7 +269,7 @@ def main() -> int:
     it2 = iter(range(D + 3, D + 4 + 2 * ticks))
     profile_ticks(f"flagship BoxGame(2) d={D}",
                   lambda: sess.run_ticks(box_in[next(it2)].unsqueeze(0), check=False),
-                  sync, ticks, sess)
+                  sync, ticks, lambda: replay_digest_range(sess))
     sess.verify()
     return 0
 

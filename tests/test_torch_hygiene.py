@@ -12,7 +12,13 @@ import pytest
 import torch
 
 import ggrs_tpu_torch
-from ggrs_tpu_torch import BatchedSessions, BoxGame, ChipVM, DeviceSyncTestSession
+from ggrs_tpu_torch import (
+    BatchedSessions,
+    BoxGame,
+    ChipVM,
+    DeviceRequestExecutor,
+    DeviceSyncTestSession,
+)
 from ggrs_tpu_torch.core.device import resolve_device
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -26,6 +32,8 @@ def test_package_imports_with_jax_blocked():
         "sys.modules['ggrs_tpu'] = None\n"
         "import ggrs_tpu_torch, ggrs_tpu_torch.ops.replay, ggrs_tpu_torch.parallel.batch\n"
         "import ggrs_tpu_torch.sessions.device_synctest, ggrs_tpu_torch._build\n"
+        "import ggrs_tpu_torch.ops.executor, ggrs_tpu_torch.sessions.builder\n"
+        "import ggrs_tpu_torch.utils.checkpoint, ggrs_tpu_torch.core.sync_layer\n"
         "import chip_smoke\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
         "print('ok')\n"
@@ -69,6 +77,8 @@ def test_default_device_is_cuda_and_raises_without_it():
         BatchedSessions(vm.advance, vm.init_state_np(), np.zeros(2, np.uint8), batch_size=2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         game.init_state()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DeviceRequestExecutor(game.advance, game.init_state_np(), lambda pairs: None)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
