@@ -29,7 +29,7 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
 5. executor (the request-list path) -- ``SessionBuilder`` -> host
    ``SyncTestSession`` (check_distance 7, max_prediction 8) ->
    ``DeviceRequestExecutor`` on the card, for BoxGame(2) over 2,000 frames
-   and ChipVM(2) over 500.  Every ``executor.run`` runs under
+   and ChipVM(2) over 250.  Every ``executor.run`` runs under
    ``torch.cuda.set_sync_debug_mode("error")``, so a device->host read
    there fails the run.  Every saved checksum and the final live state
    equal the same run on the CPU (BoxGame also the NumPy oracle), and the
@@ -41,9 +41,26 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    loaded into a fresh ``BatchedSessions`` and run 32 more ticks: its carry
    (16,384 x 2,964 bytes) is bitwise the uninterrupted run's.  File size,
    save and load seconds.
+7. p2p (the P2P rollback path) -- two ``P2PSession`` peers in one process,
+   built by ``SessionBuilder.add_player(...).start_p2p_session``, each with
+   its own ``DeviceRequestExecutor`` on the card, linked by a seeded
+   ``InMemoryNetwork`` with 5 % loss, 5 % reordering and 3 ticks of latency,
+   on a fake 16 ms clock, with desync detection at interval 1: BoxGame(2)
+   for 1,500 frames and ChipVM(2) for 150.  Inputs change every few frames,
+   so rollbacks come regularly.  0 ``DesyncDetected``; every checksum each
+   peer sent and both final live states equal the same seeded run on the
+   CPU (BoxGame also the NumPy oracle); every ``executor.run`` runs under
+   the sync debug mode "error"; the digest's launches (counts zeroed just
+   before the drive) equal the count the request lists predict: one per
+   burst that saves plus one per lone Save.  Rollbacks, depth, kernels and
+   digest launches per frame, host ms per frame split into
+   ``poll_remote_clients``, ``advance_frame`` (with its checksum read) and
+   ``run``.  A second, short BoxGame drive corrupts peer B's live state and
+   must raise ``DesyncDetected`` with unequal checksums.
 
-Then one ``{"kernels": [...]}`` line, the card's name and power limit as
-nvidia-smi prints them, and, last, ``{"ok": true, "device": {...}}``.
+Then the seconds each phase took, one ``{"kernels": [...]}`` line, the
+card's name and power limit as nvidia-smi prints them, and, last,
+``{"ok": true, "device": {...}}``.
 Exits non-zero with no result when CUDA is not available.
 """
 
@@ -52,6 +69,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import random
 import subprocess
 import sys
 import tempfile
@@ -61,17 +79,24 @@ import numpy as np
 import torch
 
 from ggrs_tpu_torch import (
+    AdvanceFrame,
     BatchedSessions,
     BoxGame,
     ChipVM,
+    DesyncDetected,
+    DesyncDetection,
     DeviceRequestExecutor,
     DeviceSyncTestSession,
+    InMemoryNetwork,
+    Local,
+    Remote,
     SaveGameState,
     SessionBuilder,
     _build,
     boxgame_config,
     to_numpy,
 )
+from ggrs_tpu_torch.obs import FlightRecorder
 from ggrs_tpu_torch.ops.checksum import checksum_device, checksum_device_plain
 from ggrs_tpu_torch.ops.digest import lane_sums_rows, lane_sums_rows_plain, state_digest
 from ggrs_tpu_torch.utils.tree import tree_leaves, tree_map
@@ -90,9 +115,15 @@ KERNEL_SHAPES = [  # (rows, width, offset)
 BIG_LEAF_WORDS = 1 << 26  # one 256 MiB leaf
 MAIN_CASE = "chipvm_live"
 EXEC_D, EXEC_MAX_PREDICTION = 7, 8
-EXEC_GAMES = [("BoxGame(2)", BoxGame(2), 2000, 16), ("ChipVM(2)", ChipVM(2), 500, 256)]
+# ChipVM's executor drive is cut from 500 frames to 250 to keep the whole
+# run near 5 minutes on a slow host now that phase 7 runs too
+EXEC_GAMES = [("BoxGame(2)", BoxGame(2), 2000, 16), ("ChipVM(2)", ChipVM(2), 250, 256)]
 CKPT_TICKS = 32
 CHIPVM_STATE_BYTES = 256 + 4 + 1
+P2P_GAMES = [("BoxGame(2)", BoxGame(2), 1500, 200), ("ChipVM(2)", ChipVM(2), 150, 40)]
+P2P_NET = dict(seed=2026, loss=0.05, reorder=0.05, latency_ticks=3)
+P2P_TICK_MS, P2P_DRAIN, P2P_MAX_PREDICTION = 16, 20, 8
+P2P_CORRUPT_FRAMES, P2P_CORRUPT_FROM, P2P_CORRUPT_FOR = 90, 30, 10
 
 
 class SmokeFailure(Exception):
@@ -597,26 +628,215 @@ def phase_checkpoint() -> None:
           "load_s": load_s, "resumed_bitwise_equal": True, "mismatches": 0})
 
 
+def p2p_input(handle: int, frame: int, frames: int) -> int:
+    """The schedule of ``tests/test_desync_device_executor.py``: inputs that
+    change every few frames, held for the last ``P2P_DRAIN`` frames so that
+    every prediction is right at the end."""
+    i = min(frame, frames - P2P_DRAIN - 1)
+    return (i // 4) % 16 if handle == 0 else (i // 3) % 16
+
+
+def predicted_digest_launches(requests) -> int:
+    """Digest launches a request list makes on the card: one per burst (two
+    or more Advances, each maybe followed by a Save) that saves, and one per
+    Save outside a burst."""
+    launches, i, n = 0, 0, len(requests)
+    while i < n:
+        if not isinstance(requests[i], AdvanceFrame):
+            launches += isinstance(requests[i], SaveGameState)
+            i += 1
+            continue
+        advances = saves = 0
+        while i < n and isinstance(requests[i], AdvanceFrame):
+            advances, i = advances + 1, i + 1
+            if i < n and isinstance(requests[i], SaveGameState):
+                saves, i = saves + 1, i + 1
+        launches += (1 if saves else 0) if advances >= 2 else saves
+    return launches
+
+
+def drive_p2p(game, frames: int, device, profiled: int = 0, corrupt: bool = False) -> dict:
+    """Two P2P peers, each with its own executor on ``device``, over a seeded
+    in-memory network on a fake clock.  On the card every ``run`` is under
+    the sync debug mode "error", digest counts are zeroed after the warmup,
+    and the ``profiled`` frames just before the drain run under the
+    profiler (host times are taken over the other frames).  With ``corrupt``, peer B's live
+    state is nudged for ``P2P_CORRUPT_FOR`` frames from ``P2P_CORRUPT_FROM``
+    on, past the depth of any rollback."""
+    from torch.profiler import ProfilerActivity, profile
+
+    net = InMemoryNetwork(**P2P_NET)
+    now = [0]
+    peers = []
+    for me, other, h in (("A", "B", 0), ("B", "A", 1)):
+        ex = DeviceRequestExecutor(game.advance, game.init_state_np(), executor_inputs,
+                                   device=device)
+        ex.warmup(np.zeros(2, np.uint8), burst_depths=range(2, P2P_MAX_PREDICTION + 2))
+        sess = (SessionBuilder(boxgame_config()).with_clock(lambda: now[0])
+                .with_rng(random.Random(41 + h))
+                .with_max_prediction_window(P2P_MAX_PREDICTION)
+                .with_desync_detection_mode(DesyncDetection.on(1))
+                .add_player(Local(), h).add_player(Remote(other), 1 - h)
+                .start_p2p_session(net.socket(me)))
+        sess.attach_forensics(recorder=FlightRecorder(checksum_window=frames + 8))
+        peers.append((h, sess, ex))
+    card = peers[0][2].device.type == "cuda"
+    host = {"poll": 0.0, "advance_frame": 0.0, "run": 0.0}
+    desyncs, predicted = [], 0
+    prof_end = frames - P2P_DRAIN - 1
+    prof_start = prof_end - profiled
+    prof = None
+    state_digest.launches = lane_sums_rows.launches = 0
+    for f in range(frames):
+        if profiled and f in (prof_start, prof_end):
+            if card:
+                torch.cuda.synchronize()
+            if f == prof_start:
+                prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                prof.__enter__()
+            else:
+                prof.__exit__(None, None, None)
+        timed = not profiled or not prof_start <= f < prof_end
+        for h, sess, ex in peers:
+            t0 = time.perf_counter()
+            sess.poll_remote_clients()
+            t1 = time.perf_counter()
+            sess.add_local_input(h, p2p_input(h, f, frames))
+            reqs = sess.advance_frame()
+            t2 = time.perf_counter()
+            if card:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                ex.run(reqs)
+            finally:
+                if card:
+                    torch.cuda.set_sync_debug_mode(0)
+            t3 = time.perf_counter()
+            if timed:
+                host["poll"] += t1 - t0
+                host["advance_frame"] += t2 - t1
+                host["run"] += t3 - t2
+            predicted += predicted_digest_launches(reqs)
+            desyncs += [e for e in sess.events() if isinstance(e, DesyncDetected)]
+            if corrupt and h == 1 and P2P_CORRUPT_FROM <= f < P2P_CORRUPT_FROM + P2P_CORRUPT_FOR:
+                ex._state = {**ex.state, "pos": ex.state["pos"] + 1}
+        net.tick()
+        now[0] += P2P_TICK_MS
+    if card:
+        torch.cuda.synchronize()
+    kernels = busy_us = None
+    if prof is not None:
+        device_ops = [e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and (getattr(e, "self_device_time_total", 0) or 0) > 0]
+        kernels = sum(e.count for e in device_ops) / (2 * profiled)
+        busy_us = sum(e.self_device_time_total for e in device_ops) / (2 * profiled)
+    sessions = [s for _, s, _ in peers]
+    return {
+        "launches": state_digest.launches, "around": lane_sums_rows.launches,
+        "predicted": predicted, "desyncs": desyncs,
+        "sent": [dict(s.recorder.checksums.items()) for s in sessions],
+        "states": [to_numpy(ex.state) for _, _, ex in peers],
+        "frames_reached": [s.current_frame for s in sessions],
+        "rollbacks": sum(s._stat_rollbacks for s in sessions),
+        "rollback_frames": sum(s._stat_rollback_frames for s in sessions),
+        "max_rollback": max(s._stat_max_rollback for s in sessions),
+        "host_ms": {k: v / (2 * (frames - profiled)) * 1e3 for k, v in host.items()},
+        "kernels_per_frame": kernels, "busy_us_per_frame": busy_us,
+    }
+
+
+def phase_p2p() -> int:
+    """The P2P path on the card against the CPU; returns the digest launches
+    of the card's drives."""
+    total = 0
+    for name, game, frames, profiled in P2P_GAMES:
+        run = drive_p2p(game, frames, None, profiled)
+        check(run["around"] == 0, f"p2p {name}: the digest went around state_digest")
+        check(run["desyncs"] == [], f"p2p {name}: {len(run['desyncs'])} DesyncDetected")
+        check(run["launches"] == run["predicted"],
+              f"p2p {name}: {run['launches']} digest launches, the request lists predict "
+              f"{run['predicted']}")
+        a, b = run["frames_reached"]
+        check(a == b, f"p2p {name}: the peers stopped at frames {a} and {b}")
+        check(trees_equal(*run["states"]), f"p2p {name}: the two peers' live states differ")
+        check(all(len(s) > frames // 2 for s in run["sent"]),
+              f"p2p {name}: too few checksum reports sent")
+        cpu = drive_p2p(game, frames, "cpu")
+        check(run["sent"] == cpu["sent"], f"p2p {name}: sent checksums != CPU run")
+        check(all(trees_equal(g, c) for g, c in zip(run["states"], cpu["states"])),
+              f"p2p {name}: live states != CPU run")
+        oracle = None
+        if isinstance(game, BoxGame):
+            ref = game.init_state_np()
+            for f in range(a):
+                ref = game.advance_np(ref, np.asarray(
+                    [p2p_input(0, f, frames), p2p_input(1, f, frames)], np.uint8))
+            oracle = trees_equal(run["states"][0], ref)
+            check(oracle, f"p2p {name}: live state != NumPy oracle")
+        peer_frames = 2 * frames
+        emit({"phase": "p2p", "game": name, "frames": frames, "peers": 2,
+              "network": P2P_NET, "tick_ms": P2P_TICK_MS, "desync_interval": 1,
+              "max_prediction": P2P_MAX_PREDICTION, "desyncs": 0,
+              "sent_checksums_equal_to_cpu": True, "states_equal_to_cpu": True,
+              "equal_to_oracle": oracle, "sync_debug_mode": "error",
+              "frames_reached": a,
+              "rollbacks_per_100_frames": run["rollbacks"] / peer_frames * 100,
+              "mean_rollback_depth": run["rollback_frames"] / max(run["rollbacks"], 1),
+              "max_rollback_depth": run["max_rollback"],
+              "profiled_frames": profiled,
+              "kernels_per_frame": run["kernels_per_frame"],
+              "device_busy_ms_per_frame": run["busy_us_per_frame"] / 1e3,
+              "digest_launches": run["launches"],
+              "digest_launches_predicted": run["predicted"],
+              "digest_launches_per_frame": run["launches"] / peer_frames,
+              "host_ms_per_frame": sum(run["host_ms"].values()),
+              "host_ms_poll_remote_clients": run["host_ms"]["poll"],
+              "host_ms_advance_frame": run["host_ms"]["advance_frame"],
+              "host_ms_run": run["host_ms"]["run"],
+              "checksum_reports_sent": [len(s) for s in run["sent"]]})
+        total += run["launches"]
+    bad = drive_p2p(BoxGame(2), P2P_CORRUPT_FRAMES, None, corrupt=True)
+    check(bad["desyncs"], "p2p: the corrupted peer was not detected")
+    check(all(e.local_checksum != e.remote_checksum for e in bad["desyncs"]),
+          "p2p: a DesyncDetected with equal checksums")
+    emit({"phase": "p2p", "corrupted_drive": True, "frames": P2P_CORRUPT_FRAMES,
+          "corrupted_from": P2P_CORRUPT_FROM, "desyncs_detected": len(bad["desyncs"]),
+          "first_detected_frame": min(e.frame for e in bad["desyncs"])})
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs the card",
               file=sys.stderr)
         return 2
     smi = nvidia_smi()
-    phase_build(smi)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    timed("build", phase_build, smi)
     rng = np.random.default_rng(2026)
-    worst = phase_lane_sums(rng)
-    cases = phase_state_digest(rng)
+    worst = timed("kernel_lane_sums", phase_lane_sums, rng)
+    cases = timed("kernel_state_digest", phase_state_digest, rng)
     worst = max([worst] + [c["max_abs_err"] for c in cases.values()])
-    phase_flagship()
-    launches = phase_batched()
-    exec_launches = phase_executor()
-    phase_checkpoint()
+    timed("flagship", phase_flagship)
+    launches = timed("batched", phase_batched)
+    exec_launches = timed("executor", phase_executor)
+    timed("checkpoint", phase_checkpoint)
+    p2p_launches = timed("p2p", phase_p2p)
+    emit({"phase_seconds": seconds})
     main_case = cases[MAIN_CASE]
     emit({"kernels": [{
         "name": "digest", "route": "cuda", "source": "ggrs_tpu_torch/csrc/digest.cu",
         "replaces": "ggrs_tpu/ops/pallas_checksum.py:66",
-        "launches": launches, "launches_executor": exec_launches, "max_abs_err": worst,
+        "launches": launches, "launches_executor": exec_launches,
+        "launches_p2p": p2p_launches, "max_abs_err": worst,
         "ms": main_case["device_us"] / 1e3, "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_us"] / 1e3, "bound_by": "bytes", "library_ms": None,
     }]})

@@ -7,8 +7,12 @@ NVIDIA H100:
   ``DeviceSyncTestSession`` and ``BatchedSessions``, with durable
   checkpoints in the JAX package's file format;
 - the request-list path: ``SessionBuilder`` starts a host
-  ``SyncTestSession``, and ``DeviceRequestExecutor`` fulfils each request
-  list it returns with the game state on the card;
+  ``SyncTestSession``, ``P2PSession`` or ``SpectatorSession``, and
+  ``DeviceRequestExecutor`` fulfils each request list it returns with the
+  game state on the card;
+- the P2P wire (``net``): the endpoint protocol, its messages and input
+  codec byte for byte the JAX package's, UDP and in-memory sockets, so a
+  port peer plays a JAX peer;
 - the 4-lane state digest as a hand-written CUDA kernel (``csrc/digest.cu``)
   that digests a whole batch of states from their leaves in one launch.
 
@@ -16,17 +20,26 @@ It imports torch and numpy only; entry points take ``device=None``, meaning
 the CUDA card.
 """
 
+from . import obs
 from .convert import from_numpy, to_numpy
 from .core import (
     AdvanceFrame,
     Config,
+    DesyncDetected,
+    DesyncDetection,
+    Disconnected,
     GameStateCell,
     GgrsError,
     InputStatus,
     InvalidRequest,
     LoadGameState,
+    Local,
     MismatchedChecksum,
+    NotSynchronized,
+    PredictionThreshold,
+    Remote,
     SaveGameState,
+    Spectator,
     resolve_device,
 )
 from .games import BoxGame, ChipVM, boxgame_config
@@ -43,8 +56,15 @@ from .ops import (
     lane_sums_rows,
     pytree_checksum,
 )
+from .net import FakeSocket, InMemoryNetwork, Message, NetworkStats, NonBlockingSocket, UdpNonBlockingSocket
 from .parallel import BatchedSessions
-from .sessions import DeviceSyncTestSession, SessionBuilder, SyncTestSession
+from .sessions import (
+    DeviceSyncTestSession,
+    P2PSession,
+    SessionBuilder,
+    SpectatorSession,
+    SyncTestSession,
+)
 
 __all__ = [
     "AdvanceFrame",
@@ -56,24 +76,41 @@ __all__ = [
     "DeviceChecksum",
     "DeviceRequestExecutor",
     "DeviceStateRing",
+    "DesyncDetected",
+    "DesyncDetection",
     "DeviceSyncTestSession",
+    "Disconnected",
     "ExecutorPrograms",
+    "FakeSocket",
     "GameStateCell",
     "GgrsError",
+    "InMemoryNetwork",
     "InputStatus",
     "InvalidRequest",
     "LoadGameState",
+    "Local",
+    "Message",
     "MismatchedChecksum",
+    "NetworkStats",
+    "NonBlockingSocket",
+    "NotSynchronized",
+    "P2PSession",
+    "PredictionThreshold",
+    "Remote",
     "ReplayPrograms",
     "SaveGameState",
     "SessionBuilder",
+    "Spectator",
+    "SpectatorSession",
     "SyncTestSession",
+    "UdpNonBlockingSocket",
     "boxgame_config",
     "build_replay_programs",
     "checksum_device",
     "checksum_to_u128",
     "from_numpy",
     "lane_sums_rows",
+    "obs",
     "pytree_checksum",
     "resolve_device",
     "to_numpy",

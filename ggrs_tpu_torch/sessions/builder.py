@@ -1,23 +1,27 @@
 """Fluent session builder (the port's copy of ``ggrs_tpu/sessions/
 builder.py``; reference: GGRS src/sessions/builder.rs).
 
-Defaults match the reference: 2 players, prediction window 8, FPS 60, input
-delay 0, disconnect timeout 2000 ms, notify 500 ms, check distance 2, max
-frames behind 10, catchup 1.  The port starts SyncTest sessions so far; the
-knobs that only P2P and spectator sessions read are kept for them, and
-``add_player`` and the P2P and spectator starts come with the host layer.
+Validates player handles (local/remote < num_players, spectators >=
+num_players), groups players by address into shared endpoints, and
+constructs P2P / Spectator / SyncTest sessions.  Defaults match the
+reference: 2 players, prediction window 8, FPS 60, input delay 0, disconnect
+timeout 2000 ms, notify 500 ms, check distance 2, max frames behind 10,
+catchup 1.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import random
-import time
-from typing import Callable, Generic, Hashable, Optional, TypeVar
+from typing import Callable, Generic, Hashable, List, Optional, TypeVar
 
 from ..core.config import Config
 from ..core.errors import InvalidRequest
-from ..core.types import DesyncDetection
+from ..core.types import DesyncDetection, Local, PlayerHandle, PlayerType, Remote, Spectator
+from ..net.protocol import DEFAULT_SYNC_TIMEOUT_MS, PeerProtocol, monotonic_ms
+from ..net.sockets import NonBlockingSocket
+from .p2p import P2PSession, PlayerRegistry
+from .spectator import SPECTATOR_BUFFER_SIZE, SpectatorSession
 from .synctest import SyncTestSession
 
 I = TypeVar("I")
@@ -34,17 +38,13 @@ DEFAULT_MAX_PREDICTION_FRAMES = 8
 DEFAULT_CHECK_DISTANCE = 2
 DEFAULT_MAX_FRAMES_BEHIND = 10
 DEFAULT_CATCHUP_SPEED = 1
-DEFAULT_SYNC_TIMEOUT_MS = 60_000
-SPECTATOR_BUFFER_SIZE = 60
-
-
-def monotonic_ms() -> int:
-    return int(time.monotonic() * 1000)
 
 
 class SessionBuilder(Generic[I, S, A]):
     def __init__(self, config: Config) -> None:
         self._config = config
+        self._player_reg: PlayerRegistry[I, A] = PlayerRegistry()
+        self._local_players = 0
         self._num_players = DEFAULT_PLAYERS
         self._max_prediction = DEFAULT_MAX_PREDICTION_FRAMES
         self._fps = DEFAULT_FPS
@@ -61,6 +61,40 @@ class SessionBuilder(Generic[I, S, A]):
         self._sync_handshake = False
         self._sync_timeout_ms = DEFAULT_SYNC_TIMEOUT_MS
 
+    # -- players ---------------------------------------------------------------
+
+    def add_player(
+        self, player_type: PlayerType, player_handle: PlayerHandle
+    ) -> "SessionBuilder[I, S, A]":
+        """Register one player.  Handles for local/remote players must be in
+        [0, num_players); spectator handles must be >= num_players
+        (reference: builder.rs:90-128)."""
+        if player_handle in self._player_reg.handles:
+            raise InvalidRequest("Player handle already in use.")
+        if isinstance(player_type, Local):
+            self._local_players += 1
+            if player_handle >= self._num_players:
+                raise InvalidRequest(
+                    "The player handle you provided is invalid. For a local "
+                    "player, the handle should be between 0 and num_players"
+                )
+        elif isinstance(player_type, Remote):
+            if player_handle >= self._num_players:
+                raise InvalidRequest(
+                    "The player handle you provided is invalid. For a remote "
+                    "player, the handle should be between 0 and num_players"
+                )
+        elif isinstance(player_type, Spectator):
+            if player_handle < self._num_players:
+                raise InvalidRequest(
+                    "The player handle you provided is invalid. For a "
+                    "spectator, the handle should be num_players or higher"
+                )
+        else:
+            raise InvalidRequest(f"Unknown player type {player_type!r}")
+        self._player_reg.handles[player_handle] = player_type
+        return self
+
     # -- knobs (all return self for chaining) ---------------------------------
 
     def with_num_players(self, num_players: int) -> "SessionBuilder[I, S, A]":
@@ -68,6 +102,18 @@ class SessionBuilder(Generic[I, S, A]):
             raise InvalidRequest(f"num_players must be at least 1 (got {num_players})")
         self._num_players = num_players
         return self
+
+    def _check_wire_player_cap(self) -> None:
+        # the wire carries one connect status per player in every input
+        # message, capped at 64 on decode (messages._MAX_PLAYERS_ON_WIRE):
+        # every receiver would drop a bigger session's packets, so the
+        # wire-facing constructors refuse (SyncTest sessions are all-local)
+        if self._num_players > 64:
+            raise InvalidRequest(
+                f"networked sessions support at most 64 players (the wire "
+                f"carries a connect status per player; got "
+                f"{self._num_players})"
+            )
 
     def with_max_prediction_window(self, window: int) -> "SessionBuilder[I, S, A]":
         """0 enables lockstep mode: only advance on fully-confirmed frames,
@@ -162,6 +208,77 @@ class SessionBuilder(Generic[I, S, A]):
 
     # -- terminal constructors -------------------------------------------------
 
+    def start_p2p_session(self, socket: NonBlockingSocket) -> P2PSession[I, S, A]:
+        """Group remote/spectator players by address into shared endpoints and
+        start the session (reference: builder.rs:255-308)."""
+        self._check_wire_player_cap()
+        for player_handle in range(self._num_players):
+            if player_handle not in self._player_reg.handles:
+                raise InvalidRequest(
+                    "Not enough players have been added. Keep registering "
+                    "players up to the defined player number."
+                )
+
+        remote_by_addr: dict = {}
+        spectator_by_addr: dict = {}
+        for handle, player_type in self._player_reg.handles.items():
+            if isinstance(player_type, Remote):
+                remote_by_addr.setdefault(player_type.addr, []).append(handle)
+            elif isinstance(player_type, Spectator):
+                spectator_by_addr.setdefault(player_type.addr, []).append(handle)
+
+        for addr, handles in remote_by_addr.items():
+            self._player_reg.remotes[addr] = self._create_endpoint(
+                handles, addr, self._local_players
+            )
+        for addr, handles in spectator_by_addr.items():
+            # the host sends spectators the inputs of ALL players
+            self._player_reg.spectators[addr] = self._create_endpoint(
+                handles, addr, self._num_players
+            )
+
+        return P2PSession(
+            config=self._config,
+            num_players=self._num_players,
+            max_prediction=self._max_prediction,
+            socket=socket,
+            players=self._player_reg,
+            sparse_saving=self._sparse_saving,
+            desync_detection=self._desync_detection,
+            input_delay=self._input_delay,
+        )
+
+    def start_spectator_session(
+        self, host_addr: A, socket: NonBlockingSocket
+    ) -> SpectatorSession[I, A]:
+        """Connect to a host that broadcasts all confirmed inputs
+        (reference: builder.rs:314-338)."""
+        self._check_wire_player_cap()
+        host = PeerProtocol(
+            config=self._config,
+            handles=list(range(self._num_players)),
+            peer_addr=host_addr,
+            num_players=self._num_players,
+            local_players=1,  # irrelevant: the spectator never sends inputs
+            max_prediction=self._max_prediction,
+            disconnect_timeout_ms=self._disconnect_timeout_ms,
+            disconnect_notify_start_ms=self._disconnect_notify_start_ms,
+            fps=self._fps,
+            desync_detection=DesyncDetection.off(),
+            clock=self._clock,
+            rng=self._rng,
+            sync_required=self._sync_handshake,
+            sync_timeout_ms=self._sync_timeout_ms,
+        )
+        return SpectatorSession(
+            config=self._config,
+            num_players=self._num_players,
+            socket=socket,
+            host=host,
+            max_frames_behind=self._max_frames_behind,
+            catchup_speed=self._catchup_speed,
+        )
+
     def start_synctest_session(self) -> SyncTestSession[I, S]:
         """Start the determinism harness; checksum comparisons need
         check_distance < max_prediction (reference: builder.rs:346-358)."""
@@ -173,4 +290,24 @@ class SessionBuilder(Generic[I, S, A]):
             max_prediction=self._max_prediction,
             check_distance=self._check_distance,
             input_delay=self._input_delay,
+        )
+
+    def _create_endpoint(
+        self, handles: List[PlayerHandle], peer_addr: A, local_players: int
+    ) -> PeerProtocol[I, A]:
+        return PeerProtocol(
+            config=self._config,
+            handles=handles,
+            peer_addr=peer_addr,
+            num_players=self._num_players,
+            local_players=local_players,
+            max_prediction=self._max_prediction,
+            disconnect_timeout_ms=self._disconnect_timeout_ms,
+            disconnect_notify_start_ms=self._disconnect_notify_start_ms,
+            fps=self._fps,
+            desync_detection=self._desync_detection,
+            clock=self._clock,
+            rng=self._rng,
+            sync_required=self._sync_handshake,
+            sync_timeout_ms=self._sync_timeout_ms,
         )

@@ -34,7 +34,55 @@ def test_package_imports_with_jax_blocked():
         "import ggrs_tpu_torch.sessions.device_synctest, ggrs_tpu_torch._build\n"
         "import ggrs_tpu_torch.ops.executor, ggrs_tpu_torch.sessions.builder\n"
         "import ggrs_tpu_torch.utils.checkpoint, ggrs_tpu_torch.core.sync_layer\n"
+        "import ggrs_tpu_torch.net, ggrs_tpu_torch.net.protocol, ggrs_tpu_torch.obs\n"
+        "import ggrs_tpu_torch.sessions.p2p, ggrs_tpu_torch.sessions.spectator\n"
         "import chip_smoke\n"
+        "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_loopback_p2p_match_with_jax_blocked():
+    # two port peers over loopback UDP, each fulfilled by its own executor,
+    # in a process where jax and the JAX package cannot be imported
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['ggrs_tpu'] = None\n"
+        "import numpy as np\n"
+        "from ggrs_tpu_torch import (BoxGame, DesyncDetection, DeviceRequestExecutor, Local,\n"
+        "    Remote, SessionBuilder, UdpNonBlockingSocket, boxgame_config, to_numpy)\n"
+        "socks = [UdpNonBlockingSocket.bind_to_port(0) for _ in range(2)]\n"
+        "addrs = [('127.0.0.1', s.local_port()) for s in socks]\n"
+        "game = BoxGame(2)\n"
+        "peers = []\n"
+        "for h in (0, 1):\n"
+        "    sess = (SessionBuilder(boxgame_config()).with_clock(lambda: 0)\n"
+        "            .with_desync_detection_mode(DesyncDetection.on(1))\n"
+        "            .add_player(Local(), h).add_player(Remote(addrs[1 - h]), 1 - h)\n"
+        "            .start_p2p_session(socks[h]))\n"
+        "    ex = DeviceRequestExecutor(game.advance, game.init_state_np(),\n"
+        "        lambda pairs: np.asarray([v for v, _ in pairs], np.uint8), device='cpu')\n"
+        "    peers.append((h, sess, ex))\n"
+        "events = []\n"
+        "for i in range(80):\n"
+        "    for h, sess, ex in peers:\n"
+        "        sess.poll_remote_clients()\n"
+        "        sess.add_local_input(h, (min(i, 59) // (3 + h)) % 16)\n"
+        "        ex.run(sess.advance_frame())\n"
+        "        events += sess.events()\n"
+        "assert events == [], events\n"
+        "assert peers[0][1].current_frame == peers[1][1].current_frame == 80\n"
+        "a, b = (to_numpy(ex.state) for _, _, ex in peers)\n"
+        "assert all(np.array_equal(a[k], b[k]) for k in a)\n"
+        "assert all(s._last_sent_checksum_frame > 50 for _, s, _ in peers)\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
         "print('ok')\n"
     )
