@@ -14,13 +14,14 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    (raw lanes of a word matrix) and through ``state_digest`` (whole batches
    of states read from their leaves: the ChipVM live and folded resim
    digests, BoxGame, a strided ring slot view, a state of every dtype and a
-   2^26-word leaf).  Per shape: device us per launch from CUDA events
+   2^26-word leaf; the EcsWorld live and folded resim digests, a strided
+   EcsWorld ring slot and a float BoxGame state).  Per shape: device us per launch from CUDA events
    around a CUDA graph of many launches (inputs rotated so the working set
    exceeds the L2 cache), host us per wrapper call, the plain version's
    time and the bytes bound.  The profiler checks that one CUDA
    ``checksum_device`` runs exactly one kernel.
 3. flagship -- BoxGame(2) in a DeviceSyncTestSession at check_distance=8 on
-   the card for 4096 ticks, 0 mismatches, bitwise equal to the same run on
+   the card for 2048 ticks, 0 mismatches, bitwise equal to the same run on
    the CPU and to the NumPy oracle, exactly 2 digest launches per tick.
 4. batched (the main path at real scale) -- ChipVM(2), B = 16,384 sessions,
    d = 8, 64 ticks: 0 mismatches; sessions 0-7 rerun on the CPU bitwise
@@ -46,7 +47,7 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    its own ``DeviceRequestExecutor`` on the card, linked by a seeded
    ``InMemoryNetwork`` with 5 % loss, 5 % reordering and 3 ticks of latency,
    on a fake 16 ms clock, with desync detection at interval 1: BoxGame(2)
-   for 1,500 frames and ChipVM(2) for 150.  Inputs change every few frames,
+   for 750 frames and ChipVM(2) for 80.  Inputs change every few frames,
    so rollbacks come regularly.  0 ``DesyncDetected``; every checksum each
    peer sent and both final live states equal the same seeded run on the
    CPU (BoxGame also the NumPy oracle); every ``executor.run`` runs under
@@ -57,6 +58,34 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    ``poll_remote_clients``, ``advance_frame`` (with its checksum read) and
    ``run``.  A second, short BoxGame drive corrupts peer B's live state and
    must raise ``DesyncDetected`` with unequal checksums.
+
+8. ecs (BASELINE config 4) -- ``EcsWorld(4, 32)`` (128 units, 3,104 B of
+   int32 state) in a ``DeviceSyncTestSession`` at check_distance 16 on the
+   card for 768 ticks: 0 mismatches, bitwise equal to the same run on the
+   CPU and to the NumPy oracle, exactly 2 digest launches per tick.  Then
+   B = 4,096 worlds in ``BatchedSessions`` at d = 16 for 64 ticks, started
+   from a world in melee (units in contact): 0 mismatches, sessions 0-7
+   rerun on the CPU bitwise equal, 2 digest launches per tick.  ms per tick,
+   resim frames/s, kernels per advance and per tick, the digest's share of
+   device time.
+9. float -- ``BoxGame(2, "float")`` in a ``DeviceSyncTestSession`` at d = 8
+   for 1,024 ticks: 0 mismatches on the card (its resimulations repeat
+   bitwise), 2 digest launches per tick, and the max abs error per leaf
+   against the same run on the CPU within ``FLOAT_ATOL`` (positions and
+   angles measured on their torus).
+10. journal -- two ``P2PSession`` peers play ``RtsCmd(2, 4, 4)`` (command
+   streams in varrec envelopes) over phase 7's seeded network, each with an
+   executor on the card reading the raw envelopes; peer A carries a
+   ``JournalTap`` (``adopt_spectator_endpoint``) writing a ``MatchJournal``.
+   0 ``DesyncDetected``, no device->host read in ``run``, digest launches
+   as the request lists predict, the journal and final states equal to the
+   CPU run and to ``RtsCmdGame``.  The closed journal is replayed by
+   ``ReplaySession``: fast-forwarded on the card by ``build_scrub_program``
+   in 64-frame windows, and its first 64 frames played through
+   ``advance_frame`` and an executor; both equal the oracle at every window
+   edge, and the end state equals peer A's live state at the frame the
+   journal ends.  Journal bytes and host ms per frame, scrub ms per window,
+   kernels per RtsCmd advance.
 
 Then the seconds each phase took, one ``{"kernels": [...]}`` line, the
 card's name and power limit as nvidia-smi prints them, and, last,
@@ -87,13 +116,21 @@ from ggrs_tpu_torch import (
     DesyncDetection,
     DeviceRequestExecutor,
     DeviceSyncTestSession,
+    EcsWorld,
     InMemoryNetwork,
+    InputStatus,
+    JournalTap,
     Local,
+    MatchJournal,
     Remote,
+    ReplaySession,
+    RtsCmd,
+    RtsCmdGame,
     SaveGameState,
     SessionBuilder,
     _build,
     boxgame_config,
+    build_scrub_program,
     to_numpy,
 )
 from ggrs_tpu_torch.obs import FlightRecorder
@@ -104,7 +141,10 @@ from ggrs_tpu_torch.utils.tree import tree_leaves, tree_map
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 L2_BYTES = 50e6
 D = 8
-FLAGSHIP_TICKS, FLAGSHIP_CHUNK = 4096, 512
+# the flagship is cut from 4,096 ticks to 2,048, and phase 7's drives from
+# 1,500 BoxGame and 150 ChipVM frames to 750 and 80, to keep the whole run
+# well under 7 minutes on a slow host now that phases 8-10 run too
+FLAGSHIP_TICKS, FLAGSHIP_CHUNK = 2048, 512
 BATCH, BATCH_TICKS, BATCH_UNTIMED = 16384, 64, 16
 CHIPVM_WORDS = 66  # 256 mem bytes + 4 regs + 1 pc byte -> 64 + 1 + 1 words
 KERNEL_SHAPES = [  # (rows, width, offset)
@@ -120,10 +160,19 @@ EXEC_D, EXEC_MAX_PREDICTION = 7, 8
 EXEC_GAMES = [("BoxGame(2)", BoxGame(2), 2000, 16), ("ChipVM(2)", ChipVM(2), 250, 256)]
 CKPT_TICKS = 32
 CHIPVM_STATE_BYTES = 256 + 4 + 1
-P2P_GAMES = [("BoxGame(2)", BoxGame(2), 1500, 200), ("ChipVM(2)", ChipVM(2), 150, 40)]
+P2P_GAMES = [("BoxGame(2)", BoxGame(2), 750, 100), ("ChipVM(2)", ChipVM(2), 80, 20)]
 P2P_NET = dict(seed=2026, loss=0.05, reorder=0.05, latency_ticks=3)
 P2P_TICK_MS, P2P_DRAIN, P2P_MAX_PREDICTION = 16, 20, 8
 P2P_CORRUPT_FRAMES, P2P_CORRUPT_FROM, P2P_CORRUPT_FOR = 90, 30, 10
+ECS_PLAYERS, ECS_EPP, ECS_D = 4, 32, 16  # BASELINE config 4
+ECS_WORDS = 776  # 128 x (2 pos + 2 vel + health + owner) + 4 x 2 rally, int32
+ECS_CONVERGE = (10, 5, 6, 9)  # each player's input steering its rally to the center
+ECS_TICKS, ECS_CHUNK, ECS_PROFILED = 768, 256, 8  # bench.py's tick count off the TPU
+ECS_BATCH, ECS_BATCH_TICKS, ECS_BATCH_UNTIMED, ECS_BATCH_PROFILED = 4096, 64, 24, 4
+ECS_MELEE_FRAMES = 200
+FLOAT_D, FLOAT_TICKS, FLOAT_CHUNK = 8, 1024, 256
+FLOAT_ATOL = 1e-3  # per leaf, card against CPU; cos/sin may differ in the last bit
+RTS_FRAMES, RTS_DRAIN, RTS_SETTLE, RTS_WINDOW = 600, 20, 200, 64
 
 
 class SmokeFailure(Exception):
@@ -247,6 +296,18 @@ def boxgame_state(rng, lead: tuple) -> dict:
     return {"pos": i32(lead + (2, 2)), "rot": i32(lead + (2,)), "vel": i32(lead + (2, 2))}
 
 
+def ecs_state(rng, lead: tuple) -> dict:
+    e, i32 = ECS_PLAYERS * ECS_EPP, lambda shape: _card(
+        rng.integers(-(2**31), 2**31, size=shape, dtype=np.int32))
+    return {"health": i32(lead + (e,)), "owner": i32(lead + (e,)), "pos": i32(lead + (e, 2)),
+            "rally": i32(lead + (ECS_PLAYERS, 2)), "vel": i32(lead + (e, 2))}
+
+
+def boxgame_float_state(rng, lead: tuple) -> dict:
+    f32 = lambda shape, scale: _card((rng.standard_normal(shape) * scale).astype(np.float32))
+    return {"pos": f32(lead + (2, 2), 300.0), "rot": f32(lead + (2,), 3.0), "vel": f32(lead + (2, 2), 6.0)}
+
+
 def all_dtypes_state(rng, b: int) -> dict:
     """Every dtype the structure salt knows, odd byte counts and 0-d leaves."""
     bits = lambda shape, np_t: rng.integers(0, 2**64, size=shape, dtype=np.uint64).astype(np_t)
@@ -290,6 +351,11 @@ def state_cases(rng):
         ("all_dtypes", all_dtypes_state(rng, BATCH), same),
         ("leaf_2p26_words", {"w": _card(rng.integers(0, 2**32, size=(1, BIG_LEAF_WORDS),
                                                      dtype=np.uint32).view(np.int32))}, same),
+        ("ecs_live", ecs_state(rng, (ECS_BATCH,)), same),
+        ("ecs_resim_folded", ecs_state(rng, (ECS_BATCH, ECS_D)), flat_rows),
+        ("ecs_ring_slot_view", ecs_state(rng, (ECS_BATCH, ECS_D + 1)), ring_slot),
+        ("boxgame_float_b1", boxgame_float_state(rng, (1,)), same),
+        ("boxgame_float_b1_resim_folded", boxgame_float_state(rng, (1, FLOAT_D)), flat_rows),
     ]
 
 
@@ -806,6 +872,391 @@ def phase_p2p() -> int:
     return total
 
 
+def profile_device(fn, calls: int) -> dict:
+    """Device kernels and busy us per call of ``fn`` over ``calls`` calls,
+    and the digest kernel's share of that time, from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and (getattr(e, "self_device_time_total", 0) or 0) > 0]
+    # record_function ranges ("ggrs:...") also appear as device-side
+    # annotations spanning their kernels; only kernels count as busy time
+    ops = [e for e in ops if not e.key.startswith("ggrs:")]
+    busy = sum(e.self_device_time_total for e in ops)
+    digest = sum(e.self_device_time_total for e in ops if "state_digest" in e.key)
+    return {"kernels": sum(e.count for e in ops) / calls, "busy_us": busy / calls,
+            "digest_us": digest / calls, "digest_share": digest / busy if busy else None}
+
+
+def kernels_per_advance(advance, state: dict, inputs: torch.Tensor) -> dict:
+    """Device kernels and busy us of one ``advance`` on the card."""
+    advance(state, inputs)
+    return profile_device(lambda: advance(state, inputs), 3)
+
+
+def ecs_inputs(n: int, seed: int, converge: int) -> np.ndarray:
+    """Random bitmasks; the first ``converge`` frames steer every rally to
+    the center of the world, so that units meet, fight and respawn."""
+    ins = np.random.default_rng(seed).integers(0, 16, size=(n, ECS_PLAYERS)).astype(np.uint8)
+    ins[:converge] = ECS_CONVERGE
+    return ins
+
+
+def ecs_melee(world: EcsWorld) -> dict:
+    """A world ``ECS_MELEE_FRAMES`` converging frames in: units in contact."""
+    s = world.init_state_np()
+    for inp in ecs_inputs(ECS_MELEE_FRAMES, 6, ECS_MELEE_FRAMES):
+        s = world.advance_np(s, inp)
+    return s
+
+
+def phase_ecs() -> int:
+    """BASELINE config 4 on the card: one session, then a B = 4,096 batch;
+    returns the digest launches of both card drives."""
+    world = EcsWorld(ECS_PLAYERS, ECS_EPP)
+    blank = np.zeros(ECS_PLAYERS, np.uint8)
+    # -- one session, from the initial world ----------------------------------
+    inputs = ecs_inputs(ECS_TICKS, 4, converge=128)
+    chunks = [inputs[:ECS_CHUNK], inputs[ECS_CHUNK:ECS_TICKS - ECS_PROFILED],
+              inputs[ECS_TICKS - ECS_PROFILED:]]
+    card_chunks = [torch.from_numpy(c).cuda() for c in chunks]
+    sess = DeviceSyncTestSession(world.advance, world.init_state_np(), blank,
+                                 check_distance=ECS_D, max_prediction=ECS_D)
+    state_digest.launches = lane_sums_rows.launches = 0
+    sess.run_ticks(card_chunks[0], check=False)
+    sess.block_until_ready()
+    t0 = time.perf_counter()
+    sess.run_ticks(card_chunks[1], check=False)
+    sess.block_until_ready()
+    elapsed = time.perf_counter() - t0
+    prof = profile_device(lambda: sess.run_ticks(card_chunks[2], check=False), 1)
+    single_launches = state_digest.launches
+    check(lane_sums_rows.launches == 0, "ecs: the digest went around state_digest")
+    sess.verify()
+    check(single_launches == 2 * ECS_TICKS,
+          f"ecs: {single_launches} digest launches, not 2 x {ECS_TICKS} ticks")
+    cpu = DeviceSyncTestSession(world.advance, world.init_state_np(), blank,
+                                check_distance=ECS_D, max_prediction=ECS_D, device="cpu")
+    for c in chunks:
+        cpu.run_ticks(c, check=False)
+    cpu.verify()
+    check(trees_equal(to_numpy(sess.carry), to_numpy(cpu.carry)), "ecs: card carry != CPU carry")
+    ref = world.init_state_np()
+    for i in range(ECS_TICKS):
+        ref = world.advance_np(ref, inputs[i])
+    check(trees_equal(sess.live_state(), ref), "ecs: live state != NumPy oracle")
+    one = {k: v.unsqueeze(0) for k, v in world.init_state().items()}
+    adv1 = kernels_per_advance(world.advance, one, torch.from_numpy(inputs[:1]).cuda())
+    timed = len(chunks[1])
+    emit({"phase": "ecs", "game": "EcsWorld(4, 32)", "sessions": 1, "check_distance": ECS_D,
+          "ticks": ECS_TICKS, "mismatches": 0, "equal_to_cpu": True, "equal_to_oracle": True,
+          "units_hurt_at_end": int((ref["health"] < 100).sum()),
+          "timed_ticks": timed, "ms_per_tick": elapsed / timed * 1e3,
+          "resim_frames_per_s": timed * ECS_D / elapsed,
+          "digest_launches": single_launches,
+          "digest_launches_per_tick": single_launches / ECS_TICKS,
+          "kernels_per_advance": adv1["kernels"], "advance_busy_us": adv1["busy_us"],
+          "profiled_ticks": ECS_PROFILED, "kernels_per_tick": prof["kernels"] / ECS_PROFILED,
+          "device_busy_ms_per_tick": prof["busy_us"] / ECS_PROFILED / 1e3,
+          "idle_share": 1 - prof["busy_us"] / ECS_PROFILED / (elapsed / timed * 1e6),
+          "digest_share_of_busy": prof["digest_share"]})
+
+    # -- B = 4,096 worlds, from a world in melee -----------------------------
+    melee = ecs_melee(world)
+    batch_in = np.random.default_rng(12).integers(
+        0, 16, size=(ECS_BATCH, ECS_BATCH_TICKS, ECS_PLAYERS)).astype(np.uint8)
+    dev_in = torch.from_numpy(batch_in).cuda()
+    u, p = ECS_BATCH_UNTIMED, ECS_BATCH_TICKS - ECS_BATCH_PROFILED
+    batch = BatchedSessions(world.advance, melee, blank, batch_size=ECS_BATCH,
+                            check_distance=ECS_D, max_prediction=ECS_D)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state_digest.launches = lane_sums_rows.launches = 0
+    batch.run_ticks(dev_in[:, :u], check=False)
+    batch.block_until_ready()
+    t0 = time.perf_counter()
+    batch.run_ticks(dev_in[:, u:p], check=False)
+    batch.block_until_ready()
+    elapsed = time.perf_counter() - t0
+    prof = profile_device(lambda: batch.run_ticks(dev_in[:, p:], check=False), 1)
+    batch_launches = state_digest.launches
+    check(lane_sums_rows.launches == 0, "ecs batch: the digest went around state_digest")
+    stats = batch.verify()
+    check(stats["mismatches"] == 0, f"ecs batch: {stats['mismatches']} mismatches")
+    check(batch_launches == 2 * ECS_BATCH_TICKS,
+          f"ecs batch: {batch_launches} digest launches, not 2 x {ECS_BATCH_TICKS} ticks")
+    n_cpu = 8
+    cpu = BatchedSessions(world.advance, melee, blank, batch_size=n_cpu,
+                          check_distance=ECS_D, max_prediction=ECS_D, device="cpu")
+    check(cpu.run_ticks(batch_in[:n_cpu])["mismatches"] == 0, "ecs batch: CPU rerun mismatched")
+    head = to_numpy(tree_map(lambda t: t[:n_cpu], batch.carry))
+    check(trees_equal(head, to_numpy(cpu.carry)), "ecs batch: sessions 0-7 != CPU rerun")
+    live = batch.live_states()
+    check(all(l.shape[0] == ECS_BATCH for l in tree_leaves(live)), "ecs batch: live states malformed")
+    carry_bytes = sum(l.numel() * l.element_size() for l in tree_leaves(batch.carry))
+    many = tree_map(lambda t: t[:, 0].contiguous(), batch.carry["ring"]["states"])
+    adv_b = kernels_per_advance(world.advance, many, dev_in[:, 0])
+    timed = p - u
+    emit({"phase": "ecs", "game": "EcsWorld(4, 32)", "sessions": ECS_BATCH,
+          "start": f"melee after {ECS_MELEE_FRAMES} converging frames",
+          "check_distance": ECS_D, "ring": ECS_D + 1, "ticks": ECS_BATCH_TICKS, "mismatches": 0,
+          "sessions_equal_to_cpu": n_cpu, "state_bytes": ECS_WORDS * 4,
+          "carry_bytes": carry_bytes, "peak_device_bytes": torch.cuda.max_memory_allocated(),
+          "units_hurt_at_end": int((live["health"] < 100).sum()),
+          "timed_ticks": timed, "ms_per_tick": elapsed / timed * 1e3,
+          "resim_frames_per_s": ECS_BATCH * timed * ECS_D / elapsed,
+          "digest_launches": batch_launches,
+          "digest_launches_per_tick": batch_launches / ECS_BATCH_TICKS,
+          "kernels_per_advance": adv_b["kernels"], "advance_busy_us": adv_b["busy_us"],
+          "profiled_ticks": ECS_BATCH_PROFILED,
+          "kernels_per_tick": prof["kernels"] / ECS_BATCH_PROFILED,
+          "device_busy_ms_per_tick": prof["busy_us"] / ECS_BATCH_PROFILED / 1e3,
+          "idle_share": 1 - prof["busy_us"] / ECS_BATCH_PROFILED / (elapsed / timed * 1e6),
+          "digest_share_of_busy": prof["digest_share"]})
+    del batch, dev_in, many
+    torch.cuda.empty_cache()
+    return single_launches + batch_launches
+
+
+def torus_err(a: np.ndarray, b: np.ndarray, period) -> float:
+    d = np.abs(a.astype(np.float64) - b.astype(np.float64))
+    if period is not None:
+        d = np.minimum(d, np.asarray(period, np.float64) - d)
+    return float(d.max())
+
+
+def phase_float() -> int:
+    """The float BoxGame in a SyncTest on the card; returns its launches."""
+    game = BoxGame(2, "float")
+    inputs = np.random.default_rng(19).integers(0, 16, size=(FLOAT_TICKS, 2)).astype(np.uint8)
+    chunks = torch.from_numpy(inputs).cuda().split(FLOAT_CHUNK)
+    sess = DeviceSyncTestSession(game.advance, game.init_state_np(), np.zeros(2, np.uint8),
+                                 check_distance=FLOAT_D)
+    state_digest.launches = lane_sums_rows.launches = 0
+    sess.run_ticks(chunks[0], check=False)
+    sess.block_until_ready()
+    t0 = time.perf_counter()
+    for c in chunks[1:]:
+        sess.run_ticks(c, check=False)
+    sess.block_until_ready()
+    elapsed = time.perf_counter() - t0
+    launches = state_digest.launches
+    check(lane_sums_rows.launches == 0, "float: the digest went around state_digest")
+    sess.verify()  # its resimulations repeated every first-seen digest
+    check(launches == 2 * FLOAT_TICKS, f"float: {launches} digest launches, not 2 x {FLOAT_TICKS}")
+    cpu = DeviceSyncTestSession(game.advance, game.init_state_np(), np.zeros(2, np.uint8),
+                                check_distance=FLOAT_D, device="cpu")
+    for c in np.split(inputs, FLOAT_TICKS // FLOAT_CHUNK):
+        cpu.run_ticks(c, check=False)
+    cpu.verify()
+    card, host = sess.live_state(), cpu.live_state()
+    periods = {"pos": (800.0, 600.0), "rot": 2 * math.pi, "vel": None}
+    err = {k: torus_err(card[k], host[k], periods[k]) for k in sorted(card)}
+    check(all(np.isfinite(card[k]).all() and card[k].dtype == np.float32 for k in card),
+          "float: live state malformed")
+    check(all(e <= FLOAT_ATOL for e in err.values()), f"float: card vs CPU error {err}")
+    timed = FLOAT_TICKS - FLOAT_CHUNK
+    emit({"phase": "float", "game": "BoxGame(2, float)", "check_distance": FLOAT_D,
+          "ticks": FLOAT_TICKS, "mismatches": 0, "atol": FLOAT_ATOL,
+          "max_abs_err_vs_cpu": err, "bitwise_equal_to_cpu": all(e == 0 for e in err.values()),
+          "timed_ticks": timed, "ms_per_tick": elapsed / timed * 1e3,
+          "resim_frames_per_s": timed * FLOAT_D / elapsed,
+          "digest_launches": launches, "digest_launches_per_tick": launches / FLOAT_TICKS})
+    return launches
+
+
+def rts_orders(handle: int, frame: int) -> tuple:
+    """``bench.py``'s RtsCmd schedule: 0-3 orders a frame, seeded per
+    (player, frame); held from frame ``RTS_FRAMES - 1`` on."""
+    rng = random.Random(17 + handle * 613 + min(frame, RTS_FRAMES - 1))
+    cmds = []
+    for _ in range(rng.randrange(0, 4)):
+        kind = rng.randrange(3)
+        if kind == 0:
+            cmds.append(("move", rng.randrange(4), rng.randrange(-2, 3), rng.randrange(-2, 3)))
+        elif kind == 1:
+            cmds.append(("gather", rng.randrange(4)))
+        else:
+            cmds.append(("build", rng.randrange(16), rng.randrange(16)))
+    return tuple(cmds)
+
+
+def drive_journal(rts: RtsCmd, device, path: str) -> dict:
+    """Two RtsCmd peers with executors on ``device``; peer A records the
+    match through a ``JournalTap``.  After the drain both stop advancing and
+    poll until A holds B's every input; A's last ``advance_frame`` then
+    sends the journal every frame up to the one A stood at.  On the card
+    every ``run`` is under the sync debug mode "error"."""
+    to_env = lambda pairs: rts.envelopes_np([v for v, _ in pairs])
+    net = InMemoryNetwork(**P2P_NET)
+    now = [0]
+    journal = MatchJournal(path, 2, rts.config().native_input_size)
+    peers = []
+    for me, other, h in (("A", "B", 0), ("B", "A", 1)):
+        ex = DeviceRequestExecutor(rts.advance, rts.init_state_np(), to_env, device=device)
+        ex.warmup(rts.envelopes_np([(), ()]), burst_depths=range(2, P2P_MAX_PREDICTION + 2))
+        sess = (SessionBuilder(rts.config()).with_clock(lambda: now[0])
+                .with_rng(random.Random(41 + h))
+                .with_max_prediction_window(P2P_MAX_PREDICTION)
+                .with_desync_detection_mode(DesyncDetection.on(1))
+                .add_player(Local(), h).add_player(Remote(other), 1 - h)
+                .start_p2p_session(net.socket(me)))
+        peers.append((h, sess, ex))
+    peers[0][1].adopt_spectator_endpoint(JournalTap.ADDR, JournalTap(journal, rts.config()))
+    card = peers[0][2].device.type == "cuda"
+    desyncs, predicted, host_s, steps = [], 0, 0.0, 0
+
+    def step(h, sess, ex):
+        nonlocal predicted, host_s, steps
+        t0 = time.perf_counter()
+        sess.poll_remote_clients()
+        sess.add_local_input(h, rts_orders(h, sess.current_frame))
+        reqs = sess.advance_frame()
+        if card:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            ex.run(reqs)
+        finally:
+            if card:
+                torch.cuda.set_sync_debug_mode(0)
+        host_s += time.perf_counter() - t0
+        steps += 1
+        predicted += predicted_digest_launches(reqs)
+        desyncs.extend(e for e in sess.events() if isinstance(e, DesyncDetected))
+
+    state_digest.launches = lane_sums_rows.launches = 0
+    for _ in range(RTS_FRAMES + RTS_DRAIN):
+        for h, sess, ex in peers:
+            step(h, sess, ex)
+        net.tick()
+        now[0] += P2P_TICK_MS
+    a = peers[0][1]
+    settle = 0
+    while a.confirmed_frame() < a.current_frame - 1 and settle < RTS_SETTLE:
+        net.tick()
+        now[0] += P2P_TICK_MS
+        for _, sess, _ in peers:
+            sess.poll_remote_clients()
+        settle += 1
+    end = a.current_frame
+    live_at_end = to_numpy(peers[0][2].state)
+    step(*peers[0])
+    journal.close()
+    return {"launches": state_digest.launches, "around": lane_sums_rows.launches,
+            "predicted": predicted, "desyncs": desyncs, "end": end, "settle_ticks": settle,
+            "journal_next_frame": journal.next_frame, "live_at_end": live_at_end,
+            "states": [to_numpy(ex.state) for _, _, ex in peers],
+            "frames_reached": [s.current_frame for _, s, _ in peers],
+            "sent": [dict(s._local_checksum_history) for _, s, _ in peers],
+            "rollbacks": sum(s._stat_rollbacks for _, s, _ in peers),
+            "host_ms_per_peer_frame": host_s / steps * 1e3}
+
+
+def phase_journal() -> int:
+    """RtsCmd over P2P on the card, recorded and replayed; returns the
+    digest launches of the card's match."""
+    rts = RtsCmd(2, num_units=4, max_cmds=4)
+    with tempfile.TemporaryDirectory() as tmp:
+        card_path, cpu_path = os.path.join(tmp, "card.ggjl"), os.path.join(tmp, "cpu.ggjl")
+        run = drive_journal(rts, None, card_path)
+        launches = run["launches"]
+        check(run["around"] == 0, "journal: the digest went around state_digest")
+        check(run["desyncs"] == [], f"journal: {len(run['desyncs'])} DesyncDetected")
+        check(launches == run["predicted"],
+              f"journal: {launches} digest launches, the request lists predict {run['predicted']}")
+        check(run["journal_next_frame"] == run["end"],
+              f"journal: the journal ends at frame {run['journal_next_frame']}, "
+              f"peer A stood at {run['end']}: the drain left frames unconfirmed")
+        check(run["end"] >= RTS_FRAMES, f"journal: the match reached frame {run['end']} only")
+        cpu = drive_journal(rts, "cpu", cpu_path)
+        with open(card_path, "rb") as f:
+            journal_bytes = f.read()
+        with open(cpu_path, "rb") as f:
+            check(f.read() == journal_bytes, "journal: the journal's bytes != the CPU run's")
+        check(run["sent"] == cpu["sent"], "journal: the checksums peers compared != CPU run")
+        check(all(trees_equal(g, c) for g, c in zip(run["states"], cpu["states"])),
+              "journal: final states != CPU run")
+        check(run["frames_reached"][0] == run["frames_reached"][1] + 1,
+              f"journal: the peers stopped at frames {run['frames_reached']}")
+        oracle = RtsCmdGame(rts)
+        at_end = None
+        for f in range(run["frames_reached"][0]):
+            if f == run["end"]:
+                at_end = oracle.snapshot()[1]
+            oracle.handle_requests([AdvanceFrame(inputs=[
+                (rts_orders(h, f), InputStatus.CONFIRMED) for h in (0, 1)])])
+        check(trees_equal(run["states"][0], oracle.state), "journal: peer A != RtsCmdGame")
+        check(trees_equal(run["live_at_end"], at_end),
+              "journal: peer A's live state at the journal's end != RtsCmdGame")
+        b_oracle = RtsCmdGame(rts)
+        for f in range(run["frames_reached"][1]):
+            b_oracle.handle_requests([AdvanceFrame(inputs=[
+                (rts_orders(h, f), InputStatus.CONFIRMED) for h in (0, 1)])])
+        check(trees_equal(run["states"][1], b_oracle.state), "journal: peer B != RtsCmdGame")
+
+        # -- replay: scrub windows on the card, then per-frame playback ---------
+        rs = ReplaySession(card_path, rts.config())
+        check(rs.closed and not rs.truncated and not rs.gaps and rs.first_frame == 0,
+              "journal: the closed journal does not read back whole")
+        check(rs.last_frame + 1 == run["end"], "journal: ReplaySession's last frame")
+        scrub = build_scrub_program(rts.advance)
+        state, ref = rts.init_state_np(), rts.init_state_np()
+        windows, scrub_s = 0, 0.0
+        scrub(state, np.stack([rts.envelopes_np([(), ()])] * RTS_WINDOW))  # first call
+        while rs.frames_remaining():
+            inputs, statuses = rs.stacked_inputs(min(RTS_WINDOW, rs.frames_remaining()))
+            check(all(s is InputStatus.CONFIRMED for row in statuses for s in row),
+                  "journal: a replayed input is not confirmed")
+            envs = np.stack([rts.envelopes_np(row) for row in inputs])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = scrub(state, envs)
+            torch.cuda.synchronize()
+            if len(inputs) == RTS_WINDOW:
+                scrub_s += time.perf_counter() - t0
+                windows += 1
+            for row in inputs:
+                ref = rts.advance_np(ref, row)
+            check(trees_equal(to_numpy(state), ref),
+                  f"journal: the scrub != the oracle at frame {rs.current_frame}")
+        check(trees_equal(to_numpy(state), run["live_at_end"]),
+              "journal: the scrubbed end state != peer A's live state")
+        rs.seek(0)
+        ex = DeviceRequestExecutor(rts.advance, rts.init_state_np(),
+                                   lambda pairs: rts.envelopes_np([v for v, _ in pairs]))
+        ref = rts.init_state_np()
+        for _ in range(RTS_WINDOW):
+            (req,) = rs.advance_frame()
+            ex.run([req])
+            ref = rts.advance_np(ref, [v for v, _ in req.inputs])
+        check(trees_equal(to_numpy(ex.state), ref),
+              f"journal: per-frame playback != the oracle at frame {RTS_WINDOW}")
+        one = {k: v.unsqueeze(0) for k, v in rts.init_state().items()}
+        envs = torch.from_numpy(rts.envelopes_np([rts_orders(0, 3), rts_orders(1, 5)])[None]).cuda()
+        adv = kernels_per_advance(rts.advance, one, envs)
+        emit({"phase": "journal", "game": "RtsCmd(2, 4, 4)", "peers": 2, "network": P2P_NET,
+              "tick_ms": P2P_TICK_MS, "desync_interval": 1, "max_prediction": P2P_MAX_PREDICTION,
+              "frames": RTS_FRAMES, "drain": RTS_DRAIN, "settle_ticks": run["settle_ticks"],
+              "desyncs": 0, "sync_debug_mode": "error", "frames_reached": run["frames_reached"],
+              "journal_frames": rs.last_frame + 1, "journal_bytes": len(journal_bytes),
+              "journal_bytes_per_frame": len(journal_bytes) / (rs.last_frame + 1),
+              "journal_equal_to_cpu": True, "states_equal_to_cpu": True,
+              "equal_to_oracle": True, "replay_equal_to_live": True,
+              "rollbacks_per_100_peer_frames": run["rollbacks"] / (2 * run["end"]) * 100,
+              "digest_launches": launches, "digest_launches_predicted": run["predicted"],
+              "host_ms_per_peer_frame": run["host_ms_per_peer_frame"],
+              "scrub_windows_timed": windows, "scrub_ms_per_window": scrub_s / windows * 1e3,
+              "scrub_frames_per_s": windows * RTS_WINDOW / scrub_s,
+              "kernels_per_advance": adv["kernels"], "advance_busy_us": adv["busy_us"]})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs the card",
@@ -830,13 +1281,18 @@ def main() -> int:
     exec_launches = timed("executor", phase_executor)
     timed("checkpoint", phase_checkpoint)
     p2p_launches = timed("p2p", phase_p2p)
-    emit({"phase_seconds": seconds})
+    ecs_launches = timed("ecs", phase_ecs)
+    float_launches = timed("float", phase_float)
+    journal_launches = timed("journal", phase_journal)
+    emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
     main_case = cases[MAIN_CASE]
     emit({"kernels": [{
         "name": "digest", "route": "cuda", "source": "ggrs_tpu_torch/csrc/digest.cu",
         "replaces": "ggrs_tpu/ops/pallas_checksum.py:66",
         "launches": launches, "launches_executor": exec_launches,
-        "launches_p2p": p2p_launches, "max_abs_err": worst,
+        "launches_p2p": p2p_launches, "launches_ecs": ecs_launches,
+        "launches_float": float_launches, "launches_journal": journal_launches,
+        "max_abs_err": worst,
         "ms": main_case["device_us"] / 1e3, "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_us"] / 1e3, "bound_by": "bytes", "library_ms": None,
     }]})

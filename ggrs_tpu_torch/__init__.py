@@ -13,6 +13,11 @@ NVIDIA H100:
 - the P2P wire (``net``): the endpoint protocol, its messages and input
   codec byte for byte the JAX package's, UDP and in-memory sockets, so a
   port peer plays a JAX peer;
+- the games: BoxGame (fixed-point and float), ChipVM, EcsWorld (an entity
+  component world) and RtsCmd (command streams in varrec envelopes);
+- match journals (``broadcast``): a ``JournalTap`` records a live
+  ``P2PSession`` into a ``MatchJournal``, and ``ReplaySession`` plays it back
+  frame by frame or fast-forwards it on the card (``build_scrub_program``);
 - the 4-lane state digest as a hand-written CUDA kernel (``csrc/digest.cu``)
   that digests a whole batch of states from their leaves in one launch.
 
@@ -20,7 +25,7 @@ It imports torch and numpy only; entry points take ``device=None``, meaning
 the CUDA card.
 """
 
-from . import obs
+from . import broadcast, obs
 from .convert import from_numpy, to_numpy
 from .core import (
     AdvanceFrame,
@@ -42,7 +47,17 @@ from .core import (
     Spectator,
     resolve_device,
 )
-from .games import BoxGame, ChipVM, boxgame_config
+from .broadcast import JournalExhausted, JournalTap, MatchJournal, read_journal
+from .games import (
+    BoxGame,
+    ChipVM,
+    EcsWorld,
+    RtsCmd,
+    RtsCmdGame,
+    boxgame_config,
+    decode_commands,
+    encode_commands,
+)
 from .ops import (
     CHECKSUM_LANES,
     DeviceChecksum,
@@ -51,6 +66,7 @@ from .ops import (
     ExecutorPrograms,
     ReplayPrograms,
     build_replay_programs,
+    build_scrub_program,
     checksum_device,
     checksum_to_u128,
     lane_sums_rows,
@@ -61,6 +77,7 @@ from .parallel import BatchedSessions
 from .sessions import (
     DeviceSyncTestSession,
     P2PSession,
+    ReplaySession,
     SessionBuilder,
     SpectatorSession,
     SyncTestSession,
@@ -73,13 +90,14 @@ __all__ = [
     "CHECKSUM_LANES",
     "ChipVM",
     "Config",
+    "DesyncDetected",
+    "DesyncDetection",
     "DeviceChecksum",
     "DeviceRequestExecutor",
     "DeviceStateRing",
-    "DesyncDetected",
-    "DesyncDetection",
     "DeviceSyncTestSession",
     "Disconnected",
+    "EcsWorld",
     "ExecutorPrograms",
     "FakeSocket",
     "GameStateCell",
@@ -87,8 +105,11 @@ __all__ = [
     "InMemoryNetwork",
     "InputStatus",
     "InvalidRequest",
+    "JournalExhausted",
+    "JournalTap",
     "LoadGameState",
     "Local",
+    "MatchJournal",
     "Message",
     "MismatchedChecksum",
     "NetworkStats",
@@ -98,6 +119,9 @@ __all__ = [
     "PredictionThreshold",
     "Remote",
     "ReplayPrograms",
+    "ReplaySession",
+    "RtsCmd",
+    "RtsCmdGame",
     "SaveGameState",
     "SessionBuilder",
     "Spectator",
@@ -105,13 +129,18 @@ __all__ = [
     "SyncTestSession",
     "UdpNonBlockingSocket",
     "boxgame_config",
+    "broadcast",
     "build_replay_programs",
+    "build_scrub_program",
     "checksum_device",
     "checksum_to_u128",
+    "decode_commands",
+    "encode_commands",
     "from_numpy",
     "lane_sums_rows",
     "obs",
     "pytree_checksum",
+    "read_journal",
     "resolve_device",
     "to_numpy",
 ]

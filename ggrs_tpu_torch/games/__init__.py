@@ -7,6 +7,8 @@ from .boxgame import (
     boxgame_config,
 )
 from .chipvm import ChipVM
+from .ecs_world import EcsWorld
+from .rtscmd import RtsCmd, RtsCmdGame, decode_commands, encode_commands
 
 __all__ = [
     "BOX_INPUT_UP",
@@ -15,5 +17,10 @@ __all__ = [
     "BOX_INPUT_RIGHT",
     "BoxGame",
     "ChipVM",
+    "EcsWorld",
+    "RtsCmd",
+    "RtsCmdGame",
     "boxgame_config",
+    "decode_commands",
+    "encode_commands",
 ]

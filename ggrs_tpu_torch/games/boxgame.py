@@ -1,14 +1,18 @@
-"""BoxGame, fixed-point variant: the flagship deterministic workload.
+"""BoxGame: the flagship deterministic workload.
 
 The port of ``ggrs_tpu/games/boxgame.py``: 2-4 ships with "ice physics"
-(rotate / thrust / drift / wrap-around playfield) in 16.16 fixed-point int32
-with a sine LUT, so the simulation is bitwise identical on the card, on the
-CPU, in the JAX package and in the NumPy oracle.
+(rotate / thrust / drift / wrap-around playfield).  The canonical variant is
+16.16 fixed-point int32 with a sine LUT, so the simulation is bitwise
+identical on the card, on the CPU, in the JAX package and in the NumPy
+oracle.  The float32 variant (``variant="float"``) keeps the physics feel of
+the reference's float example; like it, it is deterministic only within one
+backend: torch's ``cos``/``sin`` and XLA's may differ in the last bit, so it
+is held to the JAX package within a tolerance, and to itself bitwise.
 
 State is a dict of tensors vectorized over players and batched over
-sessions: ``{"pos": (B, P, 2), "vel": (B, P, 2), "rot": (B, P)}`` int32.
-Inputs are one ``uint8`` bitmask per player, ``(B, P)``
-(up/down/left/right).  The float variant of the JAX package is not ported.
+sessions: ``{"pos": (B, P, 2), "vel": (B, P, 2), "rot": (B, P)}``, int32 or
+float32.  Inputs are one ``uint8`` bitmask per player, ``(B, P)``
+(up/down/left/right).
 """
 
 from __future__ import annotations
@@ -44,6 +48,14 @@ _SIN_FP = np.round(
     np.sin(2.0 * np.pi * np.arange(_ROT_PERIOD) / _ROT_PERIOD) * _ONE
 ).astype(np.int32)
 
+# the float variant's float32 constants, as Python floats of their exact
+# float32 values (a scalar operand of a float32 tensor is rounded to float32)
+_F_TURN = float(np.float32(0.05))
+_F_TWO_PI = float(np.float32(2 * np.pi))
+_F_ACCEL = float(np.float32(0.12))
+_F_FRICTION = float(np.float32(_FRICTION_NUM / 256.0))
+_F_MAX_SPEED = 6.0
+
 
 @functools.lru_cache(maxsize=8)
 def _device_consts(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -51,6 +63,12 @@ def _device_consts(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     lut = torch.from_numpy(_SIN_FP).to(device)
     window = torch.tensor([WINDOW_W, WINDOW_H], dtype=torch.int32, device=device)
     return lut, window
+
+
+@functools.lru_cache(maxsize=8)
+def _float_window(device: torch.device) -> torch.Tensor:
+    """The float variant's playfield size (2,) float32 on ``device``."""
+    return torch.tensor([800.0, 600.0], dtype=torch.float32, device=device)
 
 
 def _decode_buttons(inputs: Any) -> Tuple[Any, Any]:
@@ -67,15 +85,29 @@ class BoxGame:
     """``init_state`` / batch-native ``advance`` in torch, and the NumPy
     oracle ``init_state_np`` / ``advance_np`` (one unbatched state)."""
 
-    def __init__(self, num_players: int) -> None:
+    def __init__(self, num_players: int, variant: str = "fixed") -> None:
         if not 2 <= num_players <= 4:
             raise ValueError("BoxGame supports 2-4 players")
+        if variant not in ("fixed", "float"):
+            raise ValueError('BoxGame variant is "fixed" or "float"')
         self.num_players = num_players
+        self.variant = variant
 
     # -- state ---------------------------------------------------------
 
     def init_state_np(self) -> Dict[str, np.ndarray]:
-        """Ships spaced around the playfield center, facing outward."""
+        """Ships spaced around the playfield center, facing outward (in
+        float32 pixels and radians for the float variant)."""
+        state = self._init_fixed_np()
+        if self.variant == "float":
+            state = {
+                "pos": (state["pos"] / _ONE).astype(np.float32),
+                "vel": np.zeros((self.num_players, 2), np.float32),
+                "rot": (state["rot"] * (2 * np.pi / _ROT_PERIOD)).astype(np.float32),
+            }
+        return state
+
+    def _init_fixed_np(self) -> Dict[str, np.ndarray]:
         p = self.num_players
         angles = (np.arange(p) * (_ROT_PERIOD // p)) % _ROT_PERIOD
         cx, cy = WINDOW_W // 2, WINDOW_H // 2
@@ -99,6 +131,8 @@ class BoxGame:
 
     def advance(self, state: Any, inputs: torch.Tensor) -> Dict[str, torch.Tensor]:
         """One simulation step for B sessions.  ``inputs``: (B, P) uint8."""
+        if self.variant == "float":
+            return self._advance_float(state, inputs)
         lut, window = _device_consts(inputs.device)
         turn, thrust = _decode_buttons(inputs)
         rot = torch.remainder(state["rot"] + turn * _ROT_STEP, _ROT_PERIOD)
@@ -114,10 +148,24 @@ class BoxGame:
         pos = torch.remainder(state["pos"] + vel, window)
         return {"pos": pos, "vel": vel, "rot": rot}
 
+    def _advance_float(self, state: Any, inputs: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The float32 step, operation for operation the JAX package's."""
+        turn, thrust = _decode_buttons(inputs)
+        rot = torch.remainder(state["rot"] + turn.to(torch.float32) * _F_TURN, _F_TWO_PI)
+        acc = thrust.to(torch.float32).unsqueeze(-1) * torch.stack(
+            [torch.cos(rot), torch.sin(rot)], dim=-1
+        ) * _F_ACCEL
+        vel = torch.clamp(state["vel"] + acc, -_F_MAX_SPEED, _F_MAX_SPEED) * _F_FRICTION
+        pos = torch.remainder(state["pos"] + vel, _float_window(inputs.device))
+        return {"pos": pos, "vel": vel, "rot": rot}
+
     # -- advance: numpy mirror (the independent CPU oracle) ------------
 
     def advance_np(self, state: Dict[str, np.ndarray], inputs: np.ndarray) -> Dict[str, np.ndarray]:
-        """Bitwise mirror of ``advance`` in plain NumPy, one session."""
+        """Bitwise mirror of ``advance`` in plain NumPy, one session (the
+        fixed variant only, as in the JAX package)."""
+        if self.variant != "fixed":
+            raise ValueError("advance_np mirrors the fixed variant only")
         turn, thrust = _decode_buttons(inputs)
         rot = np.remainder(state["rot"] + turn * _ROT_STEP, _ROT_PERIOD).astype(np.int32)
         cos = _SIN_FP[np.remainder(rot + _ROT_PERIOD // 4, _ROT_PERIOD)]

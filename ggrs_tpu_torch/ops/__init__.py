@@ -9,7 +9,7 @@ from .checksum import (
 )
 from .executor import DeviceRequestExecutor, ExecutorPrograms
 from .digest import lane_sums_rows, lane_sums_rows_plain, state_digest, state_digest_plain
-from .replay import ReplayPrograms, build_replay_programs
+from .replay import ReplayPrograms, build_replay_programs, build_scrub_program
 from .ring import DeviceStateRing
 
 __all__ = [
@@ -20,6 +20,7 @@ __all__ = [
     "ExecutorPrograms",
     "ReplayPrograms",
     "build_replay_programs",
+    "build_scrub_program",
     "checksum_device",
     "checksum_device_plain",
     "checksum_to_u128",

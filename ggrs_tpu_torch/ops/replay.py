@@ -190,6 +190,33 @@ class ReplayPrograms:
             return self._run(self.steady_tick, carry, tick_inputs, start_frame)
 
 
+def build_scrub_program(advance: AdvanceFn, device: DeviceLike = None) -> Callable[[Any, Any], Any]:
+    """The confirmed-only playback program: advance N frames with state and
+    inputs resident on ``device`` -- the fast-forward mode of journal replay
+    (``sessions.replay.ReplaySession``).
+
+    Replaying a journal never rolls back (every input is confirmed), so the
+    tick above collapses to a bare run of advances: no ring, no digest
+    history, no resimulation.  The returned callable is
+    ``scrub(state, stacked_inputs) -> state`` for one unbatched state, with
+    the window's per-frame inputs stacked on the leading axis.  The window is
+    uploaded once; the batch-native ``advance`` runs eagerly on ``(1, ...)``
+    views, each frame on the previous frame's output, and nothing is read
+    back.  The argument state is never written (the JAX package donates it
+    on a TPU only)."""
+    dev = resolve_device(device)
+
+    def scrub(state: Any, stacked_inputs: Any) -> Any:
+        inputs = from_numpy(stacked_inputs, dev)
+        st = tree_map(lambda leaf: leaf.unsqueeze(0), from_numpy(state, dev))
+        with trace_span("ggrs:scrub"):
+            for k in range(tree_leaves(inputs)[0].shape[0]):
+                st = advance(st, tree_map(lambda leaf: leaf[k:k + 1], inputs))
+        return tree_map(lambda leaf: leaf[0], st)
+
+    return scrub
+
+
 def build_replay_programs(
     advance: AdvanceFn,
     ring_length: int,

@@ -12,9 +12,11 @@ request list the game must fulfill.  Includes lockstep mode
 With ``ops.DeviceRequestExecutor`` fulfilling the lists on the card, each
 saved cell holds a lazy ``DeviceChecksum``; the desync exchange reads one
 (one device-to-host read) at each interval frame and sends it to the peers.
-The JAX package's request pooling, prediction-plane binding and fleet
-adoption seams (``enable_request_pooling``, ``bind_prediction_plane``,
-``adopt_resume_state``, ``adopt_spectator_endpoint``) are not ported.
+``adopt_spectator_endpoint`` grafts a spectator endpoint onto a live
+session: a ``broadcast.JournalTap`` attaches there to record the match.  The
+JAX package's request pooling, prediction-plane binding and fleet resume
+seams (``enable_request_pooling``, ``bind_prediction_plane``,
+``adopt_resume_state``) are not ported.
 """
 
 from __future__ import annotations
@@ -533,6 +535,17 @@ class P2PSession(ThreadOwned, Generic[I, S, A]):
             self.tracer = tracer
         if journal is not None:
             self._forensics_journal = journal
+
+    def adopt_spectator_endpoint(self, addr: A, endpoint) -> None:
+        """Graft a spectator endpoint onto a LIVE session: the relay seam
+        through which a ``broadcast.JournalTap`` receives the confirmed-input
+        stream this session sends its spectators.  The endpoint joins both
+        the registry (inbound routing + fan-out) and the cached poll list
+        (timers + flushes)."""
+        if addr in self._player_reg.spectators:
+            raise InvalidRequest(f"spectator address {addr!r} already bound")
+        self._player_reg.spectators[addr] = endpoint
+        self._all_endpoints.append(endpoint)
 
     # ------------------------------------------------------------------
     # internals
