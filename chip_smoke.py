@@ -15,7 +15,10 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    of states read from their leaves: the ChipVM live and folded resim
    digests, BoxGame, a strided ring slot view, a state of every dtype and a
    2^26-word leaf; the EcsWorld live and folded resim digests, a strided
-   EcsWorld ring slot and a float BoxGame state).  Per shape: device us per launch from CUDA events
+   EcsWorld ring slot and a float BoxGame state; the fulfilled speculation
+   window, the pool's 64- and 512-row writes, states of 33 and 40 leaves (one
+   raw launch per group of 32) and transposed, gapped and expanded leaves
+   (each copied once first)).  Per shape: device us per launch from CUDA events
    around a CUDA graph of many launches (inputs rotated so the working set
    exceeds the L2 cache), host us per wrapper call, the plain version's
    time and the bytes bound.  The profiler checks that one CUDA
@@ -86,6 +89,30 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    edge, and the end state equals peer A's live state at the frame the
    journal ends.  Journal bytes and host ms per frame, scrub ms per window,
    kernels per RtsCmd advance.
+11. speculation (BASELINE config 3) -- four ``BoxGame(4)`` P2P peers over an
+   in-memory network, max_prediction 8, desync detection at interval 1, for
+   400 ticks (the last 20 with inputs held); peer 0's executor carries
+   ``SpeculativeRollback(K=8, max_window=8)`` with ``bench.py``'s
+   hypotheses (seven held-button guesses and the schedule itself).  The
+   same drive without speculation, and the speculating drive on the CPU:
+   all four peers' states and every checksum they sent are bitwise equal
+   across the three, 0 ``DesyncDetected``, hits + misses equal peer 0's
+   rollbacks, every window the branches cover hits, and no fused rollback
+   tick runs a burst.  Every ``run`` under the sync debug mode "error".
+   Kernels and device busy per peer-0 rollback tick and plain tick for both
+   variants (40 rollback ticks mid-run and the last 15, plain, each ``run``
+   alone under the profiler), host ms per tick, digest launches observed
+   and predicted.
+12. pool -- ``bench.py``'s massed hosting: 32 two-peer BoxGame matches (64
+   sessions, ring 10, max_burst 9, desync detection at interval 8) for 180
+   ticks through one ``BatchedRequestExecutor``, and through 64
+   ``DeviceRequestExecutor``s, and the pool on the CPU: live states, the
+   last tick's ring checksums and every sent checksum bitwise equal, 0
+   ``DesyncDetected``, every fulfilment under the sync debug mode "error".
+   Kernels, busy and idle share per tick (the fulfilment of the last 8
+   ticks, each alone under the profiler) and host ms per tick for both;
+   digest launches per tick, observed and predicted from the descriptors.  Then 256 matches (512 sessions) for 24 ticks, the first 32
+   matches held against a CPU rerun of them.
 
 Then the seconds each phase took, one ``{"kernels": [...]}`` line, the
 card's name and power limit as nvidia-smi prints them, and, last,
@@ -109,6 +136,7 @@ import torch
 
 from ggrs_tpu_torch import (
     AdvanceFrame,
+    BatchedRequestExecutor,
     BatchedSessions,
     BoxGame,
     ChipVM,
@@ -117,9 +145,11 @@ from ggrs_tpu_torch import (
     DeviceRequestExecutor,
     DeviceSyncTestSession,
     EcsWorld,
+    ExecutorPrograms,
     InMemoryNetwork,
     InputStatus,
     JournalTap,
+    LoadGameState,
     Local,
     MatchJournal,
     Remote,
@@ -128,6 +158,7 @@ from ggrs_tpu_torch import (
     RtsCmdGame,
     SaveGameState,
     SessionBuilder,
+    SpeculativeRollback,
     _build,
     boxgame_config,
     build_scrub_program,
@@ -135,7 +166,12 @@ from ggrs_tpu_torch import (
 )
 from ggrs_tpu_torch.obs import FlightRecorder
 from ggrs_tpu_torch.ops.checksum import checksum_device, checksum_device_plain
-from ggrs_tpu_torch.ops.digest import lane_sums_rows, lane_sums_rows_plain, state_digest
+from ggrs_tpu_torch.ops.digest import (
+    MAX_LEAVES,
+    lane_sums_rows,
+    lane_sums_rows_plain,
+    state_digest,
+)
 from ggrs_tpu_torch.utils.tree import tree_leaves, tree_map
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
@@ -173,6 +209,14 @@ ECS_MELEE_FRAMES = 200
 FLOAT_D, FLOAT_TICKS, FLOAT_CHUNK = 8, 1024, 256
 FLOAT_ATOL = 1e-3  # per leaf, card against CPU; cos/sin may differ in the last bit
 RTS_FRAMES, RTS_DRAIN, RTS_SETTLE, RTS_WINDOW = 600, 20, 200, 64
+SPEC_PLAYERS, SPEC_K, SPEC_W, SPEC_MAX_PREDICTION = 4, 8, 8, 8  # BASELINE config 3
+SPEC_TICKS, SPEC_DRAIN = 400, 20
+# peer 0's profiled ticks: rollback ticks mid-run, plain ticks in the drain
+SPEC_PROFILED = tuple(range(100, 140)) + tuple(range(SPEC_TICKS - 15, SPEC_TICKS))
+POOL_MATCHES, POOL_RING, POOL_MAX_BURST, POOL_DESYNC_INTERVAL = 32, 10, 9, 8
+POOL_SESSIONS, POOL_TICKS, POOL_PROFILED = 2 * POOL_MATCHES, 180, 8
+POOL_BIG_MATCHES, POOL_BIG_TICKS = 256, 24
+POOL_BIG_SESSIONS = 2 * POOL_BIG_MATCHES
 
 
 class SmokeFailure(Exception):
@@ -291,9 +335,40 @@ def chipvm_state(rng, lead: tuple) -> dict:
     return {"mem": u8(lead + (256,)), "pc": u8(lead), "regs": u8(lead + (4,))}
 
 
-def boxgame_state(rng, lead: tuple) -> dict:
+def boxgame_state(rng, lead: tuple, players: int = 2) -> dict:
     i32 = lambda shape: _card(rng.integers(-(2**31), 2**31, size=shape, dtype=np.int32))
-    return {"pos": i32(lead + (2, 2)), "rot": i32(lead + (2,)), "vel": i32(lead + (2, 2))}
+    p = players
+    return {"pos": i32(lead + (p, 2)), "rot": i32(lead + (p,)), "vel": i32(lead + (p, 2))}
+
+
+def many_leaves_state(rng, b: int, count: int) -> dict:
+    """``count`` small leaves of mixed dtypes and odd byte counts."""
+    kinds = [(np.uint8, (3,)), (np.int16, (5,)), (np.int32, ()), (np.int32, (2,)),
+             (np.int64, (1,))]
+    out = {}
+    for i in range(count):
+        dt, shape = kinds[i % len(kinds)]
+        out[f"l{i:02d}"] = _card(rng.integers(0, 2**63, size=(b,) + shape, dtype=np.int64).astype(dt))
+    return out
+
+
+def copied_base(rng, shape: tuple) -> dict:
+    """An int32 leaf and a contiguous u8 leaf; the view functions below make
+    the first one a layout the kernel cannot read in place."""
+    return {"t": _card(rng.integers(-(2**31), 2**31, size=shape, dtype=np.int32)),
+            "u": _card(rng.integers(0, 256, size=(shape[0], 3), dtype=np.uint8))}
+
+
+def transposed(state):
+    return {**state, "t": state["t"].transpose(1, 2)}
+
+
+def gapped(state):
+    return {**state, "t": state["t"][:, ::2]}
+
+
+def expanded(state):
+    return {**state, "t": state["t"].expand(-1, 4, -1)}
 
 
 def ecs_state(rng, lead: tuple) -> dict:
@@ -356,6 +431,18 @@ def state_cases(rng):
         ("ecs_ring_slot_view", ecs_state(rng, (ECS_BATCH, ECS_D + 1)), ring_slot),
         ("boxgame_float_b1", boxgame_float_state(rng, (1,)), same),
         ("boxgame_float_b1_resim_folded", boxgame_float_state(rng, (1, FLOAT_D)), flat_rows),
+        # the fulfilled speculation window (phase 11) and the pool's B-row
+        # writes (phase 12)
+        ("boxgame4_spec_window", boxgame_state(rng, (SPEC_W, ), players=4), same),
+        ("boxgame_pool_64", boxgame_state(rng, (POOL_SESSIONS,)), same),
+        ("boxgame_pool_512", boxgame_state(rng, (POOL_BIG_SESSIONS,)), same),
+        # more leaves than one launch takes: one raw launch per group
+        ("leaves_33", many_leaves_state(rng, BATCH, 33), same),
+        ("leaves_40", many_leaves_state(rng, BATCH, 40), same),
+        # leaves the kernel cannot read in place: each copied once
+        ("copied_transposed", copied_base(rng, (BATCH, 5, 3)), transposed),
+        ("copied_gapped", copied_base(rng, (BATCH, 6, 2)), gapped),
+        ("copied_expanded", copied_base(rng, (BATCH, 1, 6)), expanded),
     ]
 
 
@@ -428,17 +515,22 @@ def phase_state_digest(rng) -> dict:
         leaves = tree_leaves(rows_state)
         rows = leaves[0].shape[0]
         bytes_per_row = sum(math.prod(l.shape[1:]) * l.element_size() for l in leaves)
+        before = state_digest.launches
         got = checksum_device(rows_state)
+        launches = state_digest.launches - before
         want = checksum_device_plain(rows_state)
         torch.cuda.synchronize()
         err = u32_err(got, want)
         check(got.shape == (rows, 4) and torch.equal(got, want),
               f"state_digest != plain on {name}")
+        groups = -(-sum(1 for l in leaves if l[0].numel()) // MAX_LEAVES)
+        check(launches == groups, f"state_digest on {name}: {launches} launches, not {groups}")
         n_copies = copies_for(bytes_per_row * rows)
         inputs = [rows_state] + [view(tree_map(torch.clone, state)) for _ in range(n_copies - 1)]
         big = bytes_per_row * rows >= 1 << 26
         rec = {"phase": "kernel", "entry": "state_digest", "case": name, "rows": rows,
-               "leaves": len(leaves), "bytes_per_row": bytes_per_row,
+               "leaves": len(leaves), "launches_per_digest": launches,
+               "bytes_per_row": bytes_per_row,
                "bitwise_equal": True, "max_abs_err": err,
                "device_us": graph_us(checksum_device, inputs),
                "device_us_l2_warm": graph_us(checksum_device, [rows_state]),
@@ -550,6 +642,18 @@ def executor_inputs(pairs) -> np.ndarray:
     return np.asarray([p[0] for p in pairs], np.uint8)
 
 
+def guarded_run(fulfil, reqs, card: bool) -> None:
+    """``fulfil(reqs)``; on the card under the sync debug mode "error", so
+    that a device->host read there fails the run."""
+    if card:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        fulfil(reqs)
+    finally:
+        if card:
+            torch.cuda.set_sync_debug_mode(0)
+
+
 def drive_executor(game, inputs: np.ndarray, device):
     """Play ``inputs`` through SessionBuilder -> SyncTestSession ->
     DeviceRequestExecutor.  On the card every ``run`` is under the sync
@@ -570,13 +674,7 @@ def drive_executor(game, inputs: np.ndarray, device):
         sess.add_local_input(0, int(inputs[f, 0]))
         sess.add_local_input(1, int(inputs[f, 1]))
         reqs = sess.advance_frame()
-        if card:
-            torch.cuda.set_sync_debug_mode("error")
-        try:
-            ex.run(reqs)
-        finally:
-            if card:
-                torch.cuda.set_sync_debug_mode(0)
+        guarded_run(ex.run, reqs, card)
         saves = [r for r in reqs if isinstance(r, SaveGameState)]
         saved.append([(r.frame, r.cell.checksum) for r in saves])
     ex.block_until_ready()
@@ -770,13 +868,7 @@ def drive_p2p(game, frames: int, device, profiled: int = 0, corrupt: bool = Fals
             sess.add_local_input(h, p2p_input(h, f, frames))
             reqs = sess.advance_frame()
             t2 = time.perf_counter()
-            if card:
-                torch.cuda.set_sync_debug_mode("error")
-            try:
-                ex.run(reqs)
-            finally:
-                if card:
-                    torch.cuda.set_sync_debug_mode(0)
+            guarded_run(ex.run, reqs, card)
             t3 = time.perf_counter()
             if timed:
                 host["poll"] += t1 - t0
@@ -1118,13 +1210,7 @@ def drive_journal(rts: RtsCmd, device, path: str) -> dict:
         sess.poll_remote_clients()
         sess.add_local_input(h, rts_orders(h, sess.current_frame))
         reqs = sess.advance_frame()
-        if card:
-            torch.cuda.set_sync_debug_mode("error")
-        try:
-            ex.run(reqs)
-        finally:
-            if card:
-                torch.cuda.set_sync_debug_mode(0)
+        guarded_run(ex.run, reqs, card)
         host_s += time.perf_counter() - t0
         steps += 1
         predicted += predicted_digest_launches(reqs)
@@ -1257,6 +1343,351 @@ def phase_journal() -> int:
     return launches
 
 
+def spec_sched(player: int, i: int) -> int:
+    """``bench.py``'s config-3 schedule (every player's input changes every
+    3 frames, staggered), held for the last ``SPEC_DRAIN`` ticks."""
+    return ((min(i, SPEC_TICKS - SPEC_DRAIN - 1) + player) // 3) % 16
+
+
+def spec_branches():
+    """``bench.py``'s hypotheses for peer 0 (``branch_inputs_all``):
+    branches 0-6 hold every remote at k, branch 7 is the schedule itself."""
+    base = np.zeros((SPEC_K, SPEC_PLAYERS), np.uint8)
+    base[:7, 1:] = np.arange(7, dtype=np.uint8)[:, None]
+
+    def branch_inputs_all(frame, arr):
+        out = base.copy()
+        out[:, 0] = arr[0]
+        out[7, 1:] = [spec_sched(p, frame) for p in range(1, SPEC_PLAYERS)]
+        return out
+
+    return (lambda k, frame, arr: branch_inputs_all(frame, arr)[k]), branch_inputs_all
+
+
+def drive_spec(speculate: bool, device, profile: bool = False) -> dict:
+    """BASELINE config 3: four ``BoxGame(4)`` P2P peers over an in-memory
+    network, max_prediction 8, desync detection at interval 1, each with an
+    executor on ``device``; with ``speculate`` peer 0 carries
+    ``SpeculativeRollback(K=8, max_window=8)``.  Every ``run`` on the card
+    is under the sync debug mode "error".  With ``profile``, peer 0's runs
+    of the ``SPEC_PROFILED`` ticks run alone under the profiler and are left
+    out of the host times."""
+    game = BoxGame(SPEC_PLAYERS)
+    net = InMemoryNetwork()
+    names = [f"P{p}" for p in range(SPEC_PLAYERS)]
+    branch_inputs, branch_inputs_all = spec_branches()
+    peers = []
+    for me in range(SPEC_PLAYERS):
+        spec = None
+        if speculate and me == 0:
+            spec = SpeculativeRollback(game.advance, SPEC_K, branch_inputs, max_window=SPEC_W,
+                                       branch_inputs_all=branch_inputs_all, device=device)
+        ex = DeviceRequestExecutor(game.advance, game.init_state_np(), executor_inputs,
+                                   speculation=spec, device=device)
+        ex.warmup(np.zeros(SPEC_PLAYERS, np.uint8),
+                  burst_depths=range(2, SPEC_MAX_PREDICTION + 2))
+        b = (SessionBuilder(boxgame_config()).with_num_players(SPEC_PLAYERS)
+             .with_max_prediction_window(SPEC_MAX_PREDICTION).with_clock(lambda: 0)
+             .with_rng(random.Random(91 + me)).with_desync_detection_mode(DesyncDetection.on(1)))
+        for p in range(SPEC_PLAYERS):
+            b = b.add_player(Local() if p == me else Remote(names[p]), p)
+        sess = b.start_p2p_session(net.socket(names[me]))
+        sess.attach_forensics(recorder=FlightRecorder(checksum_window=SPEC_TICKS + 8))
+        peers.append((me, sess, ex))
+    ex0 = peers[0][2]
+    card = ex0.device.type == "cuda"
+    calls = {"burst": 0, "fused": 0}
+    for obj, name, key in ((ex0, "_do_burst", "burst"), (ex0._spec, "fulfill_and_refill", "fused")):
+        if obj is not None:
+            orig = getattr(obj, name)
+            setattr(obj, name, lambda *a, _o=orig, _k=key, **kw: (
+                calls.__setitem__(_k, calls[_k] + 1), _o(*a, **kw))[1])
+    loads = predicted = desyncs = fused_with_burst = 0
+    host = {"tick": 0.0, "ticks": 0, "rollback": [0.0, 0], "plain": [0.0, 0]}
+    prof = {"rollback": [], "plain": []}
+    state_digest.launches = lane_sums_rows.launches = 0
+    for i in range(SPEC_TICKS):
+        in_prof = profile and card and i in SPEC_PROFILED
+        t_tick = time.perf_counter()
+        for _, sess, _ in peers:
+            sess.poll_remote_clients()
+        for p, sess, ex in peers:
+            sess.add_local_input(p, spec_sched(p, i))
+            t0 = time.perf_counter()
+            reqs = sess.advance_frame()
+            predicted += predicted_digest_launches(reqs)
+            if p == 0:
+                kind = "rollback" if any(isinstance(r, LoadGameState) for r in reqs) else "plain"
+                loads += kind == "rollback"
+                before = dict(calls)
+                if in_prof:
+                    prof[kind].append(profile_device(lambda: guarded_run(ex.run, reqs, card), 1))
+                else:
+                    guarded_run(ex.run, reqs, card)
+                    host[kind][0] += time.perf_counter() - t0
+                    host[kind][1] += 1
+                fused_with_burst += calls["fused"] > before["fused"] and calls["burst"] > before["burst"]
+            else:
+                guarded_run(ex.run, reqs, card)
+            desyncs += sum(1 for e in sess.events() if isinstance(e, DesyncDetected))
+        if not in_prof:
+            host["tick"] += time.perf_counter() - t_tick
+            host["ticks"] += 1
+    if card:
+        torch.cuda.synchronize()
+    per_class = {}
+    for kind, rows in prof.items():
+        per_class[kind] = {
+            "ticks_profiled": len(rows),
+            "kernels": sum(r["kernels"] for r in rows) / len(rows) if rows else None,
+            "device_busy_us": sum(r["busy_us"] for r in rows) / len(rows) if rows else None,
+            "host_ms_advance_frame_and_run": host[kind][0] / max(host[kind][1], 1) * 1e3,
+        }
+    return {
+        "launches": state_digest.launches, "around": lane_sums_rows.launches,
+        "predicted": predicted, "desyncs": desyncs, "loads": loads,
+        "hits": ex0.spec_hits, "misses": ex0.spec_misses,
+        "fused": calls["fused"], "bursts": calls["burst"], "fused_with_burst": fused_with_burst,
+        "states": [to_numpy(ex.state) for _, _, ex in peers],
+        "sent": [dict(s.recorder.checksums.items()) for _, s, _ in peers],
+        "frames_reached": [s.current_frame for _, s, _ in peers],
+        "host_ms_per_tick": host["tick"] / host["ticks"] * 1e3, "per_class": per_class,
+    }
+
+
+def phase_speculation() -> int:
+    """BASELINE config 3 on the card, speculation on and off, against a CPU
+    rerun; returns the digest launches of the card's drives."""
+    on = drive_spec(True, None, profile=True)
+    off = drive_spec(False, None, profile=True)
+    for name, run in (("on", on), ("off", off)):
+        check(run["around"] == 0, f"speculation {name}: the digest went around state_digest")
+        check(run["desyncs"] == 0, f"speculation {name}: {run['desyncs']} DesyncDetected")
+        check(run["launches"] == run["predicted"],
+              f"speculation {name}: {run['launches']} digest launches, the request lists "
+              f"predict {run['predicted']}")
+        check(len(set(run["frames_reached"])) == 1 and all(
+            trees_equal(run["states"][0], st) for st in run["states"][1:]),
+              f"speculation {name}: the four peers differ after the drain")
+    check(all(trees_equal(a, b) for a, b in zip(on["states"], off["states"])),
+          "speculation: states with speculation != without")
+    check(on["sent"] == off["sent"], "speculation: sent checksums with speculation != without")
+    check(on["hits"] + on["misses"] == on["loads"],
+          f"speculation: {on['hits']} hits + {on['misses']} misses != {on['loads']} rollbacks")
+    check(on["fused_with_burst"] == 0, "speculation: a fused rollback tick also ran a burst")
+    # branch 7 is the schedule itself, so every window the branches cover hits
+    check(on["hits"] == on["fused"] > 0,
+          f"speculation: {on['hits']} hits of {on['fused']} fused windows")
+    check(on["bursts"] <= on["misses"], "speculation: bursts on ticks that hit")
+    cpu = drive_spec(True, "cpu")
+    check(all(trees_equal(a, b) for a, b in zip(on["states"], cpu["states"])),
+          "speculation: card states != CPU rerun")
+    check(on["sent"] == cpu["sent"], "speculation: sent checksums != CPU rerun")
+    check((cpu["hits"], cpu["misses"]) == (on["hits"], on["misses"]),
+          "speculation: hits and misses != CPU rerun")
+    emit({"phase": "speculation", "config": "BASELINE config 3", "game": "BoxGame(4)",
+          "peers": SPEC_PLAYERS, "branches": SPEC_K, "max_window": SPEC_W,
+          "max_prediction": SPEC_MAX_PREDICTION, "ticks": SPEC_TICKS, "drain": SPEC_DRAIN,
+          "desync_interval": 1, "desyncs": 0, "sync_debug_mode": "error",
+          "states_equal_on_off_cpu": True, "sent_checksums_equal_on_off_cpu": True,
+          "rollbacks_peer0": on["loads"], "hits": on["hits"], "misses": on["misses"],
+          "fused_windows": on["fused"], "fallback_bursts": on["bursts"],
+          "frames_reached": on["frames_reached"][0],
+          "peer0_per_tick": {"on": on["per_class"], "off": off["per_class"]},
+          "host_ms_per_tick_4_peers": {"on": on["host_ms_per_tick"],
+                                       "off": off["host_ms_per_tick"]},
+          "digest_launches": {"on": on["launches"], "off": off["launches"]},
+          "digest_launches_predicted": {"on": on["predicted"], "off": off["predicted"]}})
+    return on["launches"] + off["launches"]
+
+
+def pool_sched(m: int, me: int, i: int) -> int:
+    """``bench.py``'s ``_match_population`` schedule for match m's peer."""
+    return ((i + 2 * m + me) // (2 + m % 3)) % 16
+
+
+def pool_sessions(n_matches: int, ticks: int) -> list:
+    """``bench.py``'s match population (``_match_population``): 2-peer
+    BoxGame matches over one in-memory network, with desync detection."""
+    net = InMemoryNetwork()
+    sessions = []
+    for m in range(n_matches):
+        names = (f"A{m}", f"B{m}")
+        for me in (0, 1):
+            sess = (SessionBuilder(boxgame_config()).with_clock(lambda: 0)
+                    .with_rng(random.Random(3 + 5 * m + me))
+                    .with_desync_detection_mode(DesyncDetection.on(POOL_DESYNC_INTERVAL))
+                    .add_player(Local(), me).add_player(Remote(names[1 - me]), 1 - me)
+                    .start_p2p_session(net.socket(names[me])))
+            sess.attach_forensics(recorder=FlightRecorder(checksum_window=ticks + 8))
+            sessions.append(sess)
+    return sessions
+
+
+def pool_predicted(desc) -> int:
+    """Digest launches of one pooled tick, from its descriptor: one per
+    masked write that some row takes."""
+    n_adv = desc["n_adv"]
+    writes = int(desc["pre_save"].any()) + int(desc["postload_save"].any())
+    for j in range(int(n_adv.max())):
+        writes += int(((j < n_adv) & desc["save_mask"][:, j]).any())
+    return writes
+
+
+def drive_pool(n_matches: int, ticks: int, device, pooled: bool = True, profiled_ticks: int = 0):
+    """``n_matches`` matches fulfilled by one ``BatchedRequestExecutor``
+    (``pooled``) or by one ``DeviceRequestExecutor`` per session, on
+    ``device``.  On the card every fulfilment is under the sync debug mode
+    "error"; in the last ``profiled_ticks`` ticks the fulfilment runs alone
+    under the profiler, and those ticks are left out of the host times."""
+    sessions = pool_sessions(n_matches, ticks)
+    B = len(sessions)
+    game = BoxGame(2)
+    predicted = 0
+    if pooled:
+        pool = BatchedRequestExecutor(game.advance, game.init_state_np(), executor_inputs,
+                                      batch_size=B, ring_length=POOL_RING,
+                                      max_burst=POOL_MAX_BURST, device=device)
+        pool.warmup(np.zeros(2, np.uint8))
+        card = pool.device.type == "cuda"
+        real_tick = pool._tick
+
+        def tick(desc):
+            nonlocal predicted
+            predicted += pool_predicted(desc)
+            return real_tick(desc)
+
+        pool._tick = tick
+        fulfil = pool.run
+    else:
+        programs = ExecutorPrograms(game.advance)
+        exs = [DeviceRequestExecutor(game.advance, game.init_state_np(), executor_inputs,
+                                     programs=programs, device=device) for _ in range(B)]
+        exs[0].warmup(np.zeros(2, np.uint8), burst_depths=range(2, POOL_MAX_BURST + 1))
+        card = exs[0].device.type == "cuda"
+
+        def fulfil(all_reqs):
+            for ex, reqs in zip(exs, all_reqs):
+                ex.run(reqs)
+
+    host = {"sessions": 0.0, "fulfil": 0.0}
+    desyncs, last, prof = 0, None, []
+    state_digest.launches = lane_sums_rows.launches = 0
+    timed = ticks - (profiled_ticks if card else 0)
+    if card:
+        torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    for i in range(ticks):
+        if i == timed and card:
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_start
+        t0 = time.perf_counter()
+        for s in sessions:
+            s.poll_remote_clients()
+        reqs = []
+        for b, s in enumerate(sessions):
+            s.add_local_input(b % 2, pool_sched(b // 2, b % 2, i))
+            reqs.append(s.advance_frame())
+        t1 = time.perf_counter()
+        if not pooled:
+            predicted += sum(predicted_digest_launches(r) for r in reqs)
+        if i < timed:
+            guarded_run(fulfil, reqs, card)
+            host["sessions"] += t1 - t0
+            host["fulfil"] += time.perf_counter() - t1
+        else:
+            prof.append(profile_device(lambda: guarded_run(fulfil, reqs, card), 1))
+        desyncs += sum(1 for s in sessions for e in s.events() if isinstance(e, DesyncDetected))
+        last = reqs
+    if card:
+        torch.cuda.synchronize()
+    if timed == ticks:
+        wall = time.perf_counter() - t_start
+    kernels = busy = None
+    if prof:
+        kernels = sum(r["kernels"] for r in prof) / len(prof)
+        busy = sum(r["busy_us"] for r in prof) / len(prof)
+    saved = [(b, r.frame) for b, rs in enumerate(last) for r in rs if isinstance(r, SaveGameState)]
+    if pooled:
+        states = [pool.live_state(b) for b in range(B)]
+        cs = {(b, f): pool.ring_checksum(b, f) for b, f in saved}
+    else:
+        states = [to_numpy(ex.state) for ex in exs]
+        cs = {(b, r.frame): r.cell.checksum for b, rs in enumerate(last)
+              for r in rs if isinstance(r, SaveGameState)}
+    wall_ms = wall / timed * 1e3
+    return {
+        "launches": state_digest.launches, "around": lane_sums_rows.launches,
+        "predicted": predicted, "desyncs": desyncs, "states": states, "last_checksums": cs,
+        "sent": [dict(s.recorder.checksums.items()) for s in sessions],
+        "frames_reached": [s.current_frame for s in sessions],
+        "rollbacks": sum(s._stat_rollbacks for s in sessions),
+        "checksum_reads_per_tick": sum(len(s.recorder.checksums) for s in sessions) / ticks,
+        "host_ms_per_tick": wall_ms,
+        "host_ms_sessions": host["sessions"] / timed * 1e3,
+        "host_ms_fulfil": host["fulfil"] / timed * 1e3,
+        "kernels_per_tick": kernels,
+        "device_busy_ms_per_tick": None if busy is None else busy / 1e3,
+        "idle_share": None if busy is None else 1 - busy / 1e3 / wall_ms,
+    }
+
+
+def phase_pool() -> int:
+    """Massed hosting on the card: one pool against one executor per
+    session, and a CPU rerun; then B = 512.  Returns the digest launches
+    of the card's drives."""
+    pooled = drive_pool(POOL_MATCHES, POOL_TICKS, None, True, POOL_PROFILED)
+    single = drive_pool(POOL_MATCHES, POOL_TICKS, None, False, POOL_PROFILED)
+    for name, run in (("pool", pooled), ("executors", single)):
+        check(run["around"] == 0, f"pool {name}: the digest went around state_digest")
+        check(run["desyncs"] == 0, f"pool {name}: {run['desyncs']} DesyncDetected")
+        check(run["launches"] == run["predicted"],
+              f"pool {name}: {run['launches']} digest launches, predicted {run['predicted']}")
+        check(all(len(s) > POOL_TICKS // (2 * POOL_DESYNC_INTERVAL) for s in run["sent"]),
+              f"pool {name}: too few checksum reports sent")
+    check(pooled["frames_reached"] == single["frames_reached"], "pool: frames != executors'")
+    check(all(trees_equal(a, b) for a, b in zip(pooled["states"], single["states"])),
+          "pool: live states != 64 executors'")
+    check(pooled["last_checksums"] == single["last_checksums"] and pooled["last_checksums"],
+          "pool: ring checksums != the executors' saved checksums")
+    check(pooled["sent"] == single["sent"], "pool: sent checksums != the executors'")
+    cpu = drive_pool(POOL_MATCHES, POOL_TICKS, "cpu", True)
+    check(all(trees_equal(a, b) for a, b in zip(pooled["states"], cpu["states"])),
+          "pool: live states != CPU rerun")
+    check(pooled["last_checksums"] == cpu["last_checksums"], "pool: ring checksums != CPU rerun")
+    check(pooled["sent"] == cpu["sent"], "pool: sent checksums != CPU rerun")
+    big = drive_pool(POOL_BIG_MATCHES, POOL_BIG_TICKS, None, True, POOL_PROFILED)
+    check(big["around"] == 0 and big["desyncs"] == 0, "pool 512: desync or stray digest")
+    check(big["launches"] == big["predicted"],
+          f"pool 512: {big['launches']} digest launches, predicted {big['predicted']}")
+    head = drive_pool(POOL_MATCHES, POOL_BIG_TICKS, "cpu", True)
+    check(all(trees_equal(a, b) for a, b in zip(big["states"], head["states"])),
+          "pool 512: sessions 0-63 != CPU rerun of their matches")
+    check(big["sent"][:POOL_SESSIONS] == head["sent"], "pool 512: sent checksums != CPU rerun")
+    keys = ("host_ms_per_tick", "host_ms_sessions", "host_ms_fulfil", "kernels_per_tick",
+            "device_busy_ms_per_tick", "idle_share", "checksum_reads_per_tick")
+    emit({"phase": "pool", "game": "BoxGame(2)", "matches": POOL_MATCHES,
+          "sessions": POOL_SESSIONS, "ring_length": POOL_RING, "max_burst": POOL_MAX_BURST,
+          "desync_interval": POOL_DESYNC_INTERVAL, "ticks": POOL_TICKS, "desyncs": 0,
+          "sync_debug_mode": "error", "states_equal_to_executors_and_cpu": True,
+          "ring_checksums_equal": True, "rollbacks_per_100_session_ticks":
+              pooled["rollbacks"] / (POOL_SESSIONS * POOL_TICKS) * 100,
+          "profiled_ticks": POOL_PROFILED,
+          "pool": {k: pooled[k] for k in keys}, "executors": {k: single[k] for k in keys},
+          "digest_launches_per_tick": {"pool": pooled["launches"] / POOL_TICKS,
+                                       "executors": single["launches"] / POOL_TICKS},
+          "digest_launches": {"pool": pooled["launches"], "executors": single["launches"]},
+          "digest_launches_predicted": {"pool": pooled["predicted"],
+                                        "executors": single["predicted"]}})
+    emit({"phase": "pool", "game": "BoxGame(2)", "matches": POOL_BIG_MATCHES,
+          "sessions": POOL_BIG_SESSIONS, "ticks": POOL_BIG_TICKS, "desyncs": 0,
+          "sessions_equal_to_cpu": POOL_SESSIONS, "profiled_ticks": POOL_PROFILED,
+          "pool": {k: big[k] for k in keys},
+          "digest_launches": big["launches"], "digest_launches_predicted": big["predicted"],
+          "digest_launches_per_tick": big["launches"] / POOL_BIG_TICKS})
+    return pooled["launches"] + single["launches"] + big["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs the card",
@@ -1284,6 +1715,8 @@ def main() -> int:
     ecs_launches = timed("ecs", phase_ecs)
     float_launches = timed("float", phase_float)
     journal_launches = timed("journal", phase_journal)
+    spec_launches = timed("speculation", phase_speculation)
+    pool_launches = timed("pool", phase_pool)
     emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
     main_case = cases[MAIN_CASE]
     emit({"kernels": [{
@@ -1292,6 +1725,7 @@ def main() -> int:
         "launches": launches, "launches_executor": exec_launches,
         "launches_p2p": p2p_launches, "launches_ecs": ecs_launches,
         "launches_float": float_launches, "launches_journal": journal_launches,
+        "launches_speculation": spec_launches, "launches_pool": pool_launches,
         "max_abs_err": worst,
         "ms": main_case["device_us"] / 1e3, "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_us"] / 1e3, "bound_by": "bytes", "library_ms": None,

@@ -9,7 +9,9 @@ NVIDIA H100:
 - the request-list path: ``SessionBuilder`` starts a host
   ``SyncTestSession``, ``P2PSession`` or ``SpectatorSession``, and
   ``DeviceRequestExecutor`` fulfils each request list it returns with the
-  game state on the card;
+  game state on the card, optionally answering rollbacks from K speculative
+  branches (``SpeculativeRollback``); ``BatchedRequestExecutor`` fulfils
+  many sessions' lists as one batched tick;
 - the P2P wire (``net``): the endpoint protocol, its messages and input
   codec byte for byte the JAX package's, UDP and in-memory sockets, so a
   port peer plays a JAX peer;
@@ -73,7 +75,13 @@ from .ops import (
     pytree_checksum,
 )
 from .net import FakeSocket, InMemoryNetwork, Message, NetworkStats, NonBlockingSocket, UdpNonBlockingSocket
-from .parallel import BatchedSessions
+from .parallel import (
+    BatchedRequestExecutor,
+    BatchedSessions,
+    SpeculativeBranches,
+    SpeculativeRollback,
+    build_speculation_programs,
+)
 from .sessions import (
     DeviceSyncTestSession,
     P2PSession,
@@ -85,6 +93,7 @@ from .sessions import (
 
 __all__ = [
     "AdvanceFrame",
+    "BatchedRequestExecutor",
     "BatchedSessions",
     "BoxGame",
     "CHECKSUM_LANES",
@@ -126,12 +135,15 @@ __all__ = [
     "SessionBuilder",
     "Spectator",
     "SpectatorSession",
+    "SpeculativeBranches",
+    "SpeculativeRollback",
     "SyncTestSession",
     "UdpNonBlockingSocket",
     "boxgame_config",
     "broadcast",
     "build_replay_programs",
     "build_scrub_program",
+    "build_speculation_programs",
     "checksum_device",
     "checksum_to_u128",
     "decode_commands",

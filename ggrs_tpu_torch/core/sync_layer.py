@@ -154,9 +154,15 @@ class SyncLayer(Generic[I, S]):
 
     # -- save / load ---------------------------------------------------------
 
-    def save_current_state(self) -> SaveGameState:
+    def save_current_state(self, into: Optional[SaveGameState] = None) -> SaveGameState:
         self._last_saved_frame = self._current_frame
         cell = self.saved_states.get_cell(self._current_frame)
+        if into is not None:
+            # pooled-request mode (P2PSession.enable_request_pooling):
+            # refill the caller's object instead of allocating
+            into.cell = cell
+            into.frame = self._current_frame
+            return into
         return SaveGameState(cell=cell, frame=self._current_frame)
 
     def load_frame(self, frame_to_load: Frame) -> LoadGameState:

@@ -116,10 +116,12 @@ def checksum_device(state: Any, device: DeviceLike = None) -> torch.Tensor:
     """Digest a batch of states into ``(B, 4)`` int32 lanes, on device.
 
     Leaves are ``(B, ...)`` tensors, one state per session; row ``b`` equals
-    the JAX package's ``checksum_device`` of session ``b``'s state.  Each
-    leaf's rows must be evenly strided with contiguous bytes (any contiguous
-    leaf, or a ring slot view ``buf[:, i]``); at most ``digest.MAX_LEAVES``
-    leaves.  The empty pytree digests to ``_INIT_LANES`` as a ``(1, 4)``
+    the JAX package's ``checksum_device`` of session ``b``'s state, for any
+    number of leaves in any layout.  On the card it is one launch that reads
+    every leaf in place where the state has at most ``digest.MAX_LEAVES``
+    leaves, each evenly strided with contiguous bytes (any contiguous leaf,
+    or a ring slot view ``buf[:, i]``); see ``digest.state_digest`` for the
+    rest.  The empty pytree digests to ``_INIT_LANES`` as a ``(1, 4)``
     tensor on ``device`` (the only case that reads ``device``)."""
     return _digest(state, device, state_digest)
 

@@ -9,7 +9,9 @@ Two entries into one kernel (``csrc/digest.cu``):
   (or ``(B, n, ...)`` with ``batch_dims=2``, R = B*n) and is read in place
   through a small table -- data pointer, row stride, bytes per row, first
   word index -- passed to the kernel by value, so a ring slot view
-  ``buf[:, i]`` is digested without a copy.  At most ``MAX_LEAVES`` leaves.
+  ``buf[:, i]`` is digested without a copy.  A state of more than
+  ``MAX_LEAVES`` leaves takes one launch per group of leaves, and a leaf
+  the kernel cannot read in place is copied first (``state_digest``).
 - ``lane_sums_rows(words, offset)`` digests each row of a ``(R, W)`` word
   matrix to its raw lanes: row ``r`` gets exactly
   ``checksum.lane_sums(words[r], offset)``.  With ``R = 1`` this is the JAX
@@ -126,17 +128,15 @@ def _row_stride(shape, strides, batch_dims: int):
 
 
 @functools.lru_cache(maxsize=256)
-def _layout(batch_dims: int, leaves: tuple) -> Tuple[int, int, tuple]:
+def _plan(batch_dims: int, leaves: tuple) -> Tuple[int, int, tuple]:
     """``(rows, width, entries)`` for leaves given as ``(shape, strides,
-    itemsize)``: each entry is ``(leaf index, row stride in bytes, bytes per
-    row, first word index)``.  Cached, since a session digests states of one
-    layout every frame."""
+    itemsize)``: each entry is ``(leaf index, row stride in bytes or None,
+    bytes per row, first word index)``, one per leaf with a non-empty row;
+    the stride is None where the leaf's rows are not evenly strided with
+    contiguous bytes (the kernel cannot read it in place).  Cached, since a
+    session digests states of one layout every frame."""
     if not leaves:
         raise ValueError("state_digest: a state needs at least one leaf")
-    if len(leaves) > MAX_LEAVES:
-        raise ValueError(
-            f"state_digest: {len(leaves)} leaves, the kernel takes at most {MAX_LEAVES}"
-        )
     rows = None
     entries = []
     width = 0
@@ -149,16 +149,29 @@ def _layout(batch_dims: int, leaves: tuple) -> Tuple[int, int, tuple]:
         elif r != rows:
             raise ValueError(f"state_digest: leaves hold {rows} and {r} rows")
         stride = _row_stride(shape, strides, batch_dims)
+        nbytes = math.prod(shape[batch_dims:]) * item
+        if nbytes:
+            entries.append((i, None if stride is None else stride * item, nbytes, width))
+        width += (nbytes + 3) // 4
+    return rows, width, tuple(entries)
+
+
+def _layout(batch_dims: int, leaves: tuple) -> Tuple[int, int, tuple]:
+    """``_plan`` for one launch that reads every leaf in place: raises where
+    the leaves are more than ``MAX_LEAVES`` or one cannot be read in place."""
+    if len(leaves) > MAX_LEAVES:
+        raise ValueError(
+            f"state_digest: {len(leaves)} leaves, the kernel takes at most {MAX_LEAVES}"
+        )
+    rows, width, entries = _plan(batch_dims, leaves)
+    for i, stride, _, _ in entries:
         if stride is None:
+            shape, strides, _ = leaves[i]
             raise ValueError(
                 f"state_digest: leaf of shape {tuple(shape)}, strides {strides} is not "
                 "evenly strided rows of contiguous bytes"
             )
-        nbytes = math.prod(shape[batch_dims:]) * item
-        if nbytes:
-            entries.append((i, stride * item, nbytes, width))
-        width += (nbytes + 3) // 4
-    return rows, width, tuple(entries)
+    return rows, width, entries
 
 
 def leaf_table(
@@ -256,6 +269,13 @@ def _device_of(tensors: Sequence[torch.Tensor], what: str) -> torch.device:
     return dev
 
 
+@functools.lru_cache(maxsize=64)
+def _mix_tensor(mix: Tuple[int, int, int, int], device: torch.device) -> torch.Tensor:
+    """The salt mix as a (4,) int64 tensor on ``device``, copied there once."""
+    t = torch.tensor(mix, dtype=torch.int64)
+    return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t
+
+
 def state_digest(
     leaves: Sequence[torch.Tensor], salt_mix: Sequence[int], batch_dims: int = 1
 ) -> torch.Tensor:
@@ -263,16 +283,55 @@ def state_digest(
     leaves; see the module docstring.  ``salt_mix`` is the structure salt
     times 2654435761, four ints in [0, 2^32).
 
+    CPU leaves go to the plain version, whatever their number and layout.
+    On the card the kernel reads the leaves in place, in one launch, where
+    they are at most ``MAX_LEAVES`` and each is evenly strided rows of
+    contiguous bytes.  Otherwise:
+
+    - a leaf the kernel cannot read in place (a transpose, a gapped slice, a
+      view expanded along a state axis) is given to it as one
+      ``.contiguous()`` copy, and only that leaf is copied;
+    - more leaves go in groups of at most ``MAX_LEAVES``, one raw-lane
+      launch per group at the group's first word index.  Every lane is a
+      position-indexed sum mod 2^32, so the groups' lanes add up on the
+      device to the whole row's, and the salt mix and the finish are applied
+      once to the sum.
+
     ``state_digest.launches`` counts the kernel's launches (CPU calls and
     empty batches launch nothing and are not counted)."""
-    entries, rows, width = leaf_table(leaves, batch_dims)
+    if not leaves:
+        raise ValueError("state_digest: a state needs at least one leaf")
     dev = _device_of(leaves, "state_digest")
     if dev.type == "cpu":
         return state_digest_plain(leaves, salt_mix, batch_dims)
-    out = _launch(entries, rows, width, dev, salt_mix, 0, raw=False)
-    if rows:
-        state_digest.launches += 1
-    return out
+    rows, width, plan = _plan(
+        batch_dims, tuple((x.shape, x.stride(), x.element_size()) for x in leaves)
+    )
+    entries = []
+    for i, stride, nbytes, off in plan:
+        leaf = leaves[i]
+        if stride is None:
+            leaf = leaf.contiguous()  # rows of nbytes, back to back
+            stride = nbytes
+        entries.append((leaf, stride, nbytes, off))
+    if len(entries) <= MAX_LEAVES:
+        table = [(leaf.data_ptr(), stride, nbytes, off) for leaf, stride, nbytes, off in entries]
+        out = _launch(table, rows, width, dev, salt_mix, 0, raw=False)
+        if rows:
+            state_digest.launches += 1
+        return out
+    acc = None
+    for g in range(0, len(entries), MAX_LEAVES):
+        group = entries[g:g + MAX_LEAVES]
+        start = group[0][3]
+        end = group[-1][3] + (group[-1][2] + 3) // 4
+        table = [(leaf.data_ptr(), stride, nbytes, off - start) for leaf, stride, nbytes, off in group]
+        lanes = _launch(table, rows, end - start, dev, salt_mix, start, raw=True).to(torch.int64)
+        acc = lanes if acc is None else acc + lanes
+        if rows:
+            state_digest.launches += 1
+    acc = (acc + _mix_tensor(tuple(salt_mix), acc.device)) & MASK32
+    return u32_to_i32(acc ^ (acc >> 15))
 
 
 state_digest.launches = 0

@@ -31,12 +31,22 @@ request list is about one session.  The executor runs ``advance`` and the
 digest on ``(1, ...)`` views (``unsqueeze(0)``) and exposes the state, and
 what a cell holds, in the JAX package's single-state layout (``[0]`` views of
 the advance's output), so that the two packages' states compare leaf for
-leaf.  The speculation hooks of the JAX executor are not ported yet.
+leaf.
+
+With a ``speculation`` strategy (``parallel.SpeculativeRollback``) attached,
+the executor keeps K branch trajectories alive between ticks and lets a
+rollback be answered by branch selection instead of replay: the first Save
+roots the branches, each live advance extends them in the same ``advance``
+call (``advance_and_extend``), and a rollback whose window the branches cover
+is one ``fulfill_and_refill`` call -- matching, the select or the replay
+(both computed, one taken on the card), re-rooting, re-extension and the
+trailing live advance -- whose saved steps are digested in one launch.  The
+host never reads whether it hit.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +56,9 @@ from ..core.device import DeviceLike, resolve_device
 from ..core.types import AdvanceFrame, GgrsRequest, InputStatus, LoadGameState, SaveGameState
 from ..utils.tree import tree_leaves, tree_map
 from .checksum import DeviceChecksum, checksum_device
+
+if TYPE_CHECKING:
+    from ..parallel.spec_rollback import SpeculativeRollback
 
 InputsToArray = Callable[[Sequence[Tuple[Any, InputStatus]]], Any]
 
@@ -123,6 +136,12 @@ class DeviceRequestExecutor:
                         the array ``advance`` takes for one session (e.g. the
                         (P,) u8 bitmask vector of BoxGame), as numpy arrays:
                         those go to the card without a synchronisation.
+    ``speculation``     optional ``SpeculativeRollback`` on the same device:
+                        K branch trajectories that turn a rollback into a
+                        select on the device (see the module docstring).  The
+                        executor re-anchors the branches at frame ``load + 1``
+                        after every rollback and extends them by one
+                        hypothesized frame per executed advance.
     ``programs``        optional shared ``ExecutorPrograms`` (same
                         ``advance`` and ``with_checksums``).
     ``device``          the card by default (``None``); pass ``"cpu"`` to
@@ -135,6 +154,7 @@ class DeviceRequestExecutor:
         init_state: Any,
         inputs_to_array: InputsToArray,
         with_checksums: bool = True,
+        speculation: Optional["SpeculativeRollback"] = None,
         programs: Optional[ExecutorPrograms] = None,
         device: DeviceLike = None,
     ) -> None:
@@ -156,6 +176,12 @@ class DeviceRequestExecutor:
         self._state = from_numpy(init_state, self.device)
         self._inputs_to_array = inputs_to_array
         self._with_checksums = with_checksums
+        if speculation is not None and speculation.device != self.device:
+            raise ValueError(
+                f"speculation lives on {speculation.device}, the executor on {self.device}"
+            )
+        self._spec = speculation
+        self._spec_rollbacks = 0  # host-side: rollbacks seen while speculating
 
     @property
     def state(self) -> Any:
@@ -179,6 +205,25 @@ class DeviceRequestExecutor:
             stacked = from_numpy(_stack_pytrees([example_inputs] * n), self.device)
             self._programs.burst(self._state, stacked, range(n - 1))
         self.block_until_ready()
+        if self._spec is not None:
+            # every speculation path (extend, advance and extend, and
+            # fulfill-and-refill at each depth) once, on scratch buffers
+            self._spec.warmup(
+                self._state, example_inputs, range(1, self._spec.max_window + 1),
+                self._with_checksums,
+            )
+
+    @property
+    def spec_hits(self) -> int:
+        """Rollbacks answered by a branch hit.  Reads the device counter:
+        call outside timed paths."""
+        return 0 if self._spec is None else self._spec.hits
+
+    @property
+    def spec_misses(self) -> int:
+        """Rollbacks that fell back to replay (including windows the host
+        already knew the branches could not answer)."""
+        return self._spec_rollbacks - self.spec_hits
 
     def block_until_ready(self) -> None:
         if self.device.type == "cuda":
@@ -192,11 +237,20 @@ class DeviceRequestExecutor:
             req = requests[i]
             if isinstance(req, SaveGameState):
                 self._do_save(req)
+                if self._spec is not None and self._spec.root_frame is None:
+                    self._spec.root(req.frame, self._state)
                 i += 1
             elif isinstance(req, LoadGameState):
                 pairs, saves, i = self._collect_burst(requests, i + 1)
-                self._do_load(req)
-                self._run_pairs(pairs, saves)
+                if self._spec is not None and pairs:
+                    self._run_rollback_spec(req, pairs, saves)
+                else:
+                    if self._spec is not None:
+                        # a rollback we can't answer disproves the predicted
+                        # inputs the branch prefixes were validated against
+                        self._spec.invalidate()
+                    self._do_load(req)
+                    self._run_pairs(pairs, saves)
             elif isinstance(req, AdvanceFrame):
                 pairs, saves, i = self._collect_burst(requests, i)
                 self._run_pairs(pairs, saves)
@@ -222,17 +276,25 @@ class DeviceRequestExecutor:
                 saves.append(None)
         return pairs, saves, j
 
-    def _run_pairs(self, pairs: List[AdvanceFrame], saves: List[Optional[SaveGameState]]) -> None:
+    def _run_pairs(
+        self,
+        pairs: List[AdvanceFrame],
+        saves: List[Optional[SaveGameState]],
+        arrays: Optional[List[Any]] = None,
+    ) -> List[Tuple[int, SaveGameState, Any]]:
         """Execute an (Advance, Save?)* run, as one burst when it has two or
-        more advances."""
+        more advances.  ``arrays`` are the advances' inputs when the caller
+        already converted them.  Returns the fulfilled saves as
+        ``(pair_index, request, state)``."""
         if not pairs:
-            return
+            return []
         if len(pairs) == 1:
-            self._do_advance(pairs[0])
+            self._do_advance(pairs[0], inputs=arrays[0] if arrays else None)
             if saves[0] is not None:
                 self._do_save(saves[0])
-            return
-        self._do_burst(pairs, saves)
+                return [(0, saves[0], self._state)]
+            return []
+        return self._do_burst(pairs, saves, arrays=arrays)
 
     # ------------------------------------------------------------------
 
@@ -245,20 +307,100 @@ class DeviceRequestExecutor:
         assert data is not None, f"loading frame {req.frame} from an empty cell"
         self._state = data
 
-    def _do_advance(self, req: AdvanceFrame) -> None:
-        inputs = from_numpy(self._inputs_to_array(req.inputs), self.device)
-        self._state = self._programs.advance(self._state, inputs)
+    def _do_advance(self, req: AdvanceFrame, inputs: Any = None) -> None:
+        if inputs is None:
+            inputs = self._inputs_to_array(req.inputs)
+        if self._spec is not None:
+            # the live advance and the K branch extensions in one advance
+            nxt = self._spec.advance_and_extend(self._state, inputs)
+            if nxt is not None:
+                self._state = nxt
+                return
+        self._state = self._programs.advance(self._state, from_numpy(inputs, self.device))
 
-    def _do_burst(self, pairs: List[AdvanceFrame], saves: List[Optional[SaveGameState]]) -> None:
+    def _do_burst(
+        self,
+        pairs: List[AdvanceFrame],
+        saves: List[Optional[SaveGameState]],
+        arrays: Optional[List[Any]] = None,
+    ) -> List[Tuple[int, SaveGameState, Any]]:
         """(Advance, Save?) x N: one upload of the stacked inputs, N advances,
         one digest launch over the saved steps; each save cell gets its
-        step's own tensors and a lazy checksum over its row of the digest."""
-        stacked = from_numpy(
-            _stack_pytrees([self._inputs_to_array(p.inputs) for p in pairs]), self.device
-        )
+        step's own tensors and a lazy checksum over its row of the digest.
+        Returns the fulfilled saves as ``(pair_index, request, state)``."""
+        if arrays is None:
+            arrays = [self._inputs_to_array(p.inputs) for p in pairs]
+        stacked = from_numpy(_stack_pytrees(arrays), self.device)
         saved = [k for k, s in enumerate(saves) if s is not None]
         steps, sums = self._programs.burst(self._state, stacked, saved)
         self._state = steps[-1]
+        if self._spec is not None:
+            # one extension per executed advance (a no-op while unrooted,
+            # e.g. on the rollback miss path)
+            for arr in arrays:
+                self._spec.extend(arr)
+        fulfilled = []
         for j, k in enumerate(saved):
             cs = DeviceChecksum(sums[j]) if sums is not None else None
             saves[k].cell.save(saves[k].frame, steps[k], cs)
+            fulfilled.append((k, saves[k], steps[k]))
+        return fulfilled
+
+    # ------------------------------------------------------------------
+    # speculative rollback fulfillment
+    # ------------------------------------------------------------------
+
+    def _run_rollback_spec(
+        self,
+        load: LoadGameState,
+        pairs: List[AdvanceFrame],
+        saves: List[Optional[SaveGameState]],
+    ) -> None:
+        """Fulfil ``Load + (Advance, Save?)*`` with one ``fulfill_and_refill``
+        call when the speculation window can answer it; otherwise load and
+        replay.
+
+        The burst's trailing advance is the live (not resimulated) frame
+        exactly when it has no trailing save -- the session always saves the
+        current frame before the live advance -- so the resolve window is
+        every advance but a saveless last one.  (When every advance has a
+        save, treating them all as resim frames is equally right: a branch is
+        only selected where its inputs are bit-equal, so its states equal the
+        replay's.)"""
+        g = load.frame
+        m = len(pairs)
+        n_resim = m if saves[-1] is not None else m - 1
+        arrays = [self._inputs_to_array(p.inputs) for p in pairs]
+        self._spec_rollbacks += 1
+
+        if n_resim >= 1 and self._spec.window_valid(g, n_resim):
+            # one call for the whole rollback tick: match and select (or the
+            # replay; the host never reads which), re-anchor at g + 1,
+            # re-hypothesize the unconfirmed tail and, when the burst ends in
+            # a saveless live advance, that advance and its extension
+            has_live = n_resim < m
+            # one digest launch for the window where any of its steps is saved
+            digest = self._with_checksums and any(s is not None for s in saves[:n_resim])
+            out = self._spec.fulfill_and_refill(
+                g, arrays[:n_resim], load.cell.data(), digest,
+                live_inputs=arrays[-1] if has_live else None,
+            )
+            steps, sums = out[0], out[1]
+            for j in range(n_resim):
+                if saves[j] is not None:
+                    cs = DeviceChecksum(sums[j]) if sums is not None else None
+                    saves[j].cell.save(saves[j].frame, steps[j], cs)
+            self._state = out[2] if has_live else steps[n_resim - 1]
+        else:
+            # the window cannot answer this rollback (host-known): it
+            # disproved the predicted inputs the prefixes were validated
+            # against -- invalidate, replay, and re-anchor at the burst's
+            # first saved frame
+            self._spec.invalidate()
+            self._do_load(load)
+            fulfilled = self._run_pairs(pairs, saves, arrays=arrays)
+            if fulfilled:
+                j0, save0, snap0 = fulfilled[0]
+                self._spec.root(save0.frame, snap0)
+                for arr in arrays[j0 + 1:]:
+                    self._spec.extend(arr)

@@ -8,16 +8,23 @@ preallocated tensors updated IN PLACE::
      "frames": (B, R) int32}
 
 with the session axis first, as ``BatchedSessions`` stacks the JAX carry.
-Frames and slots are host ints (``frame % R``): sessions tick in lockstep, so
-every ring access is a shared-index slice, never a per-session scatter.
-A consecutive window of frames wraps the ring at most once, so window reads
+Frames and slots are host ints (``frame % R``): sessions that tick in
+lockstep share one slot, so a ring access is a shared-index slice.  A
+consecutive window of frames wraps the ring at most once, so window reads
 and writes are at most two slices each.
+
+Sessions that do not tick in lockstep (the pool of ``parallel.session_pool``,
+where each session saves and loads its own frame) use ``save_rows`` and
+``load_rows``: a scatter and a gather over flat ``(session, slot)`` indices
+that the host builds (``flat_index``), the JAX package's ``vmap`` of
+``save_where`` and ``load`` over a per-session frame.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from ..utils.tree import tree_leaves, tree_map
@@ -142,3 +149,38 @@ class DeviceStateRing:
         (NULL_FRAME if never written)."""
         return ring["frames"][:, self.slot(frame)]
 
+    # -- per-row slots (each session its own frame) ---------------------
+
+    def flat_index(self, rows: np.ndarray, frames: np.ndarray) -> np.ndarray:
+        """Host: the flat ``(session, slot)`` index ``row * R + frame % R``
+        (int64) of session ``rows[i]``'s slot for ``frames[i]``."""
+        rows = np.asarray(rows, np.int64)
+        return rows * self.length + np.asarray(frames, np.int64) % self.length
+
+    @staticmethod
+    def _slots(buf: torch.Tensor) -> torch.Tensor:
+        """``(B, R, ...)`` as a ``(B * R, ...)`` view (raises rather than
+        copy, so the writes below always land in the ring)."""
+        return buf.view(-1, *buf.shape[2:])
+
+    def save_rows(
+        self, ring: Any, index: torch.Tensor, state: Any, checksum: torch.Tensor,
+        frames: torch.Tensor, rows: Optional[torch.Tensor] = None,
+    ) -> Any:
+        """In place, the per-row masked save: session ``rows[i]``'s row of
+        ``state`` (leaves ``(B, ...)``) and of ``checksum`` (``(B, 4)``), and
+        the frame ``frames[i]``, go to flat slot ``index[i]`` (from
+        ``flat_index``).  ``rows`` lists the sessions that save (those the
+        mask takes); None means every session, in order.  Each session
+        writes one slot of its own ring, so the indices are distinct."""
+        pick = (lambda v: v) if rows is None else (lambda v: v.index_select(0, rows))
+        tree_map(lambda buf, leaf: self._slots(buf).index_copy_(0, index, pick(leaf)),
+                 ring["states"], state)
+        self._slots(ring["checksums"]).index_copy_(0, index, pick(checksum))
+        ring["frames"].view(-1).index_copy_(0, index, frames)
+        return ring
+
+    def load_rows(self, ring: Any, index: torch.Tensor) -> Any:
+        """The state in flat slot ``index[b]`` for each row ``b``: ``(B,
+        ...)`` COPIES (a later write to the slot leaves them alone)."""
+        return tree_map(lambda buf: self._slots(buf).index_select(0, index), ring["states"])

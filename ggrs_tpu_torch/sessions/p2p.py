@@ -13,9 +13,11 @@ With ``ops.DeviceRequestExecutor`` fulfilling the lists on the card, each
 saved cell holds a lazy ``DeviceChecksum``; the desync exchange reads one
 (one device-to-host read) at each interval frame and sends it to the peers.
 ``adopt_spectator_endpoint`` grafts a spectator endpoint onto a live
-session: a ``broadcast.JournalTap`` attaches there to record the match.  The
-JAX package's request pooling, prediction-plane binding and fleet resume
-seams (``enable_request_pooling``, ``bind_prediction_plane``,
+session: a ``broadcast.JournalTap`` attaches there to record the match.
+``enable_request_pooling`` reuses one ``SaveGameState`` / ``AdvanceFrame`` /
+list per tick for drivers that fulfil every list before the next tick (a
+``parallel.BatchedRequestExecutor`` pool).  The JAX package's
+prediction-plane binding and fleet resume seams (``bind_prediction_plane``,
 ``adopt_resume_state``) are not ported.
 """
 
@@ -212,6 +214,13 @@ class P2PSession(ThreadOwned, Generic[I, S, A]):
         self._stat_rollback_frames = 0
         self._stat_max_rollback = 0
 
+        # pooled requests (off by default): reuse one SaveGameState /
+        # AdvanceFrame / list per tick instead of allocating them.  See
+        # enable_request_pooling for the validity contract.
+        self._pooled_save: Optional[SaveGameState] = None
+        self._pooled_adv: Optional[AdvanceFrame] = None
+        self._pooled_list: Optional[List[GgrsRequest]] = None
+
         # the registry is fixed once the session exists (players are added
         # through the builder only), so cache the per-tick iteration targets
         self._local_handles = players.local_player_handles()
@@ -257,6 +266,19 @@ class P2PSession(ThreadOwned, Generic[I, S, A]):
                     "advance_frame()."
                 )
 
+    def enable_request_pooling(self) -> None:
+        """Reuse one ``SaveGameState``/``AdvanceFrame``/list across ticks
+        instead of allocating them per ``advance_frame``.
+
+        Contract change: the returned request list and its pooled objects
+        are then valid only until the NEXT ``advance_frame`` call; fulfil
+        them before ticking again.  Off by default -- only drivers that
+        consume requests tick-synchronously opt in.  Request values are the
+        unpooled path's (``tests/test_torch_session_pool.py``)."""
+        self._pooled_save = SaveGameState(cell=None, frame=NULL_FRAME)
+        self._pooled_adv = AdvanceFrame(inputs=[])
+        self._pooled_list = []
+
     def advance_frame(self) -> List[GgrsRequest]:
         """The main entry point; see the reference call stack
         (p2p_session.rs:265-426).  Returns the ordered request list."""
@@ -281,7 +303,13 @@ class P2PSession(ThreadOwned, Generic[I, S, A]):
             self._check_checksum_send_interval()
             self._compare_local_checksums_against_peers()
 
-        requests: List[GgrsRequest] = []
+        if self._pooled_list is not None:
+            # pooled mode: the list (and the pooled save/advance refilled
+            # below) are valid until the next advance_frame
+            requests = self._pooled_list
+            requests.clear()
+        else:
+            requests = []
 
         # In lockstep mode we only advance on fully-confirmed frames; no
         # rollback, hence no saving at all.
@@ -322,7 +350,10 @@ class P2PSession(ThreadOwned, Generic[I, S, A]):
             if self._sparse_saving:
                 self._check_last_saved_state(last_saved, confirmed_frame, requests)
             else:
-                requests.append(self._sync_layer.save_current_state())
+                # the steady-state save: refilled in place when pooled
+                # (_pooled_save appears at most once per list -- the frame-0
+                # and rollback-resim saves above stay freshly allocated)
+                requests.append(self._sync_layer.save_current_state(self._pooled_save))
 
         # send confirmed inputs to spectators before discarding them
         self._send_confirmed_inputs_to_spectators(confirmed_frame)
@@ -373,7 +404,11 @@ class P2PSession(ThreadOwned, Generic[I, S, A]):
             inputs = sync.synchronized_inputs(connect_status)
             sync.advance_frame()
             local_inputs.clear()
-            requests.append(AdvanceFrame(inputs=inputs))
+            if self._pooled_adv is not None:
+                self._pooled_adv.inputs = inputs
+                requests.append(self._pooled_adv)
+            else:
+                requests.append(AdvanceFrame(inputs=inputs))
         else:
             logger.debug(
                 "Prediction threshold reached, skipping on frame %d", current

@@ -477,13 +477,20 @@ def test_leaf_table_raw_lanes_match_lane_sums_rows():
 
 
 def test_leaf_count_above_the_maximum_raises():
-    state = {f"l{i:02d}": torch.full((2, 3), i, dtype=torch.int32) for i in range(tdg.MAX_LEAVES + 1)}
-    with pytest.raises(ValueError, match="at most"):
-        tck.checksum_device(state)
-    with pytest.raises(ValueError, match="at most"):
-        tdg.leaf_table(tree_leaves(state))
+    # the kernel's table holds MAX_LEAVES leaves, so leaf_table raises past
+    # it; checksum_device digests any count, as JAX does (33 and 40 leaves
+    # here; on the card in groups of MAX_LEAVES, see the emulated test below)
+    for count in (tdg.MAX_LEAVES + 1, 40):
+        state = {f"l{i:02d}": torch.full((2, 3), i, dtype=torch.int32) for i in range(count)}
+        with pytest.raises(ValueError, match="at most"):
+            tdg.leaf_table(tree_leaves(state))
+        got = tck.checksum_device(state).numpy().view(np.uint32)
+        for b in range(2):
+            np.testing.assert_array_equal(
+                got[b], _jax_digest({k: v[b].numpy() for k, v in state.items()}))
     # exactly the maximum digests, and as JAX does
-    del state[f"l{tdg.MAX_LEAVES:02d}"]
+    state = {f"l{i:02d}": torch.full((2, 3), i, dtype=torch.int32) for i in range(tdg.MAX_LEAVES)}
+    tdg.leaf_table(tree_leaves(state))
     got = tck.checksum_device(state).numpy().view(np.uint32)
     np.testing.assert_array_equal(got[0], _jax_digest({k: v[0].numpy() for k, v in state.items()}))
 
@@ -553,3 +560,85 @@ def test_wrapper_path_over_a_session_matches_jax(monkeypatch):
     assert len(got) == len(want)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, np.asarray(w))
+
+
+# -- states the kernel cannot read in one launch in place ---------------------
+
+
+def _many_leaves(count, seed, b=3):
+    """``count`` leaves of mixed dtypes and odd byte counts, some empty."""
+    rng = np.random.default_rng(seed)
+    names = ["u8", "i16", "i32", "f32", "i64", "bool"]
+    shapes = [(3,), (5,), (), (2,), (1,), (0,)]
+    return {f"l{i:03d}": _torch_leaf(_np_leaf(rng, names[i % 6], (b, *shapes[i % 5])), names[i % 6])
+            if i % 11 else torch.zeros((b, 0), dtype=torch.int32)
+            for i in range(count)}
+
+
+def _copied_layouts():
+    base = torch.arange(4 * 3 * 5, dtype=torch.int32).reshape(4, 3, 5) * 7919
+    return {
+        "transposed": {"t": base.transpose(1, 2), "u": torch.ones((4, 2), dtype=torch.uint8)},
+        "gapped": {"g": (base.reshape(4, 15)[:, :12].reshape(4, 6, 2) + 3)[:, ::2]},
+        "expanded": {"e": torch.arange(6, dtype=torch.int16).reshape(1, 1, 6).expand(4, 3, 6),
+                     "x": torch.full((4, 2), -5, dtype=torch.int64)},
+        "expanded_batch": {"e": torch.arange(5, dtype=torch.float32).expand(4, 5)},
+    }
+
+
+COPIED = ["transposed", "gapped", "expanded", "expanded_batch"]
+
+
+def _per_session_jax(state):
+    leaves = tree_leaves(state)
+    rows = leaves[0].shape[0]
+    return np.stack([_jax_digest_x64(tree_map(lambda v: v[b].contiguous().numpy(), state))
+                     for b in range(rows)])
+
+
+@pytest.mark.parametrize("case", COPIED)
+def test_copied_layouts_match_jax_on_the_cpu(case):
+    state = _copied_layouts()[case]
+    got = tck.checksum_device(state).numpy().view(np.uint32)
+    np.testing.assert_array_equal(got, _per_session_jax(state))
+
+
+@pytest.mark.parametrize("case", COPIED)
+def test_copied_layouts_match_jax_on_the_card_route(case, monkeypatch):
+    # the card's route through the numpy emulation of the kernel: the one
+    # leaf the kernel cannot read in place is copied, the rest read in place
+    calls = []
+    monkeypatch.setattr(tdg, "_launch", _emulated_launch(calls))
+    monkeypatch.setattr(tdg, "_device_of", lambda tensors, what: _FakeCuda())
+    state = _copied_layouts()[case]
+    before = tdg.state_digest.launches
+    got = tck.checksum_device(state).numpy().view(np.uint32)
+    assert tdg.state_digest.launches - before == len(calls) == 1
+    np.testing.assert_array_equal(got, _per_session_jax(state))
+
+
+@pytest.mark.parametrize("count", [tdg.MAX_LEAVES, tdg.MAX_LEAVES + 1, 40, 3 * tdg.MAX_LEAVES + 5])
+def test_many_leaves_match_jax_on_the_card_route(count, monkeypatch):
+    # more than MAX_LEAVES non-empty leaves: one raw launch per group at its
+    # word offset, the lanes summed, mixed and finished once
+    calls = []
+    monkeypatch.setattr(tdg, "_launch", _emulated_launch(calls))
+    monkeypatch.setattr(tdg, "_device_of", lambda tensors, what: _FakeCuda())
+    state = _many_leaves(count, seed=count)
+    nonempty = sum(1 for l in tree_leaves(state) if l[0].numel())
+    got = tck.checksum_device(state).numpy().view(np.uint32)
+    assert len(calls) == -(-nonempty // tdg.MAX_LEAVES)
+    np.testing.assert_array_equal(got, _per_session_jax(state))
+    monkeypatch.undo()
+    np.testing.assert_array_equal(tck.checksum_device(state).numpy().view(np.uint32), got)
+
+
+def test_many_leaves_and_a_copied_leaf_on_the_card_route(monkeypatch):
+    calls = []
+    monkeypatch.setattr(tdg, "_launch", _emulated_launch(calls))
+    monkeypatch.setattr(tdg, "_device_of", lambda tensors, what: _FakeCuda())
+    state = _many_leaves(45, seed=9)
+    state["l020"] = torch.arange(4 * 3, dtype=torch.int32).reshape(3, 4).t()[:3]  # (3, 3), strided
+    got = tck.checksum_device(state).numpy().view(np.uint32)
+    assert len(calls) == 2
+    np.testing.assert_array_equal(got, _per_session_jax(state))
