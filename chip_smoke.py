@@ -8,7 +8,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases, each printing JSON lines; any failure ends the run non-zero:
 
 1. build -- compile the CUDA kernels from ``ggrs_tpu_torch/csrc`` with nvcc
-   (all sources at once) and report the build seconds and ptxas summary.
+   (all sources at once) and report the build seconds and ptxas summary;
+   beside them, g++ builds the host library of the native cores from
+   ``native/codec.cpp``, ``endpoint.cpp`` and ``sync_core.cpp`` (its
+   seconds are reported too).
 2. kernel -- the digest kernel against its plain PyTorch version on the
    card, bitwise, at every shape the port uses: through ``lane_sums_rows``
    (raw lanes of a word matrix) and through ``state_digest`` (whole batches
@@ -111,8 +114,33 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    ``DesyncDetected``, every fulfilment under the sync debug mode "error".
    Kernels, busy and idle share per tick (the fulfilment of the last 8
    ticks, each alone under the profiler) and host ms per tick for both;
-   digest launches per tick, observed and predicted from the descriptors.  Then 256 matches (512 sessions) for 24 ticks, the first 32
-   matches held against a CPU rerun of them.
+   digest launches per tick, observed and predicted from the descriptors.
+   Then 256 matches (512 sessions) for 24 ticks, the first 32 matches held
+   against a CPU rerun of them.
+   Phases 7, 10, 11 and 12 run the native host cores (the C++ sync core and
+   endpoint core), the default for their configs; phases 7 and 12 check it.
+13. native -- phase 7's two P2P drives and phase 12's 64-session pool again,
+   with the sessions on the Python input queues and Python endpoint cores,
+   then on the native cores right after: both peers' states, every checksum
+   sent and every request list (the pool: live states, ring and sent
+   checksums) bitwise equal to phases 7 and 12, 0 ``DesyncDetected``.  Host
+   ms per peer-frame and per pool tick for the two side-by-side legs (no
+   frame under the profiler) and for phases 7 and 12.
+14. plane -- the 64-session pool with ``Config.for_uint(8)`` carrying
+   ``BatchedRepeatLast``, then ``BatchedDefault``: the prediction plane on
+   the card and off, and on the CPU; live states, ring and sent checksums
+   bitwise equal across the three, the plane's hits > 0 and its stats equal
+   to the CPU's, one host-to-device and one device-to-host copy per
+   ``begin_tick`` (counted at PyTorch's dispatcher) and its host us.
+15. mesh (BASELINE config 5's shape) -- ChipVM(2) at d = 8 over
+   ``make_mesh(1)``, ``make_mesh2d(1, 1)`` and ``make_distributed_mesh()`` in
+   a world-size-1 NCCL group (a ``file://`` store in a temporary directory,
+   destroyed at the end): 256 sessions for 20 ticks and 16,384 for 12, each
+   carry bitwise equal to the unsharded batch, 2 digest launches per tick
+   per shard; a corrupted session found through the group's all-reduce; a
+   checkpoint saved from the mesh resumed unsharded, equal to the
+   uninterrupted run.  ms per tick of each leg.  Phase 2 holds the digest
+   at the 256-session shard's shapes too.
 
 Then the seconds each phase took, one ``{"kernels": [...]}`` line, the
 card's name and power limit as nvidia-smi prints them, and, last,
@@ -122,6 +150,7 @@ Exits non-zero with no result when CUDA is not available.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -129,6 +158,7 @@ import random
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -164,6 +194,17 @@ from ggrs_tpu_torch import (
     build_scrub_program,
     to_numpy,
 )
+from ggrs_tpu_torch import (
+    BatchedDefault,
+    BatchedRepeatLast,
+    Config,
+    DevicePredictionPlane,
+    make_distributed_mesh,
+    make_mesh,
+    make_mesh2d,
+)
+from ggrs_tpu_torch.net import protocol as net_protocol
+from ggrs_tpu_torch.net.endpoint import PyEndpointCore
 from ggrs_tpu_torch.obs import FlightRecorder
 from ggrs_tpu_torch.ops.checksum import checksum_device, checksum_device_plain
 from ggrs_tpu_torch.ops.digest import (
@@ -217,6 +258,14 @@ POOL_MATCHES, POOL_RING, POOL_MAX_BURST, POOL_DESYNC_INTERVAL = 32, 10, 9, 8
 POOL_SESSIONS, POOL_TICKS, POOL_PROFILED = 2 * POOL_MATCHES, 180, 8
 POOL_BIG_MATCHES, POOL_BIG_TICKS = 256, 24
 POOL_BIG_SESSIONS = 2 * POOL_BIG_MATCHES
+NATIVE_CORES = {("_NativeSyncCore", "NativeEndpointCore")}
+PYTHON_CORES = {("InputQueue", "PyEndpointCore")}
+PLANE_PREDICTORS = (("BatchedRepeatLast", BatchedRepeatLast), ("BatchedDefault", BatchedDefault))
+PLANE_PROFILED = 4
+# BASELINE config 5 (256 SyncTest sessions over a mesh), and phase 4's
+# 16,384 sessions for a shortened run
+MESH_SIZES = ((256, 20), (BATCH, 12))
+MESH_CORRUPT_SESSION = 200
 
 
 class SmokeFailure(Exception):
@@ -443,6 +492,10 @@ def state_cases(rng):
         ("copied_transposed", copied_base(rng, (BATCH, 5, 3)), transposed),
         ("copied_gapped", copied_base(rng, (BATCH, 6, 2)), gapped),
         ("copied_expanded", copied_base(rng, (BATCH, 1, 6)), expanded),
+        # a mesh shard of BASELINE config 5's 256 sessions (phase 15): the
+        # live and the folded resim digests
+        ("chipvm_mesh_256", chipvm_state(rng, (MESH_SIZES[0][0],)), same),
+        ("chipvm_mesh_256_resim_folded", chipvm_state(rng, (MESH_SIZES[0][0], D)), flat_rows),
     ]
 
 
@@ -450,7 +503,22 @@ def state_cases(rng):
 
 
 def phase_build(smi: str) -> None:
+    """The CUDA kernels (one nvcc per source, all at once) and, beside them,
+    the host library of the native cores (g++ over native/*.cpp)."""
+    host = {}
+
+    def build_host():
+        try:
+            host["seconds"] = _build.build_host()
+        except Exception as e:  # reported below, after the kernels' build
+            host["error"] = e
+
+    thread = threading.Thread(target=build_host)
+    thread.start()
     seconds = _build.build()
+    thread.join()
+    if "error" in host:
+        raise host["error"]
     ptxas = [
         line.strip()
         for log in _build.build_logs.values()
@@ -458,7 +526,9 @@ def phase_build(smi: str) -> None:
         if "ptxas info" in line and ("Used" in line or "spill" in line)
     ]
     emit({"phase": "build", "seconds": seconds, "sources": sorted(_build.SOURCES),
-          "ptxas": ptxas, "card": smi})
+          "ptxas": ptxas, "card": smi, "host_library_seconds": host["seconds"],
+          "host_library": os.path.relpath(_build.host_library_path()),
+          "host_sources": [os.path.relpath(p) for p in _build.HOST_SOURCES]})
 
 
 def phase_lane_sums(rng) -> int:
@@ -819,7 +889,45 @@ def predicted_digest_launches(requests) -> int:
     return launches
 
 
-def drive_p2p(game, frames: int, device, profiled: int = 0, corrupt: bool = False) -> dict:
+@contextlib.contextmanager
+def session_cores(kind: str):
+    """Sessions built inside run the native cores (``"native"``, the default
+    for an eligible config) or the Python ones (``"python"``: the
+    ``GGRS_TPU_NO_NATIVE`` switch, which the sync layer reads at
+    construction, and the Python endpoint core, as the JAX package's tests
+    select it)."""
+    if kind == "native":
+        yield
+        return
+    saved = net_protocol.make_endpoint_core
+    os.environ["GGRS_TPU_NO_NATIVE"] = "1"
+    net_protocol.make_endpoint_core = PyEndpointCore
+    try:
+        yield
+    finally:
+        net_protocol.make_endpoint_core = saved
+        del os.environ["GGRS_TPU_NO_NATIVE"]
+
+
+def core_kinds(sessions) -> set:
+    """The (sync core, endpoint core) class names the sessions run."""
+    kinds = set()
+    for s in sessions:
+        native = s._sync_layer._native
+        sync = "InputQueue" if native is None else type(native).__name__
+        kinds |= {(sync, type(ep._core).__name__) for ep in s._player_reg.remotes.values()}
+    return kinds
+
+
+def request_summary(requests) -> list:
+    """A request list as plain values: (kind, frame), or the inputs and
+    statuses of an advance."""
+    return [("adv", tuple((v, st.name) for v, st in r.inputs)) if isinstance(r, AdvanceFrame)
+            else (type(r).__name__, r.frame) for r in requests]
+
+
+def drive_p2p(game, frames: int, device, profiled: int = 0, corrupt: bool = False,
+              cores: str = "native") -> dict:
     """Two P2P peers, each with its own executor on ``device``, over a seeded
     in-memory network on a fake clock.  On the card every ``run`` is under
     the sync debug mode "error", digest counts are zeroed after the warmup,
@@ -836,17 +944,18 @@ def drive_p2p(game, frames: int, device, profiled: int = 0, corrupt: bool = Fals
         ex = DeviceRequestExecutor(game.advance, game.init_state_np(), executor_inputs,
                                    device=device)
         ex.warmup(np.zeros(2, np.uint8), burst_depths=range(2, P2P_MAX_PREDICTION + 2))
-        sess = (SessionBuilder(boxgame_config()).with_clock(lambda: now[0])
-                .with_rng(random.Random(41 + h))
-                .with_max_prediction_window(P2P_MAX_PREDICTION)
-                .with_desync_detection_mode(DesyncDetection.on(1))
-                .add_player(Local(), h).add_player(Remote(other), 1 - h)
-                .start_p2p_session(net.socket(me)))
+        with session_cores(cores):
+            sess = (SessionBuilder(boxgame_config()).with_clock(lambda: now[0])
+                    .with_rng(random.Random(41 + h))
+                    .with_max_prediction_window(P2P_MAX_PREDICTION)
+                    .with_desync_detection_mode(DesyncDetection.on(1))
+                    .add_player(Local(), h).add_player(Remote(other), 1 - h)
+                    .start_p2p_session(net.socket(me)))
         sess.attach_forensics(recorder=FlightRecorder(checksum_window=frames + 8))
         peers.append((h, sess, ex))
     card = peers[0][2].device.type == "cuda"
     host = {"poll": 0.0, "advance_frame": 0.0, "run": 0.0}
-    desyncs, predicted = [], 0
+    desyncs, predicted, summaries = [], 0, []
     prof_end = frames - P2P_DRAIN - 1
     prof_start = prof_end - profiled
     prof = None
@@ -875,6 +984,7 @@ def drive_p2p(game, frames: int, device, profiled: int = 0, corrupt: bool = Fals
                 host["advance_frame"] += t2 - t1
                 host["run"] += t3 - t2
             predicted += predicted_digest_launches(reqs)
+            summaries.append(request_summary(reqs))
             desyncs += [e for e in sess.events() if isinstance(e, DesyncDetected)]
             if corrupt and h == 1 and P2P_CORRUPT_FROM <= f < P2P_CORRUPT_FROM + P2P_CORRUPT_FOR:
                 ex._state = {**ex.state, "pos": ex.state["pos"] + 1}
@@ -901,15 +1011,18 @@ def drive_p2p(game, frames: int, device, profiled: int = 0, corrupt: bool = Fals
         "max_rollback": max(s._stat_max_rollback for s in sessions),
         "host_ms": {k: v / (2 * (frames - profiled)) * 1e3 for k, v in host.items()},
         "kernels_per_frame": kernels, "busy_us_per_frame": busy_us,
+        "requests": summaries, "cores": core_kinds(sessions),
     }
 
 
-def phase_p2p() -> int:
+def phase_p2p():
     """The P2P path on the card against the CPU; returns the digest launches
-    of the card's drives."""
-    total = 0
+    of the card's drives and the card's runs by game."""
+    total, runs = 0, {}
     for name, game, frames, profiled in P2P_GAMES:
         run = drive_p2p(game, frames, None, profiled)
+        runs[name] = run
+        check(run["cores"] == NATIVE_CORES, f"p2p {name}: the sessions ran {run['cores']}")
         check(run["around"] == 0, f"p2p {name}: the digest went around state_digest")
         check(run["desyncs"] == [], f"p2p {name}: {len(run['desyncs'])} DesyncDetected")
         check(run["launches"] == run["predicted"],
@@ -961,7 +1074,7 @@ def phase_p2p() -> int:
     emit({"phase": "p2p", "corrupted_drive": True, "frames": P2P_CORRUPT_FRAMES,
           "corrupted_from": P2P_CORRUPT_FROM, "desyncs_detected": len(bad["desyncs"]),
           "first_detected_frame": min(e.frame for e in bad["desyncs"])})
-    return total
+    return total, runs
 
 
 def profile_device(fn, calls: int) -> dict:
@@ -984,6 +1097,32 @@ def profile_device(fn, calls: int) -> dict:
     digest = sum(e.self_device_time_total for e in ops if "state_digest" in e.key)
     return {"kernels": sum(e.count for e in ops) / calls, "busy_us": busy / calls,
             "digest_us": digest / calls, "digest_share": digest / busy if busy else None}
+
+
+def copies_in(fn) -> dict:
+    """Host<->device copies one call of ``fn`` issues, counted at PyTorch's
+    dispatcher: every ``_to_copy`` / ``copy_`` whose source and result lie
+    on the host and on a device, one each way."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    count = {"dtoh": 0, "htod": 0}
+    aten = torch.ops.aten
+
+    class Copies(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func in (aten._to_copy.default, aten.copy_.default):
+                src = args[0] if func is aten._to_copy.default else args[1]
+                on_host = (src.device.type == "cpu", out.device.type == "cpu")
+                if on_host == (True, False):
+                    count["htod"] += 1
+                elif on_host == (False, True):
+                    count["dtoh"] += 1
+            return out
+
+    with Copies():
+        fn()
+    return count
 
 
 def kernels_per_advance(advance, state: dict, inputs: torch.Tensor) -> dict:
@@ -1506,19 +1645,21 @@ def pool_sched(m: int, me: int, i: int) -> int:
     return ((i + 2 * m + me) // (2 + m % 3)) % 16
 
 
-def pool_sessions(n_matches: int, ticks: int) -> list:
+def pool_sessions(n_matches: int, ticks: int, config=None, cores: str = "native") -> list:
     """``bench.py``'s match population (``_match_population``): 2-peer
-    BoxGame matches over one in-memory network, with desync detection."""
+    BoxGame matches over one in-memory network, with desync detection;
+    ``config`` replaces ``boxgame_config()`` (the same 8-bit inputs)."""
     net = InMemoryNetwork()
     sessions = []
     for m in range(n_matches):
         names = (f"A{m}", f"B{m}")
         for me in (0, 1):
-            sess = (SessionBuilder(boxgame_config()).with_clock(lambda: 0)
-                    .with_rng(random.Random(3 + 5 * m + me))
-                    .with_desync_detection_mode(DesyncDetection.on(POOL_DESYNC_INTERVAL))
-                    .add_player(Local(), me).add_player(Remote(names[1 - me]), 1 - me)
-                    .start_p2p_session(net.socket(names[me])))
+            with session_cores(cores):
+                sess = (SessionBuilder(config or boxgame_config()).with_clock(lambda: 0)
+                        .with_rng(random.Random(3 + 5 * m + me))
+                        .with_desync_detection_mode(DesyncDetection.on(POOL_DESYNC_INTERVAL))
+                        .add_player(Local(), me).add_player(Remote(names[1 - me]), 1 - me)
+                        .start_p2p_session(net.socket(names[me])))
             sess.attach_forensics(recorder=FlightRecorder(checksum_window=ticks + 8))
             sessions.append(sess)
     return sessions
@@ -1534,13 +1675,22 @@ def pool_predicted(desc) -> int:
     return writes
 
 
-def drive_pool(n_matches: int, ticks: int, device, pooled: bool = True, profiled_ticks: int = 0):
+def drive_pool(n_matches: int, ticks: int, device, pooled: bool = True, profiled_ticks: int = 0,
+               config=None, cores: str = "native", plane: bool = False):
     """``n_matches`` matches fulfilled by one ``BatchedRequestExecutor``
     (``pooled``) or by one ``DeviceRequestExecutor`` per session, on
     ``device``.  On the card every fulfilment is under the sync debug mode
     "error"; in the last ``profiled_ticks`` ticks the fulfilment runs alone
-    under the profiler, and those ticks are left out of the host times."""
-    sessions = pool_sessions(n_matches, ticks)
+    under the profiler, and those ticks are left out of the host times.
+    Each tick adds every session's local input, then (with ``plane``) runs
+    the prediction plane's ``begin_tick`` on ``device``, then advances every
+    session, as the host session pool orders a tick."""
+    sessions = pool_sessions(n_matches, ticks, config, cores)
+    pl = None
+    if plane:
+        pl = DevicePredictionPlane(config, capacity=len(sessions), device=device)
+        for slot, sess in enumerate(sessions):
+            sess.bind_prediction_plane(pl, slot)
     B = len(sessions)
     game = BoxGame(2)
     predicted = 0
@@ -1570,8 +1720,8 @@ def drive_pool(n_matches: int, ticks: int, device, pooled: bool = True, profiled
             for ex, reqs in zip(exs, all_reqs):
                 ex.run(reqs)
 
-    host = {"sessions": 0.0, "fulfil": 0.0}
-    desyncs, last, prof = 0, None, []
+    host = {"sessions": 0.0, "fulfil": 0.0, "begin_tick": 0.0}
+    desyncs, last, prof, plane_copies = 0, None, [], []
     state_digest.launches = lane_sums_rows.launches = 0
     timed = ticks - (profiled_ticks if card else 0)
     if card:
@@ -1584,10 +1734,17 @@ def drive_pool(n_matches: int, ticks: int, device, pooled: bool = True, profiled
         t0 = time.perf_counter()
         for s in sessions:
             s.poll_remote_clients()
-        reqs = []
         for b, s in enumerate(sessions):
             s.add_local_input(b % 2, pool_sched(b // 2, b % 2, i))
-            reqs.append(s.advance_frame())
+        if pl is not None:
+            if i >= timed and card and len(plane_copies) < PLANE_PROFILED:
+                plane_copies.append(copies_in(pl.begin_tick))
+            else:
+                tb = time.perf_counter()
+                pl.begin_tick()
+                if i < timed:
+                    host["begin_tick"] += time.perf_counter() - tb
+        reqs = [s.advance_frame() for s in sessions]
         t1 = time.perf_counter()
         if not pooled:
             predicted += sum(predicted_digest_launches(r) for r in reqs)
@@ -1629,15 +1786,23 @@ def drive_pool(n_matches: int, ticks: int, device, pooled: bool = True, profiled
         "kernels_per_tick": kernels,
         "device_busy_ms_per_tick": None if busy is None else busy / 1e3,
         "idle_share": None if busy is None else 1 - busy / 1e3 / wall_ms,
+        "cores": core_kinds(sessions),
+        "plane": None if pl is None else {
+            **pl.stats(), "host_us_begin_tick": host["begin_tick"] / timed * 1e6,
+            "copies_per_tick": plane_copies,
+            "plane_mispredicts": sum(q.plane_mispredicts for s in sessions
+                                     for q in s._sync_layer.input_queues)},
     }
 
 
-def phase_pool() -> int:
+def phase_pool():
     """Massed hosting on the card: one pool against one executor per
     session, and a CPU rerun; then B = 512.  Returns the digest launches
-    of the card's drives."""
+    of the card's drives and the 64-session pooled run."""
     pooled = drive_pool(POOL_MATCHES, POOL_TICKS, None, True, POOL_PROFILED)
     single = drive_pool(POOL_MATCHES, POOL_TICKS, None, False, POOL_PROFILED)
+    check(pooled["cores"] == single["cores"] == NATIVE_CORES,
+          f"pool: the sessions ran {pooled['cores']}")
     for name, run in (("pool", pooled), ("executors", single)):
         check(run["around"] == 0, f"pool {name}: the digest went around state_digest")
         check(run["desyncs"] == 0, f"pool {name}: {run['desyncs']} DesyncDetected")
@@ -1685,7 +1850,203 @@ def phase_pool() -> int:
           "pool": {k: big[k] for k in keys},
           "digest_launches": big["launches"], "digest_launches_predicted": big["predicted"],
           "digest_launches_per_tick": big["launches"] / POOL_BIG_TICKS})
-    return pooled["launches"] + single["launches"] + big["launches"]
+    return pooled["launches"] + single["launches"] + big["launches"], pooled
+
+
+def phase_native(p2p_runs: dict, pool_run: dict) -> int:
+    """Phase 7's P2P drives and phase 12's 64-session pool again: on the
+    Python input queues and endpoint cores, then once more on the native
+    cores right after, so that the host times compared were taken side by
+    side (no frame under the profiler).  Every leg bitwise equal to phases 7
+    and 12 (both peers' states, every checksum sent, every request list; the
+    pool's live states, ring and sent checksums), 0 desyncs.  Returns the
+    digest launches of the legs."""
+    total = 0
+    for name, game, frames, _ in P2P_GAMES:
+        ref = p2p_runs[name]
+        legs = {cores: drive_p2p(game, frames, None, cores=cores) for cores in ("python", "native")}
+        for cores, run in legs.items():
+            want = PYTHON_CORES if cores == "python" else NATIVE_CORES
+            check(run["cores"] == want, f"native {name}: the {cores} leg ran {run['cores']}")
+            check(run["desyncs"] == [] and run["around"] == 0,
+                  f"native {name} {cores}: desync or stray digest")
+            check(run["launches"] == run["predicted"] == ref["launches"],
+                  f"native {name} {cores}: {run['launches']} digest launches, not {ref['launches']}")
+            check(run["requests"] == ref["requests"], f"native {name} {cores}: request lists differ")
+            check(run["sent"] == ref["sent"], f"native {name} {cores}: sent checksums differ")
+            check(all(trees_equal(a, b) for a, b in zip(run["states"], ref["states"])),
+                  f"native {name} {cores}: live states differ")
+            total += run["launches"]
+        host = {"phase_7_native": ref["host_ms"], **{k: r["host_ms"] for k, r in legs.items()}}
+        emit({"phase": "native", "drive": "p2p", "game": name, "frames": frames,
+              "desyncs": 0, "requests_equal": True, "sent_checksums_equal": True,
+              "states_equal": True, "request_lists": len(ref["requests"]),
+              "cores": {k: sorted(r["cores"]) for k, r in legs.items()},
+              "host_ms_per_frame": {k: sum(v.values()) for k, v in host.items()},
+              "host_ms_poll_remote_clients": {k: v["poll"] for k, v in host.items()},
+              "host_ms_advance_frame": {k: v["advance_frame"] for k, v in host.items()},
+              "host_ms_run": {k: v["run"] for k, v in host.items()}})
+    legs = {cores: drive_pool(POOL_MATCHES, POOL_TICKS, None, True, cores=cores)
+            for cores in ("python", "native")}
+    for cores, run in legs.items():
+        want = PYTHON_CORES if cores == "python" else NATIVE_CORES
+        check(run["cores"] == want, f"native pool: the {cores} leg ran {run['cores']}")
+        check(run["desyncs"] == 0 and run["around"] == 0, f"native pool {cores}: desync")
+        check(run["frames_reached"] == pool_run["frames_reached"], f"native pool {cores}: frames")
+        check(all(trees_equal(a, b) for a, b in zip(run["states"], pool_run["states"])),
+              f"native pool {cores}: live states differ")
+        check(run["last_checksums"] == pool_run["last_checksums"],
+              f"native pool {cores}: ring checksums differ")
+        check(run["sent"] == pool_run["sent"], f"native pool {cores}: sent checksums differ")
+        check(run["launches"] == pool_run["launches"], f"native pool {cores}: digest launches")
+        total += run["launches"]
+    keys = ("host_ms_per_tick", "host_ms_sessions", "host_ms_fulfil")
+    emit({"phase": "native", "drive": "pool", "sessions": POOL_SESSIONS, "ticks": POOL_TICKS,
+          "desyncs": 0, "states_equal": True, "ring_checksums_equal": True,
+          "sent_checksums_equal": True, "phase_12_native": {k: pool_run[k] for k in keys},
+          **{k: {key: r[key] for key in keys} for k, r in legs.items()}})
+    return total
+
+
+def phase_plane() -> int:
+    """The 64-session pool with a batched predictor, the prediction plane on
+    (on the card) and off, for both batched strategies, against each other
+    and a CPU rerun.  Returns the digest launches of the card's legs."""
+    total = 0
+    for name, predictor in PLANE_PREDICTORS:
+        config = Config.for_uint(8, predictor=predictor())
+        on = drive_pool(POOL_MATCHES, POOL_TICKS, None, True, PLANE_PROFILED, config=config,
+                        plane=True)
+        off = drive_pool(POOL_MATCHES, POOL_TICKS, None, True, PLANE_PROFILED, config=config)
+        cpu = drive_pool(POOL_MATCHES, POOL_TICKS, "cpu", True, config=config, plane=True)
+        for leg, run in (("on", on), ("off", off), ("cpu", cpu)):
+            check(run["cores"] == {("InputQueue", "NativeEndpointCore")},
+                  f"plane {name} {leg}: the sessions ran {run['cores']}")
+            check(run["desyncs"] == 0 and run["around"] == 0, f"plane {name} {leg}: desync")
+        for leg, run in (("off", off), ("cpu", cpu)):
+            check(run["frames_reached"] == on["frames_reached"], f"plane {name}: frames != {leg}")
+            check(all(trees_equal(a, b) for a, b in zip(on["states"], run["states"])),
+                  f"plane {name}: live states != {leg}")
+            check(on["last_checksums"] == run["last_checksums"],
+                  f"plane {name}: ring checksums != {leg}")
+            check(on["sent"] == run["sent"], f"plane {name}: sent checksums != {leg}")
+        stats = on["plane"]
+        check(stats["hits"] > 0, f"plane {name}: the plane served no prediction")
+        check(stats["ticks"] == POOL_TICKS and len(stats["copies_per_tick"]) == PLANE_PROFILED,
+              f"plane {name}: {stats['ticks']} plane ticks")
+        check(stats == {**cpu["plane"], "host_us_begin_tick": stats["host_us_begin_tick"],
+                        "copies_per_tick": stats["copies_per_tick"]},
+              f"plane {name}: plane stats != CPU run")
+        check(all(c == {"dtoh": 1, "htod": 1} for c in stats["copies_per_tick"]),
+              f"plane {name}: begin_tick copies {stats['copies_per_tick']}")
+        keys = ("host_ms_per_tick", "host_ms_sessions", "host_ms_fulfil")
+        emit({"phase": "plane", "predictor": name, "sessions": POOL_SESSIONS, "ticks": POOL_TICKS,
+              "desyncs": 0, "states_equal_on_off_cpu": True, "ring_checksums_equal": True,
+              "sent_checksums_equal": True, "plane": stats,
+              "on": {k: on[k] for k in keys}, "off": {k: off[k] for k in keys}})
+        total += on["launches"] + off["launches"]
+    return total
+
+
+def mesh_leg(mesh, sessions: int, inputs: torch.Tensor, untimed: int):
+    """ChipVM(2) at d = 8 over ``mesh`` (None: unsharded); the digest counts
+    are zeroed just before the drive.  Returns (batch, ms per tick of the
+    timed ticks, digest launches)."""
+    vm = ChipVM(2)
+    batch = BatchedSessions(vm.advance, vm.init_state_np(), np.zeros(2, np.uint8),
+                            batch_size=sessions, check_distance=D, max_prediction=D, mesh=mesh)
+    torch.cuda.synchronize()
+    state_digest.launches = lane_sums_rows.launches = 0
+    batch.run_ticks(inputs[:, :untimed], check=False)
+    batch.block_until_ready()
+    t0 = time.perf_counter()
+    batch.run_ticks(inputs[:, untimed:], check=False)
+    batch.block_until_ready()
+    elapsed = time.perf_counter() - t0
+    check(lane_sums_rows.launches == 0, "mesh: the digest went around state_digest")
+    return batch, elapsed / (inputs.shape[1] - untimed) * 1e3, state_digest.launches
+
+
+def phase_mesh() -> int:
+    """BASELINE config 5's shape: ChipVM(2) sessions at d = 8 over
+    ``make_mesh(1)``, ``make_mesh2d(1, 1)`` and ``make_distributed_mesh()``
+    under a world-size-1 NCCL group, each bitwise equal to the unsharded
+    batch; a corrupted session found through the group's all-reduce; a
+    checkpoint saved from the mesh resumed unsharded.  Returns the digest
+    launches of the mesh legs."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    total = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", world_size=1, rank=0)
+        try:
+            meshes = {"make_mesh(1)": make_mesh(1), "make_mesh2d(1, 1)": make_mesh2d(1, 1),
+                      "make_distributed_mesh()": make_distributed_mesh()}
+            check(meshes["make_distributed_mesh()"].group is not None,
+                  "mesh: make_distributed_mesh() did not take the process group")
+            for sessions, ticks in MESH_SIZES:
+                inputs = torch.from_numpy(np.random.default_rng(29).integers(
+                    0, 256, size=(sessions, ticks, 2)).astype(np.uint8)).cuda()
+                untimed = D + 1
+                flat, flat_ms, flat_launches = mesh_leg(None, sessions, inputs, untimed)
+                want = to_numpy(flat.carry)
+                legs = {}
+                for name, mesh in meshes.items():
+                    batch, ms, launches = mesh_leg(mesh, sessions, inputs, untimed)
+                    check(batch.verify()["mismatches"] == 0, f"mesh {name}: mismatches")
+                    check(launches == 2 * ticks * mesh.size,
+                          f"mesh {name}: {launches} digest launches, not 2 per tick per shard")
+                    check(trees_equal(to_numpy(batch.carry), want),
+                          f"mesh {name} at {sessions}: carry != the unsharded batch")
+                    legs[name] = {"ms_per_tick": ms, "digest_launches": launches}
+                    total += launches
+                emit({"phase": "mesh", "game": "ChipVM(2)", "sessions": sessions,
+                      "check_distance": D, "ticks": ticks, "timed_ticks": ticks - untimed,
+                      "mismatches": 0, "carry_equal_to_unsharded": True,
+                      "unsharded": {"ms_per_tick": flat_ms, "digest_launches": flat_launches},
+                      "meshes": legs})
+            # corruption through the all-reduce, and a checkpoint that resumes
+            # unsharded: BASELINE config 5's 256 sessions
+            sessions, ticks = MESH_SIZES[0]
+            inputs = torch.from_numpy(np.random.default_rng(31).integers(
+                0, 256, size=(sessions, 2 * ticks, 2)).astype(np.uint8)).cuda()
+            mesh = meshes["make_distributed_mesh()"]
+            vm = ChipVM(2)
+
+            def fresh(m=None):
+                return BatchedSessions(vm.advance, vm.init_state_np(), np.zeros(2, np.uint8),
+                                       batch_size=sessions, check_distance=D, max_prediction=D,
+                                       mesh=m)
+
+            sharded, whole = fresh(mesh), fresh()
+            sharded.run_ticks(inputs[:, :ticks], check=False)
+            whole.run_ticks(inputs[:, :ticks], check=False)
+            path = os.path.join(tmp, "mesh_ckpt.npz")
+            sharded.save_checkpoint(path)
+            resumed = fresh()
+            resumed.load_checkpoint(path)
+            check(resumed.current_frame == ticks, "mesh: checkpoint frame")
+            for b in (resumed, whole):
+                b.run_ticks(inputs[:, ticks:], check=False)
+            check(trees_equal(to_numpy(resumed.carry), to_numpy(whole.carry)),
+                  "mesh: the checkpoint resumed unsharded != the uninterrupted run")
+            # the next tick loads frame ticks - D: corrupt that saved state's
+            # memory, so every resimulated frame from ticks - D + 1 differs
+            slot = (ticks - D) % sharded._programs.ring.length
+            rows = sessions // mesh.size
+            shard, row = divmod(MESH_CORRUPT_SESSION, rows)
+            sharded.shard_carries[shard]["ring"]["states"]["mem"][row, slot] += 1
+            bad = sharded.run_ticks(inputs[:, ticks:ticks + 4])
+            check(bad["mismatches"] >= 1 and bad["first_bad"] == ticks - D + 1,
+                  f"mesh: the corruption was not found through the all-reduce ({bad})")
+            emit({"phase": "mesh", "corrupted_session": MESH_CORRUPT_SESSION,
+                  "found_through": "torch.distributed.all_reduce (NCCL, world size 1)",
+                  "stats": bad, "checkpoint_resumed_unsharded_equal": True,
+                  "checkpoint_bytes": os.path.getsize(path)})
+        finally:
+            dist.destroy_process_group()
+    return total
 
 
 def main() -> int:
@@ -1711,12 +2072,15 @@ def main() -> int:
     launches = timed("batched", phase_batched)
     exec_launches = timed("executor", phase_executor)
     timed("checkpoint", phase_checkpoint)
-    p2p_launches = timed("p2p", phase_p2p)
+    p2p_launches, p2p_runs = timed("p2p", phase_p2p)
     ecs_launches = timed("ecs", phase_ecs)
     float_launches = timed("float", phase_float)
     journal_launches = timed("journal", phase_journal)
     spec_launches = timed("speculation", phase_speculation)
-    pool_launches = timed("pool", phase_pool)
+    pool_launches, pool_run = timed("pool", phase_pool)
+    native_launches = timed("native", phase_native, p2p_runs, pool_run)
+    plane_launches = timed("plane", phase_plane)
+    mesh_launches = timed("mesh", phase_mesh)
     emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
     main_case = cases[MAIN_CASE]
     emit({"kernels": [{
@@ -1726,6 +2090,8 @@ def main() -> int:
         "launches_p2p": p2p_launches, "launches_ecs": ecs_launches,
         "launches_float": float_launches, "launches_journal": journal_launches,
         "launches_speculation": spec_launches, "launches_pool": pool_launches,
+        "launches_native": native_launches, "launches_plane": plane_launches,
+        "launches_mesh": mesh_launches,
         "max_abs_err": worst,
         "ms": main_case["device_us"] / 1e3, "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_us"] / 1e3, "bound_by": "bytes", "library_ms": None,

@@ -15,6 +15,16 @@ NVIDIA H100:
 - the P2P wire (``net``): the endpoint protocol, its messages and input
   codec byte for byte the JAX package's, UDP and in-memory sockets, so a
   port peer plays a JAX peer;
+- the native host cores the JAX package runs: the C++ input codec and
+  message framing, endpoint datapath and sync core of ``native/``, built by
+  ``g++`` at first use and bound with ctypes (``net/_native.py``), on by
+  default for eligible configs;
+- device-batched input prediction (``predict``): a ``DevicePredictionPlane``
+  predicts every pooled session's missing inputs in one device call;
+- mesh batching: ``BatchedSessions`` and ``BatchedRequestExecutor`` shard
+  their sessions over a ``Mesh`` of devices (``make_mesh``,
+  ``make_mesh2d``, ``make_distributed_mesh``), with the health reduction
+  through ``torch.distributed`` across processes;
 - the games: BoxGame (fixed-point and float), ChipVM, EcsWorld (an entity
   component world) and RtsCmd (command streams in varrec envelopes);
 - match journals (``broadcast``): a ``JournalTap`` records a live
@@ -27,7 +37,7 @@ It imports torch and numpy only; entry points take ``device=None``, meaning
 the CUDA card.
 """
 
-from . import broadcast, obs
+from . import broadcast, obs, predict
 from .convert import from_numpy, to_numpy
 from .core import (
     AdvanceFrame,
@@ -78,10 +88,15 @@ from .net import FakeSocket, InMemoryNetwork, Message, NetworkStats, NonBlocking
 from .parallel import (
     BatchedRequestExecutor,
     BatchedSessions,
+    Mesh,
     SpeculativeBranches,
     SpeculativeRollback,
     build_speculation_programs,
+    make_distributed_mesh,
+    make_mesh,
+    make_mesh2d,
 )
+from .predict import BatchedDefault, BatchedRepeatLast, DevicePredictionPlane
 from .sessions import (
     DeviceSyncTestSession,
     P2PSession,
@@ -93,6 +108,8 @@ from .sessions import (
 
 __all__ = [
     "AdvanceFrame",
+    "BatchedDefault",
+    "BatchedRepeatLast",
     "BatchedRequestExecutor",
     "BatchedSessions",
     "BoxGame",
@@ -102,6 +119,7 @@ __all__ = [
     "DesyncDetected",
     "DesyncDetection",
     "DeviceChecksum",
+    "DevicePredictionPlane",
     "DeviceRequestExecutor",
     "DeviceStateRing",
     "DeviceSyncTestSession",
@@ -119,6 +137,7 @@ __all__ = [
     "LoadGameState",
     "Local",
     "MatchJournal",
+    "Mesh",
     "Message",
     "MismatchedChecksum",
     "NetworkStats",
@@ -150,7 +169,11 @@ __all__ = [
     "encode_commands",
     "from_numpy",
     "lane_sums_rows",
+    "make_distributed_mesh",
+    "make_mesh",
+    "make_mesh2d",
     "obs",
+    "predict",
     "pytree_checksum",
     "read_journal",
     "resolve_device",

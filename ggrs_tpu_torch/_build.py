@@ -1,11 +1,18 @@
-"""Build step for the port's hand-written CUDA kernels.
+"""Build step for the port's compiled code: the CUDA kernels and the host
+library.
 
 Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, loaded with ``ctypes``.  Builds
-happen at first use, from the sources in this package only, into
-``_build/`` beside this file (listed in ``.gitignore``); the library's file
-name carries a hash of its source and flags, so an edited source is rebuilt
-and never mixed up with an old library.  A failed build raises.
+shared library with a plain C interface, loaded with ``ctypes``.  The host
+library is the native host cores the JAX package also runs (the input codec
+and message framing, the endpoint datapath and the sync core), compiled by
+``g++`` from the repository's ``native/codec.cpp``, ``native/endpoint.cpp``
+and ``native/sync_core.cpp`` as they are.  Builds happen at first use into
+``_build/`` beside this file (listed in ``.gitignore``); each library's file
+name carries a hash of every source and header it is built from and of the
+flags, so an edited source is rebuilt and never mixed up with an old
+library.  A library is written to a temporary file and moved into place, so
+processes that build at the same time never load a torn file.  A failed
+build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from typing import Dict, Iterable, Optional
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG / "_build"
+NATIVE_DIR = _PKG.parent / "native"
 
 SOURCES: Dict[str, Path] = {
     "digest": _PKG / "csrc" / "digest.cu",
@@ -35,13 +43,21 @@ NVCC_FLAGS = (
 
 _NVCC_TIMEOUT_S = 600
 
+# the host library: the codec, endpoint and sync-core translation units of
+# native/ (the session bank and the batched socket datapath are not built)
+HOST_SOURCES = tuple(NATIVE_DIR / n for n in ("codec.cpp", "endpoint.cpp", "sync_core.cpp"))
+HOST_HEADERS = (NATIVE_DIR / "wire_common.h",)
+HOST_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
+HOST = "host"
+_GXX_TIMEOUT_S = 300
+
 # name -> loaded library; name -> the compiler's output of the build
 _loaded: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}
 
 
 class KernelBuildError(RuntimeError):
-    """nvcc is missing or refused a source."""
+    """A compiler (nvcc or g++) is missing or refused a source."""
 
 
 def _nvcc() -> str:
@@ -98,6 +114,59 @@ def build(names: Optional[Iterable[str]] = None) -> float:
     if failed:
         raise KernelBuildError("kernel build failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0
+
+
+def host_library_path() -> Path:
+    h = hashlib.sha256()
+    for src in HOST_SOURCES + HOST_HEADERS:
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    h.update(" ".join(HOST_FLAGS).encode())
+    return BUILD_DIR / f"libggrs_host-{h.hexdigest()[:12]}.so"
+
+
+def build_host() -> float:
+    """Compile the host library with ``g++`` unless it is built already.
+    Returns the wall seconds spent (0.0 when nothing was built)."""
+    path = host_library_path()
+    if path.exists():
+        return 0.0
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise KernelBuildError(
+            "g++ not found on PATH; the port's host library is built from "
+            "native/*.cpp at first use"
+        )
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    fd, tmp = tempfile.mkstemp(prefix="libggrs_host-", suffix=".so.tmp", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [gxx, *HOST_FLAGS, "-o", tmp, *map(str, HOST_SOURCES)]
+    try:
+        proc = subprocess.run(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            timeout=_GXX_TIMEOUT_S,
+        )
+    except subprocess.TimeoutExpired as e:
+        os.unlink(tmp)
+        raise KernelBuildError(f"g++ timed out after {_GXX_TIMEOUT_S} s\n{e.output or ''}")
+    build_logs[HOST] = proc.stdout
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise KernelBuildError(
+            f"host library build failed: g++ exited {proc.returncode}\n{proc.stdout}"
+        )
+    os.replace(tmp, path)
+    return time.perf_counter() - t0
+
+
+def load_host() -> ctypes.CDLL:
+    """The loaded host library, building it first if needed."""
+    lib = _loaded.get(HOST)
+    if lib is None:
+        build_host()
+        lib = ctypes.CDLL(str(host_library_path()))
+        _loaded[HOST] = lib
+    return lib
 
 
 def load(name: str) -> ctypes.CDLL:

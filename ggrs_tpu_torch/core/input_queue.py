@@ -5,8 +5,11 @@ src/input_queue.rs): a 128-slot ring holding confirmed inputs between tail
 and head, frame-delay insertion (replicating the last input when the delay
 grows, dropping when it shrinks), prediction through the config's
 predictor, and the first-incorrect-frame bookkeeping that drives rollbacks.
-The device prediction plane and the host bank's ``seed`` are not ported
-yet.
+A queue bound to a ``predict.DevicePredictionPlane`` asks the plane's
+batched table first when it enters prediction mode, and the config's scalar
+predictor when the plane declines; both give the same value.  The host
+bank's ``seed`` and the mispredict counters other than ``plane_mispredicts``
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -44,11 +47,34 @@ class InputQueue(Generic[I]):
         self._prediction: PlayerInput[I] = PlayerInput.blank(
             NULL_FRAME, config.input_default
         )
+        # optional device-batched prediction source (predict.batched): when
+        # bound, prediction-mode entry asks the plane's table first and
+        # falls back to the config's scalar predictor on a decline
+        self._plane = None
+        self._plane_slot = 0
+        self._plane_player = 0
+        self._prediction_via_plane = False
+        # rollback episodes whose wrong prediction came from the plane
+        self.plane_mispredicts = 0
 
     # -- bookkeeping -------------------------------------------------------
 
     def set_frame_delay(self, delay: int) -> None:
         self.frame_delay = delay
+
+    def bind_prediction_plane(self, plane, slot: int, player: int) -> None:
+        """Attach (or detach, with ``None``) a ``DevicePredictionPlane``
+        serving this queue's prediction-mode entries."""
+        self._plane = plane
+        self._plane_slot = slot
+        self._plane_player = player
+
+    def last_added_input(self) -> Optional[PlayerInput[I]]:
+        """The most recently added input, the base any prediction made now
+        would extend from, or None on a virgin queue."""
+        if self.last_added_frame == NULL_FRAME:
+            return None
+        return self._inputs[(self.head - 1) % INPUT_QUEUE_LENGTH]
 
     def reset_prediction(self) -> None:
         """Drop out of prediction mode after a rollback
@@ -96,7 +122,7 @@ class InputQueue(Generic[I]):
                 previous = self._inputs[(self.head - 1) % INPUT_QUEUE_LENGTH]
 
             if previous is not None:
-                predicted = self._config.predictor.predict(previous.input)
+                predicted = self._predict(previous.input)
                 base_frame = previous.frame
             else:
                 predicted = self._config.input_default()
@@ -106,6 +132,19 @@ class InputQueue(Generic[I]):
 
         assert self._prediction.frame != NULL_FRAME
         return (self._prediction.input, InputStatus.PREDICTED)
+
+    def _predict(self, previous: I) -> I:
+        """One prediction from ``previous``: the bound plane's table when it
+        has a row for this queue's current base, else the config's scalar
+        predictor.  Both must produce the same value (the kernel contract),
+        so this is a dispatch, not a semantic fork."""
+        if self._plane is not None:
+            hit, value = self._plane.predict_at(self._plane_slot, self._plane_player, previous)
+            if hit:
+                self._prediction_via_plane = True
+                return value
+        self._prediction_via_plane = False
+        return self._config.predictor.predict(previous)
 
     # -- writes --------------------------------------------------------------
 
@@ -153,6 +192,8 @@ class InputQueue(Generic[I]):
             # record the first incorrect prediction so the session can roll back
             if self.first_incorrect_frame == NULL_FRAME and not prediction_matches:
                 self.first_incorrect_frame = frame_number
+                if self._prediction_via_plane:
+                    self.plane_mispredicts += 1
 
             # exit prediction mode once reality has caught up with the last
             # frame the session asked for, but only if nothing was wrong

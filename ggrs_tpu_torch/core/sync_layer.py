@@ -7,19 +7,23 @@ Save/Load requests.  With ``ops.DeviceRequestExecutor`` a cell holds the
 state's tensors on the card (no copy) and a lazy checksum that is read back
 only when the ``checksum`` property is read.
 
-``SyncLayer`` runs the pure-Python ``InputQueue`` bank.  The JAX package
-runs the same mechanism on its native sync core by default (for configs with
-a fixed-size encoding, repeat-last prediction and default equality); the
-two give identical request lists, and the native core comes to the port
-with the host layer.
+``SyncLayer`` runs the input-queue and watermark mechanism on the native
+sync core (``native/sync_core.cpp``, one ctypes crossing per operation) by
+default for configs with a fixed-size injective encoding, repeat-last
+prediction and default equality, as the JAX package does; every other
+config, and any ``SyncLayer(use_native=False)`` or ``GGRS_TPU_NO_NATIVE=1``,
+runs the pure-Python ``InputQueue`` bank, the reference.  Both give the same
+request lists.
 """
 
 from __future__ import annotations
 
+import ctypes
+import os
 import threading
 from typing import Generic, List, Optional, Sequence, Tuple, TypeVar
 
-from .config import Config
+from .config import Config, PredictRepeatLast, _default_eq
 from .frame_info import GameState, PlayerInput
 from .input_queue import InputQueue
 from .types import (
@@ -119,11 +123,151 @@ class SavedStates(Generic[S]):
         return self.cells[frame % len(self.cells)]
 
 
+def _native_sync_semantics_ok(config: Config) -> bool:
+    """Byte-wise semantics are EXACTLY the Python value semantics: a
+    fixed-size injective encoding (for_uint / integer-only for_struct set
+    ``native_input_size``), repeat-last prediction, default equality.  The
+    predictor's type is tested exactly: a batched strategy subclasses
+    ``PredictRepeatLast`` but is not eligible."""
+    return (
+        config.native_input_size is not None
+        and type(config.predictor) is PredictRepeatLast
+        and config.input_eq is _default_eq
+    )
+
+
+def _native_sync_eligible(config: Config) -> bool:
+    """Default-on gate for the native sync core: the semantics must hold and
+    the global kill switch must be off."""
+    return _native_sync_semantics_ok(config) and not os.environ.get("GGRS_TPU_NO_NATIVE")
+
+
+# native status codes (sync_core.cpp kStatus*) -> InputStatus
+_NATIVE_STATUS = (
+    InputStatus.CONFIRMED,
+    InputStatus.PREDICTED,
+    InputStatus.DISCONNECTED,
+)
+
+
+class _NativeSyncCore:
+    """ctypes facade over ``native/sync_core.cpp``: the input-queue bank and
+    confirmed-frame watermark with ONE crossing per operation, storing
+    Config-encoded fixed-size input bytes.  ``SyncLayer`` decides
+    eligibility; the Python ``InputQueue`` bank is the reference."""
+
+    def __init__(self, lib, config: Config, num_players: int) -> None:
+        self._lib = lib
+        self._config = config
+        self._size = config.native_input_size
+        self._players = num_players
+        self._ptr = lib.ggrs_sync_new(num_players, self._size)
+        if not self._ptr:
+            raise MemoryError("ggrs_sync_new failed")
+        self._in_buf = ctypes.create_string_buffer(self._size * num_players)
+        self._status = (ctypes.c_int32 * num_players)()
+        self._disc = ctypes.create_string_buffer(num_players)
+        self._lastf = (ctypes.c_int64 * num_players)()
+        self._out_frames = (ctypes.c_int64 * num_players)()
+        # pre-bound: these run several times per session tick
+        self._fn_add = lib.ggrs_sync_add_input
+        self._fn_sync = lib.ggrs_sync_synchronized_inputs
+        self._encode = config.input_encode
+        self._decode = config.input_decode
+
+    def __del__(self) -> None:  # pragma: no cover
+        try:
+            if self._ptr:
+                self._lib.ggrs_sync_free(self._ptr)
+                self._ptr = None
+        except Exception:
+            pass
+
+    def _pack_status(self, connect_status) -> None:
+        for i, st in enumerate(connect_status):
+            self._disc[i] = 1 if st.disconnected else 0
+            self._lastf[i] = st.last_frame
+
+    def add_input(self, player: int, frame: Frame, value) -> Frame:
+        rc = self._fn_add(self._ptr, player, frame, self._encode(value))
+        if rc < NULL_FRAME:
+            raise AssertionError(f"native sync add_input failed: {rc}")
+        return rc
+
+    def synchronized_inputs(self, frame: Frame, connect_status):
+        self._pack_status(connect_status)
+        rc = self._fn_sync(self._ptr, frame, self._disc, self._lastf, self._in_buf, self._status)
+        if rc != 0:
+            raise AssertionError(f"native sync synchronized_inputs: {rc}")
+        decode, size = self._decode, self._size
+        raw = self._in_buf.raw
+        status = self._status
+        return [
+            (decode(raw[p * size:(p + 1) * size]), _NATIVE_STATUS[status[p]])
+            for p in range(self._players)
+        ]
+
+    def confirmed_inputs(self, frame: Frame, connect_status):
+        self._pack_status(connect_status)
+        rc = self._lib.ggrs_sync_confirmed_inputs(
+            self._ptr, frame, self._disc, self._lastf, self._in_buf, self._out_frames
+        )
+        if rc != 0:
+            raise AssertionError(f"There is no confirmed input for the requested frame {frame}")
+        decode, size = self._decode, self._size
+        raw = self._in_buf.raw
+        out = []
+        for p in range(self._players):
+            if self._out_frames[p] == NULL_FRAME:
+                out.append(PlayerInput.blank(NULL_FRAME, self._config.input_default))
+            else:
+                out.append(PlayerInput(frame, decode(raw[p * size:(p + 1) * size])))
+        return out
+
+    def confirmed_input(self, player: int, frame: Frame):
+        rc = self._lib.ggrs_sync_confirmed_input(self._ptr, player, frame, self._in_buf)
+        if rc != 0:
+            raise AssertionError(f"There is no confirmed input for the requested frame {frame}")
+        return PlayerInput(frame, self._decode(self._in_buf.raw[: self._size]))
+
+    def set_frame_delay(self, player: int, delay: int) -> None:
+        self._lib.ggrs_sync_set_frame_delay(self._ptr, player, delay)
+
+    def reset_prediction(self) -> None:
+        self._lib.ggrs_sync_reset_prediction(self._ptr)
+
+    def set_last_confirmed(self, frame: Frame) -> None:
+        rc = self._lib.ggrs_sync_set_last_confirmed(self._ptr, frame)
+        if rc != 0:
+            raise AssertionError(
+                "confirming past the first incorrect frame would discard "
+                "inputs still needed for the pending rollback"
+            )
+
+    def check_consistency(self, first_incorrect: Frame) -> Frame:
+        return self._lib.ggrs_sync_check_consistency(self._ptr, first_incorrect)
+
+    def first_incorrect(self, player: int) -> Frame:
+        return self._lib.ggrs_sync_first_incorrect(self._ptr, player)
+
+
 class SyncLayer(Generic[I, S]):
     """Owns the state ring and input queues; emits Save/Load requests and
-    merges per-player inputs (reference: sync_layer.rs:168-375)."""
+    merges per-player inputs (reference: sync_layer.rs:168-375).
 
-    def __init__(self, config: Config, num_players: int, max_prediction: int) -> None:
+    ``use_native`` picks the input-queue mechanism: None (the default) runs
+    the native sync core when the config is eligible and the kill switch is
+    off, True insists on it (a ValueError for an ineligible config), False
+    runs the Python ``InputQueue`` bank, whose ``input_queues`` are then the
+    session's (empty on the native core)."""
+
+    def __init__(
+        self,
+        config: Config,
+        num_players: int,
+        max_prediction: int,
+        use_native: Optional[bool] = None,
+    ) -> None:
         self._config = config
         self.num_players = num_players
         self.max_prediction = max_prediction
@@ -131,9 +275,25 @@ class SyncLayer(Generic[I, S]):
         self._last_confirmed_frame: Frame = NULL_FRAME
         self._last_saved_frame: Frame = NULL_FRAME
         self._current_frame: Frame = 0
-        self.input_queues: List[InputQueue[I]] = [
-            InputQueue(config) for _ in range(num_players)
-        ]
+        self._native: Optional[_NativeSyncCore] = None
+        if use_native is None:
+            use_native = _native_sync_eligible(config)
+        elif use_native and not _native_sync_semantics_ok(config):
+            # forcing the native core on a config whose byte semantics differ
+            # from its value semantics would change prediction and equality
+            raise ValueError(
+                "use_native=True requires a fixed-size injective input "
+                "encoding with repeat-last prediction and default equality"
+            )
+        if use_native:
+            from ..net import _native as _native_mod
+
+            lib = _native_mod.sync_lib()
+            if lib is not None:
+                self._native = _NativeSyncCore(lib, config, num_players)
+        self.input_queues: List[InputQueue[I]] = (
+            [] if self._native is not None else [InputQueue(config) for _ in range(num_players)]
+        )
 
     # -- frame counters ------------------------------------------------------
 
@@ -192,23 +352,36 @@ class SyncLayer(Generic[I, S]):
 
     def set_frame_delay(self, player_handle: PlayerHandle, delay: int) -> None:
         assert player_handle < self.num_players
-        self.input_queues[player_handle].set_frame_delay(delay)
+        if self._native is not None:
+            self._native.set_frame_delay(player_handle, delay)
+        else:
+            self.input_queues[player_handle].set_frame_delay(delay)
 
     def reset_prediction(self) -> None:
+        if self._native is not None:
+            self._native.reset_prediction()
+            return
         for q in self.input_queues:
             q.reset_prediction()
 
     def add_local_input(self, player_handle: PlayerHandle, input: PlayerInput[I]) -> Frame:
         assert input.frame == self._current_frame
+        if self._native is not None:
+            return self._native.add_input(player_handle, input.frame, input.input)
         return self.input_queues[player_handle].add_input(input)
 
     def add_remote_input(self, player_handle: PlayerHandle, input: PlayerInput[I]) -> None:
+        if self._native is not None:
+            self._native.add_input(player_handle, input.frame, input.input)
+            return
         self.input_queues[player_handle].add_input(input)
 
     def synchronized_inputs(self, connect_status: Sequence) -> List[Tuple[I, InputStatus]]:
         """Inputs for all players at the current frame; predictions where
         confirmed input hasn't arrived; defaults for disconnected players
         (reference: sync_layer.rs:280-293)."""
+        if self._native is not None:
+            return self._native.synchronized_inputs(self._current_frame, connect_status)
         inputs: List[Tuple[I, InputStatus]] = []
         for i, status in enumerate(connect_status):
             if status.disconnected and status.last_frame < self._current_frame:
@@ -219,11 +392,15 @@ class SyncLayer(Generic[I, S]):
 
     def confirmed_input(self, player_handle: PlayerHandle, frame: Frame) -> PlayerInput[I]:
         """One player's confirmed input at ``frame``; raises if not stored."""
+        if self._native is not None:
+            return self._native.confirmed_input(player_handle, frame)
         return self.input_queues[player_handle].confirmed_input(frame)
 
     def confirmed_inputs(self, frame: Frame, connect_status: Sequence) -> List[PlayerInput[I]]:
         """Confirmed inputs for all players at ``frame``; blanks for
         disconnected players (reference: sync_layer.rs:296-310)."""
+        if self._native is not None:
+            return self._native.confirmed_inputs(frame, connect_status)
         inputs: List[PlayerInput[I]] = []
         for i, status in enumerate(connect_status):
             if status.disconnected and status.last_frame < frame:
@@ -245,6 +422,13 @@ class SyncLayer(Generic[I, S]):
         # never delete anything ahead of the current frame
         frame = min(frame, self._current_frame)
 
+        if self._native is not None:
+            # the native core verifies the first-incorrect invariant, stores
+            # and discards; the policy above stays here
+            self._native.set_last_confirmed(frame)
+            self._last_confirmed_frame = frame
+            return
+
         first_incorrect: Frame = NULL_FRAME
         for q in self.input_queues:
             first_incorrect = max(first_incorrect, q.first_incorrect_frame)
@@ -261,6 +445,8 @@ class SyncLayer(Generic[I, S]):
     def check_simulation_consistency(self, first_incorrect: Frame) -> Frame:
         """Earliest incorrect frame across all input queues
         (reference: sync_layer.rs:343-353)."""
+        if self._native is not None:
+            return self._native.check_consistency(first_incorrect)
         for q in self.input_queues:
             incorrect = q.first_incorrect_frame
             if incorrect != NULL_FRAME and (

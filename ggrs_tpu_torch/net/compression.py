@@ -1,7 +1,7 @@
 """Input compression codec: XOR delta vs the last-acked input, chained
-input-to-input, then zero-run-length encoding (the port's copy of the JAX
-package's Python codec, ``ggrs_tpu/net/compression.py`` ``encode_py`` /
-``decode_py``, byte for byte).
+input-to-input, then zero-run-length encoding (the port's copy of
+``ggrs_tpu/net/compression.py``: the native dispatch, and the Python codec
+``encode_py`` / ``decode_py`` byte for byte).
 
 Same scheme as the reference (GGRS src/network/compression.rs):
 each frame's input bytes are XORed against the previous frame's (the first
@@ -13,12 +13,17 @@ Decode is hardened: any malformed or malicious byte string raises
 ``CodecError`` — never an unhandled exception, never unbounded allocation
 (reference hardening: compression.rs:83-182, proptest compression.rs:205-213).
 
+``encode`` and ``decode`` dispatch to the C++ codec (``native/codec.cpp``
+through ``net/_native.py``); the Python implementation is the semantic
+reference for both, and takes the packets beyond the native resource caps
+(an oversize packet is legal).
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
+from . import _native
 from .wire import Reader, WireError, Writer
 
 
@@ -101,7 +106,28 @@ def _rle_decode(data: bytes, max_bytes: int = MAX_DECODED_BYTES) -> bytearray:
 
 
 def encode(reference: bytes, inputs: Sequence[bytes]) -> bytes:
-    """Compress ``inputs`` (oldest first) against ``reference``."""
+    """Compress ``inputs`` (oldest first) against ``reference``.
+
+    Dispatches to the C++ codec; the Python implementation below runs when
+    the caller switched the native library off."""
+    native = _native.encode(reference, inputs)
+    if native is not None:
+        return native
+    return encode_py(reference, inputs)
+
+
+def decode(reference: bytes, data: bytes) -> List[bytes]:
+    """Decompress into the original input byte strings.  Raises CodecError on
+    any malformed input.  Dispatches to the C++ codec; packets beyond the
+    native resource caps (a None return) take the Python path."""
+    native = _native.decode(reference, data)
+    if native is not None:
+        return native
+    return decode_py(reference, data)
+
+
+def encode_py(reference: bytes, inputs: Sequence[bytes]) -> bytes:
+    """Pure-Python encode (the semantic reference)."""
     same_size = len(reference) > 0 and all(len(i) == len(reference) for i in inputs)
 
     delta = _delta_bytes(reference, inputs)
@@ -124,10 +150,9 @@ def encode(reference: bytes, inputs: Sequence[bytes]) -> bytes:
     return w.finish()
 
 
-def decode(reference: bytes, data: bytes) -> List[bytes]:
-    """Decompress into the original input byte strings.  Raises CodecError on
-    any malformed input (hardened: never an unhandled exception, never an
-    allocation beyond ``MAX_DECODED_BYTES``)."""
+def decode_py(reference: bytes, data: bytes) -> List[bytes]:
+    """Pure-Python decode (the semantic reference; hardened: never an
+    unhandled exception, never an allocation beyond ``MAX_DECODED_BYTES``)."""
     try:
         r = Reader(data)
         has_sizes = r.u8()

@@ -7,9 +7,11 @@ reference fork, the magic is carried but not verified on receive — routing is
 purely by source address (reference: p2p_session.rs:433-440); it is kept for
 wire-format parity and debugging.
 
-The encode and decode here are the JAX package's Python codec, byte for byte:
-a JAX peer (whose native codec is pinned to the same bytes) and a port peer
-read each other's datagrams.
+``Message.encode`` and ``Message.decode`` route through the native framing
+fast path (``native/codec.cpp``) as the JAX package's do; the Python writer
+and reader here are that package's, byte for byte, and remain the reference
+and the path for packets whose varints exceed u64.  A JAX peer and a port
+peer read each other's datagrams.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from dataclasses import dataclass, field
 from typing import List, Union
 
 from ..core.types import Frame, NULL_FRAME
+from . import _native
 from .wire import Reader, WireError, Writer
 
 
@@ -208,6 +211,10 @@ class Message:
         cached = self._encoded
         if cached is not None:
             return cached
+        fast = _native.msg_encode(self)
+        if fast is not None:
+            self._encoded = fast
+            return fast
         w = Writer()
         w.u16(self.magic)
         b = self.body
@@ -252,12 +259,17 @@ class Message:
     @staticmethod
     def decode(data: bytes) -> "Message":
         """Decode a datagram; raises WireError on malformed data (callers drop
-        undecodable packets, reference: udp_socket.rs:70-72)."""
+        undecodable packets, reference: udp_socket.rs:70-72).  Routes through
+        the native framing fast path; the Python reader below is the
+        reference and the path for packets whose varints exceed u64."""
         # InputAck is the hottest datagram (one per received input packet)
-        # and tiny; parse it inline
+        # and tiny; parse it inline without the ctypes round trip
         ack = parse_input_ack_frame(data)
         if ack is not None:
             return Message(data[0] | (data[1] << 8), InputAck(ack))
+        fast = _native.msg_decode(data)
+        if fast is not None:
+            return fast
         r = Reader(data)
         magic = r.u16()
         tag = r.u8()

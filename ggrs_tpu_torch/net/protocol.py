@@ -64,6 +64,7 @@ _OBS_DROPPED = default_registry().counter(
     labels=("reason",),
 )
 _DROP_UNDECODABLE = _OBS_DROPPED.labels(reason="undecodable")
+_DROP_MALFORMED = _OBS_DROPPED.labels(reason="malformed")
 _DROP_BAD_FRAME = _OBS_DROPPED.labels(reason="malformed_frame")
 _DROP_BAD_INPUT = _OBS_DROPPED.labels(reason="undecodable_input")
 # send windows rewound on a peer's regressive acks, and rewinds refused
@@ -298,7 +299,8 @@ class PeerProtocol(Generic[I, A]):
         ]
 
         # the per-tick datapath: pending-output window + its delta base,
-        # received-input ring + decode base, datagram build/decode
+        # received-input ring + decode base, datagram build/decode; native
+        # (C++) unless the caller switched it off, wire-identical either way
         # (net/endpoint.py)
         default_bytes = config.input_encode(config.input_default())
         self._default_send_base = _encode_player_bytes(
@@ -312,6 +314,8 @@ class PeerProtocol(Generic[I, A]):
             max_prediction=max_prediction,
         )
         self._last_recv_frame: Frame = NULL_FRAME  # mirror of core state
+        # fused-datagram receive (native core only; None: the object path)
+        self._fused_recv = getattr(self._core, "handle_input_datagram", None)
         # send-window rewind state: a ring of
         # recently pushed payloads by frame, and the regressive-ack
         # detector (see REWIND_ACK_THRESHOLD above)
@@ -697,6 +701,12 @@ class PeerProtocol(Generic[I, A]):
         staged = self._core.on_input(body.start_frame, body.bytes)
         if staged is None:
             return
+        self._finish_input(staged)
+
+    def _finish_input(self, staged) -> None:
+        """Validate, commit, and surface the frames staged by the core's
+        receive peek (shared by the object path and the fused-datagram
+        path)."""
         first_new, payloads = staged
 
         # validate ALL inner framing before committing, so a packet with any
@@ -733,9 +743,21 @@ class PeerProtocol(Generic[I, A]):
         # received input packet)
         self._queue_raw(encode_input_ack(self.magic, self._last_recv_frame))
 
+    def _decode_and_dispatch(self, data: bytes) -> None:
+        """The object path for raw datagrams: decode, silently dropping
+        anything undecodable (reference: udp_socket.rs:70-72)."""
+        try:
+            msg = Message.decode(data)
+        except WireError:
+            _DROP_UNDECODABLE.inc()
+            return
+        self.handle_message(msg)
+
     def handle_datagram(self, data: bytes) -> None:
-        """Receive entry for raw datagram bytes: an InputAck is parsed
-        inline (the hottest datagram), anything else goes through
+        """Receive entry for raw datagram bytes.  An InputAck is parsed
+        inline (the hottest datagram); input packets take the native core's
+        fused path (ONE crossing: parse + ack + decode + stage); everything
+        else, and every packet when the Python core runs, goes through
         ``Message.decode`` + ``handle_message``.  Undecodable datagrams are
         dropped silently (reference: udp_socket.rs:70-72)."""
         if self._state == _State.SHUTDOWN:
@@ -745,12 +767,36 @@ class PeerProtocol(Generic[I, A]):
             self._mark_alive()
             self._handle_ack(ack)
             return
-        try:
-            msg = Message.decode(data)
-        except WireError:
-            _DROP_UNDECODABLE.inc()
+        fused = self._fused_recv
+        if fused is None or len(data) < 3 or data[2] != 0:  # 0 = input tag
+            self._decode_and_dispatch(data)
             return
-        self.handle_message(msg)
+        res = fused(data)
+        if res == "fallback":
+            self._decode_and_dispatch(data)
+            return
+        if res is None:
+            _DROP_MALFORMED.inc()
+            return  # malformed: dropped whole, nothing applied
+        self._mark_alive()
+        disconnect_requested, (n_status, disc, frames), staged = res
+        if disconnect_requested:
+            if self._state != _State.DISCONNECTED and not self._disconnect_event_sent:
+                self._event_queue.append(EvDisconnected())
+                self._disconnect_event_sent = True
+        else:
+            pcs = self.peer_connect_status
+            if n_status != len(pcs):
+                return  # malformed: drop
+            for i in range(n_status):
+                ours = pcs[i]
+                if disc[i]:
+                    ours.disconnected = True
+                last_frame = frames[i]
+                if last_frame > ours.last_frame:
+                    ours.last_frame = last_frame
+        if staged is not None:
+            self._finish_input(staged)
 
     def _on_checksum_report(self, body: ChecksumReport) -> None:
         interval = self.desync_detection.interval if self.desync_detection.enabled else 1

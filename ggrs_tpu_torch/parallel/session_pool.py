@@ -36,11 +36,15 @@ numbers and 4-lane digests; ``GameStateCell``s are fulfilled with lazy slot
 references and lazy checksums, so desync detection and ``cell.load()`` work
 unchanged while ``run`` reads nothing back from the card.
 
-Not ported yet: the ``mesh=`` argument (sharding the pool over several
-cards, queue A item 4 of the roadmap), and the descriptor plane's
-``raw_inputs_to_array``, ``_run_plan``, ``_fill_resim``, ``_fulfill_fast``
-and ``HostedPool``, which consume the host bank's ``RequestPlan`` (queue A
-item 6).
+With ``mesh=`` the session axis is sharded over the mesh's devices, as
+``BatchedSessions`` shards it: each shard's rows, rings and live states live
+on its own device, and the masked tick runs per shard on that shard's slice
+of the descriptor.  Sessions are independent, so the tick needs no
+collectives.
+
+Not ported yet: the descriptor plane's ``raw_inputs_to_array``,
+``_run_plan``, ``_fill_resim``, ``_fulfill_fast`` and ``HostedPool``, which
+consume the host bank's ``RequestPlan`` (queue A item 6).
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ from ..obs.trace import NULL_TRACER
 from ..ops.checksum import CHECKSUM_LANES, checksum_device, checksum_to_u128
 from ..ops.ring import DeviceStateRing
 from ..utils.tree import tree_map
+from .batch import Mesh, _on
 
 # device-tick accounting for the pooled executor: process-wide counters,
 # observational only
@@ -178,6 +183,12 @@ class BatchedRequestExecutor:
                         stock P2P session.
     ``device``          the card by default (``None``); ``"cpu"`` runs on
                         the CPU.
+    ``mesh``            optional ``parallel.Mesh`` of this process's devices
+                        (instead of ``device``): the session axis is sharded
+                        over every mesh axis, host-major (the device count
+                        must divide ``batch_size``), so one pool spans cards.
+                        The descriptor is built on the host and split per
+                        shard.
     """
 
     def __init__(
@@ -190,25 +201,47 @@ class BatchedRequestExecutor:
         max_burst: int,
         with_checksums: bool = True,
         device: DeviceLike = None,
+        mesh: Optional[Mesh] = None,
     ) -> None:
         assert batch_size >= 1 and ring_length >= 2 and max_burst >= 1
         self.batch_size = batch_size
         self.ring_length = ring_length
         self.max_burst = max_burst
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None:
+                raise ValueError("pass device= or mesh=, not both")
+            if mesh.world_size > 1:
+                raise ValueError("a pool's mesh holds this process's devices only")
+            assert batch_size % mesh.size == 0, (
+                f"batch_size {batch_size} must divide evenly over {mesh.size} mesh devices"
+            )
+            devices = [dev for _, dev in mesh.local_shards()]
+        else:
+            devices = [resolve_device(device)]
+        self.device = devices[0]
         self._advance = advance
         self._inputs_to_array = inputs_to_array
         self._with_checksums = with_checksums
 
-        B, R = batch_size, ring_length
-        state0 = from_numpy(init_state, self.device)
-        live = tree_map(lambda l: l.unsqueeze(0).expand(B, *l.shape).clone(), state0)
+        R = ring_length
+        self._rows = batch_size // len(devices)
         self._ring = DeviceStateRing(R)
-        # one DeviceStateRing (states / checksums / frames) per session,
-        # stacked on the leading B axis and written in place; its frame tags
-        # back the host-side accessors
-        self._carry: Dict[str, Any] = {"live": live, "ring": self._ring.init(live)}
-        self._zero_cs = torch.zeros((B, CHECKSUM_LANES), dtype=torch.int32, device=self.device)
+        # per shard: one DeviceStateRing (states / checksums / frames) per
+        # session, stacked on the leading row axis and written in place (its
+        # frame tags back the host-side accessors), the live states, and a
+        # zero digest for pools without checksums
+        self._shards: List[Dict[str, Any]] = []
+        for k, dev in enumerate(devices):
+            with _on(dev):
+                state0 = from_numpy(init_state, dev)
+                live = tree_map(lambda l: l.unsqueeze(0).expand(self._rows, *l.shape).clone(), state0)
+                self._shards.append({
+                    "lo": k * self._rows, "device": dev, "live": live,
+                    "ring": self._ring.init(live),
+                    "zero_cs": torch.zeros((self._rows, CHECKSUM_LANES), dtype=torch.int32,
+                                           device=dev),
+                })
         self._input_dtype: Optional[np.dtype] = None
         self._input_shape: Optional[Tuple[int, ...]] = None
         # tracing: device dispatch and fence spans; assign a live Tracer to
@@ -220,7 +253,7 @@ class BatchedRequestExecutor:
         self._invalid: Optional[str] = None
         # host shadow of the ring frame tags: loud failure at _parse time if
         # a session rolls back past ring_length (device aliasing is silent)
-        self._host_frames = np.full((B, R), -1, np.int64)
+        self._host_frames = np.full((batch_size, R), -1, np.int64)
 
     # ------------------------------------------------------------------
     # request-list parsing (host, numpy only)
@@ -356,7 +389,7 @@ class BatchedRequestExecutor:
         rows = np.flatnonzero(pred)
         if not rows.size:
             return None
-        every = rows.size == self.batch_size
+        every = rows.size == pred.size
         return (
             up.add(self._ring.flat_index(rows, frames[rows])),
             up.add(frames[rows].astype(np.int32)),
@@ -364,14 +397,22 @@ class BatchedRequestExecutor:
         )
 
     def _tick(self, desc: Dict[str, np.ndarray]) -> None:
-        """Run one descriptor on the device, masked over all B sessions."""
-        B = self.batch_size
+        """Run one descriptor on the device, masked over all B sessions:
+        each shard runs its slice of the descriptor on its own device."""
+        for shard in self._shards:
+            lo, hi = shard["lo"], shard["lo"] + self._rows
+            with _on(shard["device"]):
+                self._tick_shard(shard, {k: v[lo:hi] for k, v in desc.items()})
+
+    def _tick_shard(self, shard: Dict[str, Any], desc: Dict[str, np.ndarray]) -> None:
+        """One shard's rows of the tick, masked over them."""
+        rows_all = len(desc["n_adv"])
         n_max = int(desc["n_adv"].max())
         up = _Upload()
         pre = self._plan_write(up, desc["pre_save"], desc["pre_frame"])
         load = None
         if desc["do_load"].any():
-            load = (up.add(self._ring.flat_index(np.arange(B), desc["load_frame"])),
+            load = (up.add(self._ring.flat_index(np.arange(rows_all), desc["load_frame"])),
                     None if desc["do_load"].all() else up.add(desc["do_load"]))
         post = self._plan_write(up, desc["postload_save"], desc["postload_frame"])
         steps = []
@@ -381,16 +422,16 @@ class BatchedRequestExecutor:
                 act = j < desc["n_adv"]
                 save = self._plan_write(up, act & desc["save_mask"][:, j], desc["save_frame"][:, j])
                 steps.append((None if act.all() else up.add(act), save))
-        dev = up.send(self.device)
+        dev = up.send(shard["device"])
 
-        ring = self._carry["ring"]
+        ring = shard["ring"]
 
         def write(st: Any, plan) -> None:
             index, frames, rows = (None if k is None else dev[k] for k in plan)
-            cs = checksum_device(st) if self._with_checksums else self._zero_cs
+            cs = checksum_device(st) if self._with_checksums else shard["zero_cs"]
             self._ring.save_rows(ring, index, st, cs, frames, rows)
 
-        live = self._carry["live"]
+        live = shard["live"]
         if pre is not None:
             write(live, pre)
         st = live
@@ -404,7 +445,7 @@ class BatchedRequestExecutor:
             st = nxt if act is None else _tree_where(dev[act], nxt, st)
             if save is not None:
                 write(st, save)
-        self._carry["live"] = st
+        shard["live"] = st
 
     # ------------------------------------------------------------------
     # public API
@@ -418,13 +459,15 @@ class BatchedRequestExecutor:
         arr = np.asarray(example_inputs)
         self._input_dtype = arr.dtype
         self._input_shape = arr.shape
-        live, ring = self._carry["live"], self._carry["ring"]
-        B = self.batch_size
-        checksum_device(live)
-        inputs = from_numpy(np.broadcast_to(arr, (B,) + arr.shape).copy(), self.device)
-        self._advance(live, inputs)
-        index = from_numpy(self._ring.flat_index(np.arange(B), np.zeros(B, np.int64)), self.device)
-        self._ring.load_rows(ring, index)
+        B = self._rows
+        for shard in self._shards:
+            dev = shard["device"]
+            with _on(dev):
+                checksum_device(shard["live"])
+                inputs = from_numpy(np.broadcast_to(arr, (B,) + arr.shape).copy(), dev)
+                self._advance(shard["live"], inputs)
+                index = from_numpy(self._ring.flat_index(np.arange(B), np.zeros(B, np.int64)), dev)
+                self._ring.load_rows(shard["ring"], index)
         self.block_until_ready()
 
     def run(self, request_lists: Sequence[List[GgrsRequest]]) -> None:
@@ -466,14 +509,30 @@ class BatchedRequestExecutor:
 
     @property
     def live_states(self) -> Any:
-        """The ``(B, ...)`` live state tensors (no transfer)."""
+        """The ``(B, ...)`` live state tensors: no transfer on one device, a
+        copy on the first shard's device when sharded."""
         self._check_valid()
-        return self._carry["live"]
+        if len(self._shards) == 1:
+            return self._shards[0]["live"]
+        return tree_map(lambda *leaves: torch.cat([l.to(self.device) for l in leaves]),
+                        *[shard["live"] for shard in self._shards])
+
+    @property
+    def _carry(self) -> Dict[str, Any]:
+        """An unsharded pool's ``{"live", "ring"}`` buffers."""
+        if len(self._shards) != 1:
+            raise RuntimeError("a sharded pool has one carry per shard (_shards)")
+        return self._shards[0]
+
+    def _locate(self, index: int) -> Tuple[Dict[str, Any], int]:
+        """(shard, row within it) of session ``index``."""
+        return self._shards[index // self._rows], index % self._rows
 
     def live_state(self, index: int) -> Any:
         """One session's live state, fetched to the host as numpy arrays."""
         self._check_valid()
-        return to_numpy(tree_map(lambda l: l[index], self._carry["live"]))
+        shard, row = self._locate(index)
+        return to_numpy(tree_map(lambda l: l[row], shard["live"]))
 
     def _check_valid(self) -> None:
         if self._invalid is not None:
@@ -488,9 +547,10 @@ class BatchedRequestExecutor:
         lanes read in one transfer."""
         self._check_valid()
         slot = frame % self.ring_length
-        ring = self._carry["ring"]
-        vals = torch.cat([ring["frames"][index, slot].reshape(1),
-                          ring["checksums"][index, slot]]).cpu().numpy()
+        shard, row = self._locate(index)
+        ring = shard["ring"]
+        vals = torch.cat([ring["frames"][row, slot].reshape(1),
+                          ring["checksums"][row, slot]]).cpu().numpy()
         held = int(vals[0])
         if held != frame:
             raise RuntimeError(
@@ -503,7 +563,8 @@ class BatchedRequestExecutor:
         """A saved state, fetched to the host (validates the slot still
         holds ``frame``).  Diagnostics path."""
         slot, _ = self._slot_probe(index, frame)
-        return to_numpy(tree_map(lambda buf: buf[index, slot], self._carry["ring"]["states"]))
+        shard, row = self._locate(index)
+        return to_numpy(tree_map(lambda buf: buf[row, slot], shard["ring"]["states"]))
 
     def ring_checksum(self, index: int, frame: Frame) -> int:
         """A saved frame's u128 checksum (validates the slot)."""
@@ -513,5 +574,6 @@ class BatchedRequestExecutor:
 
     def block_until_ready(self) -> None:
         with self.tracer.span("device.fence"):
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            for shard in self._shards:
+                if shard["device"].type == "cuda":
+                    torch.cuda.synchronize(shard["device"])

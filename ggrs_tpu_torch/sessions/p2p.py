@@ -16,9 +16,12 @@ saved cell holds a lazy ``DeviceChecksum``; the desync exchange reads one
 session: a ``broadcast.JournalTap`` attaches there to record the match.
 ``enable_request_pooling`` reuses one ``SaveGameState`` / ``AdvanceFrame`` /
 list per tick for drivers that fulfil every list before the next tick (a
-``parallel.BatchedRequestExecutor`` pool).  The JAX package's
-prediction-plane binding and fleet resume seams (``bind_prediction_plane``,
-``adopt_resume_state``) are not ported.
+``parallel.BatchedRequestExecutor`` pool).  ``bind_prediction_plane``
+registers a Python-path session's input queues with a
+``predict.DevicePredictionPlane``.  For an eligible config (such as
+``boxgame_config()``) the session runs the native sync core and native
+endpoint cores by default, as the JAX package's does.  The JAX package's
+fleet resume seam (``adopt_resume_state``) is not ported.
 """
 
 from __future__ import annotations
@@ -279,6 +282,20 @@ class P2PSession(ThreadOwned, Generic[I, S, A]):
         self._pooled_adv = AdvanceFrame(inputs=[])
         self._pooled_list = []
 
+    def bind_prediction_plane(self, plane, slot: int) -> None:
+        """Register this session's input queues with a pool-level
+        ``predict.DevicePredictionPlane`` under ``slot``.  Python-path
+        sessions only: the native sync core predicts natively and never
+        consults Python queues."""
+        if not self._sync_layer.input_queues:
+            raise InvalidRequest(
+                "bind_prediction_plane() requires the Python input-queue "
+                "bank (batched predictors are never native-eligible, so "
+                "this session must have been built with a native-eligible "
+                "config; use the config's own predictor instead)"
+            )
+        plane.register(slot, self)
+
     def advance_frame(self) -> List[GgrsRequest]:
         """The main entry point; see the reference call stack
         (p2p_session.rs:265-426).  Returns the ordered request list."""
@@ -428,8 +445,8 @@ class P2PSession(ThreadOwned, Generic[I, S, A]):
         spectators = self._player_reg.spectators
         recv_raw = getattr(self._socket, "receive_all_datagrams", None)
         if recv_raw is not None:
-            # raw path: endpoints decode (undecodable datagrams are dropped
-            # at the endpoint, same behavior as socket-level drops)
+            # raw path: endpoints parse natively (undecodable datagrams are
+            # dropped at the endpoint, same behavior as socket-level drops)
             for from_addr, data in recv_raw():
                 ep = remotes.get(from_addr)
                 if ep is not None:

@@ -42,6 +42,12 @@ def test_package_imports_with_jax_blocked():
         "import ggrs_tpu_torch.games.ecs_world, ggrs_tpu_torch.games.rtscmd\n"
         "import ggrs_tpu_torch.broadcast, ggrs_tpu_torch.broadcast.journal\n"
         "import ggrs_tpu_torch.sessions.replay\n"
+        "import ggrs_tpu_torch.predict, ggrs_tpu_torch.predict.batched, ggrs_tpu_torch.net._native\n"
+        "from ggrs_tpu_torch.parallel.batch import Mesh, make_mesh, make_mesh2d\n"
+        "from ggrs_tpu_torch.parallel.batch import make_distributed_mesh\n"
+        "assert ggrs_tpu_torch.net._native.available()\n"
+        "assert make_mesh(2, device='cpu').size == make_mesh2d(1, 2, device='cpu').size == 2\n"
+        "assert make_distributed_mesh(device='cpu').devices.shape == (1, 1)\n"
         "import chip_smoke\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
         "print('ok')\n"
@@ -202,6 +208,12 @@ def test_default_device_is_cuda_and_raises_without_it():
     for other in (EcsWorld(2, 4), RtsCmd(2), BoxGame(2, "float")):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             other.init_state()
+    cfg = ggrs_tpu_torch.Config.for_uint(8, predictor=ggrs_tpu_torch.BatchedRepeatLast())
+    for entry in (ggrs_tpu_torch.make_mesh, ggrs_tpu_torch.make_distributed_mesh,
+                  lambda: ggrs_tpu_torch.make_mesh2d(1, 1),
+                  lambda: ggrs_tpu_torch.DevicePredictionPlane(cfg, 2)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry()
     assert resolve_device("cpu") == torch.device("cpu")
 
 

@@ -15,6 +15,11 @@
 - A port spectator of a port host receives what a JAX spectator of a JAX
   host receives.
 
+The parity cases and the gate run the port peers on both of its cores: the
+native ones (the default for ``boxgame_config()``, as in the JAX package)
+and the Python ones (``SyncLayer`` input queues and ``PyEndpointCore``).
+The JAX peers run the JAX package's default, its native cores.
+
 Tolerance: exact equality (integer game math, integer digest)."""
 
 import dataclasses
@@ -38,6 +43,8 @@ import ggrs_tpu.sessions as jsessions
 from ggrs_tpu.games.chipvm import ChipVM as JaxChipVM
 
 import ggrs_tpu_torch.core as tcore
+import ggrs_tpu_torch.core.sync_layer as tsync
+import ggrs_tpu_torch.net.protocol as tproto
 import ggrs_tpu_torch.games as tgames
 import ggrs_tpu_torch.net as tnet
 import ggrs_tpu_torch.net.messages as tmsg
@@ -45,6 +52,7 @@ import ggrs_tpu_torch.obs as tobs
 import ggrs_tpu_torch.ops as tops
 import ggrs_tpu_torch.sessions as tsessions
 from ggrs_tpu_torch import to_numpy
+from ggrs_tpu_torch.net.endpoint import NativeEndpointCore, PyEndpointCore
 from ggrs_tpu_torch.ops import digest as tdg
 from ggrs_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -189,8 +197,31 @@ PARITY_CASES = {
 }
 
 
+@pytest.fixture(params=["native", "python"])
+def port_core(request, monkeypatch):
+    """Which cores the port's sessions run: the native default, or the
+    Python input queues and endpoint core (the JAX tests' own switch, the
+    endpoint factory, plus the sync layer's eligibility gate)."""
+    if request.param == "python":
+        monkeypatch.setattr(tsync, "_native_sync_eligible", lambda config: False)
+        monkeypatch.setattr(tproto, "make_endpoint_core", PyEndpointCore)
+    return request.param
+
+
+def _assert_cores(session, kind):
+    """Every core of a port ``P2PSession`` is the requested kind."""
+    native = kind == "native"
+    layer = session._sync_layer
+    assert isinstance(layer._native, tsync._NativeSyncCore) if native else layer._native is None
+    assert bool(layer.input_queues) is not native
+    eps = list(session._player_reg.remotes.values()) + list(session._player_reg.spectators.values())
+    assert eps and all(
+        isinstance(ep._core, NativeEndpointCore if native else PyEndpointCore) for ep in eps
+    )
+
+
 @pytest.mark.parametrize("case", sorted(PARITY_CASES))
-def test_p2p_pair_matches_jax(case):
+def test_p2p_pair_matches_jax(case, port_core):
     kw = PARITY_CASES[case]
     runs = {}
     for pkg in ("jax", "port"):
@@ -198,6 +229,8 @@ def test_p2p_pair_matches_jax(case):
         _play(peers, 160, tick)
         runs[pkg] = peers, wire
     (jpeers, jwire), (tpeers, twire) = runs["jax"], runs["port"]
+    for p in tpeers:
+        _assert_cores(p.session, port_core)
     assert twire == jwire
     for jp, tp in zip(jpeers, tpeers):
         assert tp.requests == jp.requests
@@ -375,8 +408,10 @@ def _udp_settle(peers, sockets):
 
 
 @pytest.mark.parametrize("transport", ["bridge", "udp"])
-def test_jax_peer_and_port_peer_never_desync(transport):
+def test_jax_peer_and_port_peer_never_desync(transport, port_core):
     peers, tick, sockets = _mixed_pair(transport)
+    _assert_cores(peers[1].session, port_core)
+    assert peers[0].session._sync_layer._native is not None
     try:
         for i in range(300 + DRAIN):
             for p in peers:

@@ -1,7 +1,7 @@
 """The port's BatchedRequestExecutor against the JAX package's, on the CPU.
 
-Mirrors ``tests/test_session_pool.py`` (all but the mesh-sharded case, whose
-``mesh=`` is not ported): a pool of B sessions fulfilled by ONE
+Mirrors ``tests/test_session_pool.py`` (all but the mesh-sharded case, which
+``tests/test_torch_mesh.py`` holds): a pool of B sessions fulfilled by ONE
 ``BatchedRequestExecutor`` must be bit-identical to the same B sessions each
 fulfilled by its own ``DeviceRequestExecutor``.  Then the cross-package
 drive: the same seeded matches through the JAX pool and the port's pool, per
