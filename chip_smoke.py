@@ -9,9 +9,10 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
 
 1. build -- compile the CUDA kernels from ``ggrs_tpu_torch/csrc`` with nvcc
    (all sources at once) and report the build seconds and ptxas summary;
-   beside them, g++ builds the host library of the native cores from
-   ``native/codec.cpp``, ``endpoint.cpp`` and ``sync_core.cpp`` (its
-   seconds are reported too).
+   beside them, g++ builds the host library from the five sources of
+   ``native/`` (``codec.cpp``, ``endpoint.cpp``, ``sync_core.cpp``,
+   ``session_bank.cpp`` and ``net_batch.cpp``, one shared object: the bank
+   calls the others' entry points; its seconds are reported too).
 2. kernel -- the digest kernel against its plain PyTorch version on the
    card, bitwise, at every shape the port uses: through ``lane_sums_rows``
    (raw lanes of a word matrix) and through ``state_digest`` (whole batches
@@ -141,6 +142,27 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    checkpoint saved from the mesh resumed unsharded, equal to the
    uninterrupted run.  ms per tick of each leg.  Phase 2 holds the digest
    at the 256-session shard's shapes too.
+16. bank -- the host session bank: ``bench.py``'s match population
+   (two-peer BoxGame matches, no desync detection) over phase 7's seeded
+   faults, one network per match, on a fake 16 ms clock, fulfilled by one
+   ``BatchedRequestExecutor`` with checksums on, through (a) ``HostedPool``
+   on the native bank (one ``stage_inputs`` crossing, one ``ggrs_bank_tick``
+   crossing, the RequestPlan's columns into the masked tick), (b) the same
+   under ``GGRS_TPU_NO_FASTPATH=1``, (c) under ``GGRS_TPU_NO_NATIVE=1`` (the
+   pool's Python fallback), (d) per-session ``P2PSession``s into one
+   ``run(lists)``, and (e) leg (a) on the CPU; 64 sessions for 180 ticks and
+   512 for 24.  All legs bitwise equal (live states, each session's last
+   ring checksum, frames, per-session request lists and each socket's sent
+   bytes, as digests), exactly one crossing a tick, the whole tick under the
+   sync debug mode "error", quiet and resim rows both taken, digest launches
+   equal to the descriptors' count.  Host ms a tick split into staging,
+   ``advance_all`` and ``run`` for legs (a) and (d), kernels, busy and idle
+   share (the last 8 ticks' fulfilment alone under the profiler), the quiet
+   share.  Then the fault leg: one slot of the 64-session bank faults at
+   tick 60, is quarantined and evicted, its next list leads with the
+   adoption ``LoadGameState``, the other matches' sessions stay bitwise
+   equal to leg (a), and the faulted match's peers hold equal states at
+   their common confirmed frame.
 
 Then the seconds each phase took, one ``{"kernels": [...]}`` line, the
 card's name and power limit as nvidia-smi prints them, and, last,
@@ -151,6 +173,7 @@ Exits non-zero with no result when CUDA is not available.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import math
 import os
@@ -199,6 +222,8 @@ from ggrs_tpu_torch import (
     BatchedRepeatLast,
     Config,
     DevicePredictionPlane,
+    HostedPool,
+    HostSessionPool,
     make_distributed_mesh,
     make_mesh,
     make_mesh2d,
@@ -266,6 +291,12 @@ PLANE_PROFILED = 4
 # 16,384 sessions for a shortened run
 MESH_SIZES = ((256, 20), (BATCH, 12))
 MESH_CORRUPT_SESSION = 200
+# phase 16: the host bank legs (see drive_bank), phase 12's sizes
+BANK_LEGS = ("bank", "nofastpath", "fallback", "sessions")
+BANK_ENV = {"bank": {}, "nofastpath": {"GGRS_TPU_NO_FASTPATH": "1"},
+            "fallback": {"GGRS_TPU_NO_NATIVE": "1"}, "sessions": {}}
+BANK_FAULT_TICK, BANK_FAULT_SLOT = 60, 6
+BANK_PROFILED = 8
 
 
 class SmokeFailure(Exception):
@@ -2049,6 +2080,320 @@ def phase_mesh() -> int:
     return total
 
 
+# -- phase 16: the host session bank ------------------------------------------
+
+
+class DigestSocket:
+    """A ``FakeSocket`` whose sent datagrams fold into one sha256, through
+    whichever send entry the session or the pool uses."""
+
+    def __init__(self, inner) -> None:
+        self.inner = inner
+        self.digest = hashlib.sha256()
+
+    def _note(self, data, addr) -> None:
+        data = bytes(data)
+        self.digest.update(f"{addr}|{len(data)}|".encode())
+        self.digest.update(data)
+
+    def send_to(self, msg, addr) -> None:
+        self._note(msg.encode(), addr)
+        self.inner.send_to(msg, addr)
+
+    def send_datagram(self, data, addr) -> None:
+        self._note(data, addr)
+        self.inner.send_datagram(data, addr)
+
+    def send_datagram_batch(self, items) -> None:
+        for data, addr in items:
+            self._note(data, addr)
+        self.inner.send_datagram_batch(items)
+
+    def receive_all_datagrams(self):
+        return self.inner.receive_all_datagrams()
+
+    def receive_all_messages(self):
+        return self.inner.receive_all_messages()
+
+
+@contextlib.contextmanager
+def env_set(values: dict):
+    """The environment with ``values`` set, restored afterwards."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def no_device_reads(card: bool):
+    """On the card: the sync debug mode "error", so a device->host read
+    fails the run."""
+    if card:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        if card:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+def bank_raw_inputs(blobs: np.ndarray, statuses: np.ndarray) -> np.ndarray:
+    """``raw_inputs_to_array`` of ``boxgame_config()``: one byte per player."""
+    return blobs[:, :, 0]
+
+
+def drive_bank(n_matches: int, ticks: int, device, leg: str, fault: bool = False,
+               profiled_ticks: int = 0) -> dict:
+    """``bench.py``'s match population (``_match_population``: two-peer
+    BoxGame matches, rng seeds 3 + 5m + me, its input schedule, no desync
+    detection) over phase 7's seeded faults (one network per match) on a
+    fake 16 ms clock, every
+    session fulfilled by one ``BatchedRequestExecutor`` (ring 10, max_burst
+    9, checksums on) on ``device``.  ``leg``: "bank" is ``HostedPool`` on the
+    native bank, "nofastpath" the same under ``GGRS_TPU_NO_FASTPATH=1``,
+    "fallback" under ``GGRS_TPU_NO_NATIVE=1`` (the pool's Python fallback),
+    "sessions" per-session ``P2PSession``s into one ``run(lists)``.  On the
+    card the whole tick runs under the sync debug mode "error"; the last
+    ``profiled_ticks`` ticks' fulfilment runs alone under the profiler and
+    is left out of the host times.  ``fault`` injects a slot error into
+    ``BANK_FAULT_SLOT`` at ``BANK_FAULT_TICK``."""
+    clock = [0]
+    socks, builders, nets = [], [], []
+    for m in range(n_matches):
+        # one network per match (phase 7's faults, seeded per match), so
+        # that no fault stream couples two matches and the fault leg's
+        # other matches stay comparable with the fault-free run
+        net = InMemoryNetwork(**{**P2P_NET, "seed": P2P_NET["seed"] + m})
+        nets.append(net)
+        names = (f"A{m}", f"B{m}")
+        for me in (0, 1):
+            socks.append(DigestSocket(net.socket(names[me])))
+            builders.append(SessionBuilder(boxgame_config()).with_clock(lambda: clock[0])
+                            .with_rng(random.Random(3 + 5 * m + me))
+                            .add_player(Local(), me).add_player(Remote(names[1 - me]), 1 - me))
+    B = len(socks)
+    game = BoxGame(2)
+    ex = BatchedRequestExecutor(game.advance, game.init_state_np(), executor_inputs,
+                                batch_size=B, ring_length=POOL_RING, max_burst=POOL_MAX_BURST,
+                                device=device, raw_inputs_to_array=bank_raw_inputs)
+    ex.warmup(np.zeros(2, np.uint8))
+    card = ex.device.type == "cuda"
+    predicted = 0
+    real_tick = ex._tick
+
+    def tick_counted(desc):
+        nonlocal predicted
+        predicted += pool_predicted(desc)
+        return real_tick(desc)
+
+    ex._tick = tick_counted
+    host = sessions = None
+    if leg == "sessions":
+        sessions = [b.start_p2p_session(s) for b, s in zip(builders, socks)]
+    else:
+        host = HostSessionPool()
+        for b, s in zip(builders, socks):
+            host.add_session(b, s)
+        with env_set(BANK_ENV[leg]):
+            native = host.native_active  # finalized at clock 0, as the sessions start
+        check(native == (leg in ("bank", "nofastpath")), f"bank {leg}: native_active {native}")
+        hosted = HostedPool(host, ex)
+    summaries = [hashlib.sha256() for _ in range(B)]
+    rows = {"quiet": 0, "resim": 0, "save_only": 0, "eager": 0}
+    host_s = {"stage": 0.0, "advance": 0.0, "run": 0.0}
+    counting = [True]
+    last_reqs = [None]
+
+    def timed_call(key, fn):
+        def call(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            if counting[0]:
+                host_s[key] += time.perf_counter() - t0
+            return out
+        return call
+
+    run = timed_call("run", ex.run)
+    if host is not None:
+        # HostedPool.tick calls these three: each timed where it runs
+        host.stage_inputs = timed_call("stage", host.stage_inputs)
+        advance_all = host.advance_all
+
+        def keep(reqs):
+            last_reqs[0] = reqs
+            return reqs
+
+        host.advance_all = timed_call("advance", lambda: keep(advance_all()))
+        ex.run = run
+    prof, evicted_lead, crossings_ok = [], None, True
+    timed = ticks - (profiled_ticks if card else 0)
+    state_digest.launches = lane_sums_rows.launches = 0
+    for i in range(ticks):
+        clock[0] += 16
+        items = [(b, b % 2, pool_sched(b // 2, b % 2, i)) for b in range(B)]
+        if fault and i == BANK_FAULT_TICK:
+            host.inject_slot_error(BANK_FAULT_SLOT)
+        counting[0] = i < timed
+        with no_device_reads(card):
+            if host is None:
+                timed_call("stage", lambda: [sessions[b].add_local_input(h, v)
+                                             for b, h, v in items])()
+                reqs = timed_call("advance", lambda: [s.advance_frame() for s in sessions])()
+                if i < timed:
+                    run(reqs)
+            elif i < timed:
+                hosted.tick(items)
+                reqs = last_reqs[0]
+            else:
+                host.stage_inputs(items)
+                reqs = host.advance_all()
+        if i >= timed:
+            prof.append(profile_device(lambda: guarded_run(ex.run, reqs, card), 1))
+        if host is not None:
+            crossings_ok &= host.crossings == (i + 1 if native else 0)
+            plan = host._plan
+            if plan is not None:
+                rows["quiet"] += int(plan.quiet_rows.size)
+                rows["resim"] += len(plan.resim_rows)
+                rows["save_only"] += len(plan.save_only_rows)
+                rows["eager"] += len(plan.eager_rows)
+            if fault and evicted_lead is None and host.slot_state(BANK_FAULT_SLOT) == "evicted":
+                evicted_lead = request_summary(reqs[BANK_FAULT_SLOT])[:1]
+        for b in range(B):
+            summaries[b].update(repr(request_summary(reqs[b])).encode())
+        for net in nets:
+            net.tick()
+    ex.block_until_ready()
+    launches = state_digest.launches
+    states = [ex.live_state(b) for b in range(B)]
+    last = [int(f) for f in ex._host_frames.max(axis=1)]
+    kernels = busy = None
+    if prof:
+        kernels = sum(r["kernels"] for r in prof) / len(prof)
+        busy = sum(r["busy_us"] for r in prof) / len(prof) / 1e3
+    host_ms = {k: v / timed * 1e3 for k, v in host_s.items()}
+    tick_ms = sum(host_ms.values())
+    frames = [s.current_frame for s in sessions] if host is None else \
+        [host.current_frame(b) for b in range(B)]
+    confirmed = [s._sync_layer.last_confirmed_frame for s in sessions] if host is None else \
+        [host.last_confirmed_frame(b) for b in range(B)]
+    return {
+        "leg": leg, "launches": launches, "around": lane_sums_rows.launches,
+        "predicted": predicted, "states": states, "frames": frames, "confirmed": confirmed,
+        "last_checksums": [ex.ring_checksum(b, f) for b, f in enumerate(last)],
+        "summaries": [h.hexdigest() for h in summaries],
+        "sent": [s.digest.hexdigest() for s in socks], "rows": rows,
+        "crossings": None if host is None else host.crossings,
+        "harvests": None if host is None else host.harvests,
+        "crossings_one_per_tick": crossings_ok,
+        "slot_states": None if host is None else [host.slot_state(b) for b in range(B)],
+        "transitions": None if host is None else host.drain_state_transitions(),
+        "evicted_lead": evicted_lead, "executor": ex,
+        "host_ms": host_ms, "host_ms_per_tick": tick_ms,
+        "kernels_per_tick": kernels, "device_busy_ms_per_tick": busy,
+        "idle_share": None if busy is None else 1 - busy / tick_ms,
+        "quiet_share": rows["quiet"] / (B * ticks),
+    }
+
+
+BANK_KEYS = ("states", "frames", "last_checksums", "summaries", "sent")
+
+
+def bank_equal(a: dict, b: dict, sessions=None) -> list:
+    """The keys on which two legs differ, over ``sessions`` (all by default)."""
+    idx = range(len(a["frames"])) if sessions is None else sessions
+    bad = []
+    for k in BANK_KEYS:
+        same = all(trees_equal(a[k][i], b[k][i]) if k == "states" else a[k][i] == b[k][i]
+                   for i in idx)
+        if not same:
+            bad.append(k)
+    return bad
+
+
+def phase_bank() -> int:
+    """Phase 16: ``HostedPool`` on the native bank against its reference
+    decoder, the pool's Python fallback, per-session sessions and a CPU
+    rerun, at 64 sessions for 180 ticks and 512 for 24; then the fault leg.
+    Returns the digest launches of the card's bank drives."""
+    out, launches = [], 0
+    for matches, ticks in ((POOL_MATCHES, POOL_TICKS), (POOL_BIG_MATCHES, POOL_BIG_TICKS)):
+        runs = {leg: drive_bank(matches, ticks, None, leg,
+                                profiled_ticks=BANK_PROFILED if leg in ("bank", "sessions") else 0)
+                for leg in BANK_LEGS}
+        runs["cpu"] = drive_bank(matches, ticks, "cpu", "bank")
+        a = runs["bank"]
+        for leg, run in runs.items():
+            bad = bank_equal(a, run)
+            check(not bad, f"bank {2 * matches}: leg {leg} differs from the bank on {bad}")
+            check(run["around"] == 0, f"bank {leg}: the digest went around state_digest")
+            if leg != "cpu":  # CPU tensors take the plain version: no launch
+                check(run["launches"] == run["predicted"],
+                      f"bank {leg}: {run['launches']} digest launches, "
+                      f"predicted {run['predicted']}")
+        check(a["crossings"] == ticks and a["crossings_one_per_tick"] and a["harvests"] == 0,
+              f"bank: {a['crossings']} ggrs_bank_tick crossings in {ticks} ticks")
+        check(runs["fallback"]["crossings"] == 0, "bank fallback: the pool crossed into the bank")
+        check(a["rows"]["quiet"] > 0 and a["rows"]["resim"] > 0,
+              f"bank: quiet and resim rows not both taken: {a['rows']}")
+        check(runs["nofastpath"]["rows"]["quiet"] == 0, "bank nofastpath: the plan was used")
+        launches += sum(runs[leg]["launches"] for leg in BANK_LEGS)
+        keys = ("host_ms", "host_ms_per_tick", "kernels_per_tick", "device_busy_ms_per_tick",
+                "idle_share", "quiet_share", "rows")
+        emit({"phase": "bank", "game": "BoxGame(2)", "sessions": 2 * matches, "ticks": ticks,
+              "network": P2P_NET, "with_checksums": True, "sync_debug_mode": "error",
+              "legs_bitwise_equal": sorted(runs), "crossings_per_tick": a["crossings"] / ticks,
+              "profiled_ticks": BANK_PROFILED,
+              "frames_min": min(a["frames"]), "confirmed_min": min(a["confirmed"]),
+              "bank": {k: a[k] for k in keys},
+              "sessions_leg": {k: runs["sessions"][k] for k in keys},
+              "nofastpath_host_ms_per_tick": runs["nofastpath"]["host_ms_per_tick"],
+              "fallback_host_ms_per_tick": runs["fallback"]["host_ms_per_tick"],
+              "digest_launches": {leg: runs[leg]["launches"] for leg in BANK_LEGS},
+              "digest_launches_predicted": a["predicted"],
+              "digest_launches_per_tick": a["launches"] / ticks})
+        out.append(a)
+    # the fault leg: one slot of the 64-session bank faults at tick 60
+    a = out[0]
+    f = drive_bank(POOL_MATCHES, POOL_TICKS, None, "bank", fault=True)
+    launches += f["launches"]
+    mate = BANK_FAULT_SLOT ^ 1
+    others = [b for b in range(2 * POOL_MATCHES) if b // 2 != BANK_FAULT_SLOT // 2]
+    states = f["slot_states"]
+    check(states[BANK_FAULT_SLOT] == "evicted", f"bank fault: slot ended {states[BANK_FAULT_SLOT]}")
+    check(all(states[b] == "native" for b in range(len(states)) if b != BANK_FAULT_SLOT),
+          "bank fault: another slot left the bank")
+    moves = [(old, new) for slot, old, new, _ in f["transitions"] if slot == BANK_FAULT_SLOT]
+    check(moves == [("native", "quarantined"), ("quarantined", "evicted")],
+          f"bank fault: transitions {moves}")
+    check(f["evicted_lead"] and f["evicted_lead"][0][0] == "LoadGameState",
+          f"bank fault: the evicted slot's list leads with {f['evicted_lead']}")
+    bad = bank_equal(a, f, others)
+    check(not bad, f"bank fault: the other matches' sessions differ on {bad}")
+    check(f["crossings"] == POOL_TICKS and f["harvests"] == 1,
+          f"bank fault: {f['crossings']} crossings, {f['harvests']} harvests")
+    check(f["launches"] == f["predicted"], "bank fault: digest launches != predicted")
+    ex = f["executor"]
+    common = min(f["confirmed"][BANK_FAULT_SLOT], f["confirmed"][mate])
+    check(common > POOL_TICKS - 40, f"bank fault: the match stalled at {common}")
+    check(trees_equal(ex.ring_state(BANK_FAULT_SLOT, common), ex.ring_state(mate, common)),
+          f"bank fault: the faulted match's peers differ at frame {common}")
+    emit({"phase": "bank", "fault": "inject_slot_error", "slot": BANK_FAULT_SLOT,
+          "tick": BANK_FAULT_TICK, "sessions": 2 * POOL_MATCHES, "ticks": POOL_TICKS,
+          "transitions": moves, "evicted_list_leads_with": f["evicted_lead"][0][0],
+          "others_bitwise_equal_to_fault_free": len(others), "peers_equal_at_frame": common,
+          "crossings": f["crossings"], "harvests": f["harvests"],
+          "host_ms_per_tick": f["host_ms_per_tick"]})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs the card",
@@ -2081,6 +2426,7 @@ def main() -> int:
     native_launches = timed("native", phase_native, p2p_runs, pool_run)
     plane_launches = timed("plane", phase_plane)
     mesh_launches = timed("mesh", phase_mesh)
+    bank_launches = timed("bank", phase_bank)
     emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
     main_case = cases[MAIN_CASE]
     emit({"kernels": [{
@@ -2091,7 +2437,7 @@ def main() -> int:
         "launches_float": float_launches, "launches_journal": journal_launches,
         "launches_speculation": spec_launches, "launches_pool": pool_launches,
         "launches_native": native_launches, "launches_plane": plane_launches,
-        "launches_mesh": mesh_launches,
+        "launches_mesh": mesh_launches, "launches_bank": bank_launches,
         "max_abs_err": worst,
         "ms": main_case["device_us"] / 1e3, "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_us"] / 1e3, "bound_by": "bytes", "library_ms": None,

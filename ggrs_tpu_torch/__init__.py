@@ -88,7 +88,10 @@ from .net import FakeSocket, InMemoryNetwork, Message, NetworkStats, NonBlocking
 from .parallel import (
     BatchedRequestExecutor,
     BatchedSessions,
+    HostedPool,
+    HostSessionPool,
     Mesh,
+    RequestPlan,
     SpeculativeBranches,
     SpeculativeRollback,
     build_speculation_programs,
@@ -129,6 +132,8 @@ __all__ = [
     "FakeSocket",
     "GameStateCell",
     "GgrsError",
+    "HostSessionPool",
+    "HostedPool",
     "InMemoryNetwork",
     "InputStatus",
     "InvalidRequest",
@@ -148,6 +153,7 @@ __all__ = [
     "Remote",
     "ReplayPrograms",
     "ReplaySession",
+    "RequestPlan",
     "RtsCmd",
     "RtsCmdGame",
     "SaveGameState",

@@ -3,10 +3,13 @@ library.
 
 Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ``ctypes``.  The host
-library is the native host cores the JAX package also runs (the input codec
-and message framing, the endpoint datapath and the sync core), compiled by
-``g++`` from the repository's ``native/codec.cpp``, ``native/endpoint.cpp``
-and ``native/sync_core.cpp`` as they are.  Builds happen at first use into
+library is the native host code the JAX package also runs (the input codec
+and message framing, the endpoint datapath, the sync core, the session bank
+and the batched socket datapath), compiled by ``g++`` from the repository's
+``native/codec.cpp``, ``endpoint.cpp``, ``sync_core.cpp``,
+``session_bank.cpp`` and ``net_batch.cpp`` as they are, into ONE library:
+the bank calls the endpoint, sync-core and socket entry points of the same
+shared object.  Builds happen at first use into
 ``_build/`` beside this file (listed in ``.gitignore``); each library's file
 name carries a hash of every source and header it is built from and of the
 flags, so an edited source is rebuilt and never mixed up with an old
@@ -43,9 +46,11 @@ NVCC_FLAGS = (
 
 _NVCC_TIMEOUT_S = 600
 
-# the host library: the codec, endpoint and sync-core translation units of
-# native/ (the session bank and the batched socket datapath are not built)
-HOST_SOURCES = tuple(NATIVE_DIR / n for n in ("codec.cpp", "endpoint.cpp", "sync_core.cpp"))
+# the host library: every translation unit of native/ in one shared object
+HOST_SOURCES = tuple(
+    NATIVE_DIR / n
+    for n in ("codec.cpp", "endpoint.cpp", "sync_core.cpp", "session_bank.cpp", "net_batch.cpp")
+)
 HOST_HEADERS = (NATIVE_DIR / "wire_common.h",)
 HOST_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 HOST = "host"

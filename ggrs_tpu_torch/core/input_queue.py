@@ -7,9 +7,10 @@ grows, dropping when it shrinks), prediction through the config's
 predictor, and the first-incorrect-frame bookkeeping that drives rollbacks.
 A queue bound to a ``predict.DevicePredictionPlane`` asks the plane's
 batched table first when it enters prediction mode, and the config's scalar
-predictor when the plane declines; both give the same value.  The host
-bank's ``seed`` and the mispredict counters other than ``plane_mispredicts``
-are not ported yet.
+predictor when the plane declines; both give the same value.  ``seed``
+fast-forwards a fresh queue to a mid-stream position (the host bank's
+eviction seam), and the mispredict counters feed the pool's prediction
+metrics.
 """
 
 from __future__ import annotations
@@ -54,8 +55,12 @@ class InputQueue(Generic[I]):
         self._plane_slot = 0
         self._plane_player = 0
         self._prediction_via_plane = False
-        # rollback episodes whose wrong prediction came from the plane
+        # prediction accuracy: one mispredict per rollback episode (the
+        # first_incorrect transition), those whose wrong value came from the
+        # plane, and the frames each episode re-simulates
+        self.mispredicts = 0
         self.plane_mispredicts = 0
+        self.mispredict_depth_frames = 0
 
     # -- bookkeeping -------------------------------------------------------
 
@@ -192,8 +197,15 @@ class InputQueue(Generic[I]):
             # record the first incorrect prediction so the session can roll back
             if self.first_incorrect_frame == NULL_FRAME and not prediction_matches:
                 self.first_incorrect_frame = frame_number
+                self.mispredicts += 1
                 if self._prediction_via_plane:
                     self.plane_mispredicts += 1
+                if self.last_requested_frame != NULL_FRAME:
+                    # frames simulated past the wrong input: the rollback
+                    # depth this mispredict just caused
+                    self.mispredict_depth_frames += max(
+                        0, self.last_requested_frame - frame_number + 1
+                    )
 
             # exit prediction mode once reality has caught up with the last
             # frame the session asked for, but only if nothing was wrong
@@ -228,6 +240,30 @@ class InputQueue(Generic[I]):
         prev_pos = (self.head - 1) % INPUT_QUEUE_LENGTH
         assert input_frame == 0 or input_frame == self._inputs[prev_pos].frame + 1
         return input_frame
+
+    # -- adoption (the host bank's eviction seam) ---------------------------
+
+    def seed(self, start: Frame, inputs: List[I]) -> None:
+        """Populate an EMPTY queue with consecutive confirmed inputs for
+        frames ``[start, start + len(inputs))``, the Python twin of the
+        native sync core's ``ggrs_sync_seed``.  Slots land at
+        ``frame % INPUT_QUEUE_LENGTH``, the addressing that sequential
+        insertion from frame 0 establishes (``confirmed_input`` addresses by
+        frame while ``input`` walks from the tail)."""
+        assert self.last_added_frame == NULL_FRAME and self.length == 0, (
+            "seed() requires a fresh queue"
+        )
+        assert start >= 0 and len(inputs) <= INPUT_QUEUE_LENGTH
+        if not inputs:
+            return
+        for i, value in enumerate(inputs):
+            frame = start + i
+            self._inputs[frame % INPUT_QUEUE_LENGTH] = PlayerInput(frame, value)
+        self.tail = start % INPUT_QUEUE_LENGTH
+        self.head = (start + len(inputs)) % INPUT_QUEUE_LENGTH
+        self.length = len(inputs)
+        self.first_frame = False
+        self.last_added_frame = start + len(inputs) - 1
 
     # -- discard -------------------------------------------------------------
 

@@ -409,6 +409,56 @@ class SyncLayer(Generic[I, S]):
                 inputs.append(self.input_queues[i].confirmed_input(frame))
         return inputs
 
+    # -- adoption (the host bank's eviction seam) ----------------------------
+
+    def adopt_resume_state(
+        self,
+        current_frame: Frame,
+        last_confirmed: Frame,
+        saved_states: SavedStates[S],
+        player_inputs: Sequence[Tuple[Frame, List[bytes]]],
+    ) -> None:
+        """Fast-forward a FRESH sync layer to a mid-stream position: a
+        faulted native-bank slot resumes as a Python session from its last
+        committed frame.
+
+        ``player_inputs[p]`` is ``(start_frame, encoded_blobs)``: the
+        consecutive confirmed inputs the bank harvest recovered for player
+        ``p`` (fixed-size ``Config`` encoding, frames ``start ..
+        start+len-1``).  ``saved_states`` is adopted by reference, so the
+        resumed session's rollback cells are the ones the game already
+        fulfilled."""
+        assert self._current_frame == 0 and self._last_confirmed_frame == (
+            NULL_FRAME
+        ), "adopt_resume_state() requires a fresh sync layer"
+        self.saved_states = saved_states
+        self._current_frame = current_frame
+        cell = saved_states.get_cell(current_frame) if current_frame >= 0 else None
+        self._last_saved_frame = (
+            current_frame if cell is not None and cell.frame == current_frame
+            else NULL_FRAME
+        )
+        if self._native is not None:
+            lib = self._native._lib
+            for p, (start, blobs) in enumerate(player_inputs):
+                if not blobs:
+                    continue
+                rc = lib.ggrs_sync_seed(
+                    self._native._ptr, p, start, len(blobs), b"".join(blobs)
+                )
+                if rc != 0:
+                    raise RuntimeError(f"ggrs_sync_seed failed: {rc}")
+            if last_confirmed != NULL_FRAME:
+                self._native.set_last_confirmed(last_confirmed)
+        else:
+            decode = self._config.input_decode
+            for p, (start, blobs) in enumerate(player_inputs):
+                if not blobs:
+                    continue  # nothing harvested (start is NULL_FRAME)
+                self.input_queues[p].seed(start, [decode(b) for b in blobs])
+            # no discard pass: the harvest already starts at the watermark
+        self._last_confirmed_frame = last_confirmed
+
     # -- confirmation / consistency ------------------------------------------
 
     def set_last_confirmed_frame(self, frame: Frame, sparse_saving: bool) -> None:

@@ -1,9 +1,13 @@
-"""ctypes bindings of the native host cores: the input codec and message
+"""ctypes bindings of the native host code: the input codec and message
 framing (``native/codec.cpp``), the endpoint datapath
-(``native/endpoint.cpp``) and the sync core (``native/sync_core.cpp``).
+(``native/endpoint.cpp``), the sync core (``native/sync_core.cpp``), the
+session bank (``native/session_bank.cpp``) and the batched send table of the
+socket datapath (``native/net_batch.cpp``).
 
-The port's own copy of the codec, message, endpoint and sync bindings of
-``ggrs_tpu/net/_native.py``.  The sources are the repository's
+The port's own copy of the codec, message, endpoint, sync, bank and
+send-table bindings of ``ggrs_tpu/net/_native.py``, with the packed-table
+layouts the bank speaks (``BANK_HDR_FIELDS``, ``BANK_REQ_FIELDS``,
+``BANK_STAGE_FIELDS``, ``NET_SEND_FIELDS``).  The sources are the repository's
 ``native/*.cpp``, compiled as they are into one host library by
 ``_build.build_host`` at first use (``g++``, into ``ggrs_tpu_torch/_build/``).
 A failed build raises: nothing here quietly serves the Python codec or cores
@@ -115,6 +119,121 @@ SYNC_ERR_CONFIRM_PAST_INCORRECT = -44
 SYNC_ERR_BAD_ARGS = -45
 SYNC_ERR_QUEUE_FULL = -46  # kSyncErrQueueFull: 128-slot ring exhausted
 
+# session-bank return codes (mirror native/session_bank.cpp; the buffer
+# code is wire_common.h's kErrBufferTooSmall, shared with the codec)
+BANK_ERR_BUFFER_TOO_SMALL = -11
+BANK_OK = 0
+BANK_ERR_CMD = -60
+BANK_ERR_LANDED_SPLIT = -70
+BANK_ERR_SYNC = -71
+BANK_ERR_SYNC_INPUTS = -72
+BANK_ERR_CONFIRM = -73
+BANK_ERR_NO_PLAYERS = -74
+BANK_ERR_SEQUENCE = -75
+BANK_ERR_INJECTED = -76  # chaos-harness simulated slot fault (ctrl op 2)
+BANK_ERR_SPEC_STREAM = -77  # confirmed-input fan-out / journal tap failed
+BANK_ERR_IO = -78  # batched socket I/O failed fatally (per-slot fault)
+
+# net_batch.cpp return codes
+NET_OK = 0
+NET_ERR_UNSUPPORTED = -80
+NET_ERR_FATAL = -81
+NET_ERR_BAD_ARGS = -82
+
+# endpoint-core observability counter order (ggrs_ep_stats; also the
+# per-endpoint tail of each ggrs_bank_stats record)
+EP_STAT_FIELDS = (
+    "emits", "emit_bytes", "acks", "datagrams", "new_frames", "drops",
+    "fallbacks",
+)
+# per-session command-stream flag byte (session_bank.cpp kFlag*): bit 0 =
+# local inputs present (advance runs), bit 1 = skip (slot quarantined or
+# evicted, no further fields follow), bit 2 = staged (inputs were staged
+# natively through ggrs_bank_stage_inputs: no inline input bytes follow)
+CMD_FLAG_INPUTS = 1
+CMD_FLAG_SKIP = 2
+CMD_FLAG_STAGED = 4
+
+# Batched input staging record (ggrs_bank_stage_inputs): one fixed-stride
+# descriptor per staged input, jumping into a shared payload blob.  `frame`
+# is reserved (NULL_FRAME: "this tick"); `len` must equal the slot's
+# input size.
+BANK_STAGE_FIELDS = (
+    ("slot", "<u4"), ("handle", "<i4"), ("frame", "<i8"),
+    ("off", "<u4"), ("len", "<u4"),
+)  # itemsize 24 == ggrs_bank_stage_stride()
+BANK_STAGE_STRIDE = 24
+
+# Per-slot request descriptor record (the SECOND fixed-stride table of
+# every tick output, after the header table): the tick's request program as
+# flat data, so the pool's decode and BatchedRequestExecutor's dispatch read
+# numpy columns instead of parsing op bytes per slot.
+BANK_REQ_FIELDS = (
+    ("pattern", "<u1"), ("rflags", "<u1"), ("n_adv", "<u2"),
+    ("adv_off", "<u4"), ("adv_stride", "<u4"), ("ops_end", "<u4"),
+    ("frame", "<i8"),
+)  # itemsize 24 == ggrs_bank_req_stride()
+BANK_REQ_STRIDE = 24
+REQ_OTHER = 0       # unclassified shape: use the generic op decoder
+REQ_QUIET = 1       # ops are exactly [save frame, advance]
+REQ_RESIM = 2       # [load frame, adv, (save, adv)*, save] (+ trailing adv)
+REQ_SAVE_ONLY = 3   # [save frame]: the prediction-limit tick
+REQ_EMPTY = 4       # no ops (skip / faulted records)
+REQ_FLAG_TRAILING_ADV = 1  # the tick's last op was an advance ("advanced")
+
+# Batched outbound send record (net_batch.cpp ggrs_net_send_table): per
+# datagram fd + wire address + a jump into the shared payload (usually the
+# tick output buffer itself).  Records for one fd form one contiguous run.
+NET_SEND_FIELDS = (
+    ("fd", "<i4"), ("ip", "<u4"), ("port", "<u2"), ("flags", "<u2"),
+    ("off", "<u4"), ("len", "<u4"),
+)  # itemsize 20 == net_batch.cpp kSendStride
+NET_SEND_STRIDE = 20
+# ggrs_net_send_table stats words: {sent, transient_errors, oversized,
+# gso_sends, gso_segments}
+NET_SEND_STATS = 5
+
+# packed per-tick output header (session_bank.cpp kHdr*): one record per
+# session leads the tick output.  The pool classifies all B slots from this
+# table; slots with no event, spectator, consensus or status-mirror activity
+# take the fast path.
+BANK_HDR_LIVE = 1        # stepped this tick and err == 0
+BANK_HDR_QUIET = 2       # ops are exactly [save, advance]
+BANK_HDR_EVENTS = 4      # protocol events present
+BANK_HDR_SPEC = 8        # spectator endpoints / streams / events present
+BANK_HDR_CONSENSUS = 16  # disconnect consensus pending
+BANK_HDR_DIRTY = 32      # a status mirror changed this tick
+BANK_HDR_OUT = 64        # outbound datagram sections non-empty
+BANK_HDR_SKIP = 128      # status-only record (slot was skipped)
+BANK_HDR_CONF = 256      # journal-tap confirmed records present
+BANK_HDR_FIELDS = (
+    ("flags", "<u4"), ("rec_len", "<u4"), ("err", "<i4"), ("fa", "<i4"),
+    ("landed", "<i8"), ("current", "<i8"), ("confirmed", "<i8"),
+    ("save_frame", "<i8"),
+)  # itemsize 48 == ggrs_bank_hdr_stride()
+
+# in-crossing phase order (session_bank.cpp BankPhase; the timing tails of
+# the tick and stats outputs carry one u64 of nanoseconds per entry, in this
+# order, with the count byte last).  "staging" accrues OUTSIDE the tick
+# window (the ggrs_bank_stage_inputs crossings since the last tick).
+BANK_PHASES = (
+    "inbound", "timers", "commit", "rollback", "outbound", "fanout",
+    "emit", "other", "staging",
+)
+
+BANK_ERR_NAMES = {
+    BANK_ERR_CMD: "malformed command stream",
+    BANK_ERR_LANDED_SPLIT: "local inputs landed on different frames",
+    BANK_ERR_SYNC: "sync-core operation failed",
+    BANK_ERR_SYNC_INPUTS: "synchronized-input assembly failed",
+    BANK_ERR_CONFIRM: "confirmed-frame watermark invariant broken",
+    BANK_ERR_NO_PLAYERS: "every player disconnected",
+    BANK_ERR_SEQUENCE: "remote input frame out of sequence",
+    BANK_ERR_INJECTED: "injected fault (chaos harness)",
+    BANK_ERR_SPEC_STREAM: "confirmed-input fan-out failed",
+    BANK_ERR_IO: "batched socket I/O failed fatally",
+}
+
 _TAG_INPUT = 0
 _TAG_INPUT_ACK = 1
 _TAG_QUALITY_REPORT = 2
@@ -183,6 +302,26 @@ def _bind(lib: ctypes.CDLL) -> None:
     _sig(lib.ggrs_sync_confirmed_input, cint, vp, cint, i64, cp)
     _sig(lib.ggrs_sync_seed, cint, vp, cint, i64, ctypes.c_int32, cp)
     _sig(lib.ggrs_sync_tail_frame, i64, vp, cint)
+    # ---- session bank (native/session_bank.cpp) ----
+    i32_p = ctypes.POINTER(ctypes.c_int32)
+    _sig(lib.ggrs_bank_new, vp)
+    _sig(lib.ggrs_bank_free, None, vp)
+    _sig(lib.ggrs_bank_add_session, i64, vp, cint, cint, cint, cint, i64, i64, i32_p, cint, cint)
+    _sig(lib.ggrs_bank_add_endpoint, i64, vp, i64, ctypes.c_uint16, i32_p, cint, i64)
+    _sig(lib.ggrs_bank_tick, cint, vp, i64, cp, sz, cp, sz, c_size_p)
+    _sig(lib.ggrs_bank_fetch_out, cint, vp, cp, sz, c_size_p)
+    _sig(lib.ggrs_bank_session_count, i64, vp)
+    _sig(lib.ggrs_bank_harvest, cint, vp, i64, cp, sz, c_size_p)
+    _sig(lib.ggrs_bank_stats, cint, vp, cp, sz, c_size_p)
+    _sig(lib.ggrs_bank_set_timing, cint, vp, cint)
+    _sig(lib.ggrs_bank_hdr_stride, cint)
+    _sig(lib.ggrs_bank_req_stride, cint)
+    _sig(lib.ggrs_bank_stage_stride, cint)
+    _sig(lib.ggrs_bank_stage_inputs, i64, vp, vp, i64, cp, sz)
+    # ---- the one-shot batched send table (native/net_batch.cpp) ----
+    _sig(lib.ggrs_net_supported, cint)
+    _sig(lib.ggrs_net_send_table, cint, vp, i64, cp, sz,
+         ctypes.POINTER(ctypes.c_uint64), i32_p, cint)
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -204,6 +343,12 @@ def _load() -> Optional[ctypes.CDLL]:
 
 def available() -> bool:
     return _load() is not None
+
+
+def bank_lib() -> Optional[ctypes.CDLL]:
+    """The loaded library for ``parallel.HostSessionPool``'s native bank, or
+    None (the caller asked for the per-session Python sessions)."""
+    return _load()
 
 
 def endpoint_lib() -> Optional[ctypes.CDLL]:

@@ -92,6 +92,10 @@ PENDING_OUTPUT_SIZE = 128
 # watermark, advancing the base right back.
 REWIND_ACK_THRESHOLD = 3
 REWIND_RING_FRAMES = 512
+# rate limit for re-acking the true receive watermark on undecodable input
+# packets (the other half of the seam: an adopted endpoint tells the peer
+# where its ring actually ends)
+NACK_INTERVAL_MS = 50
 RUNNING_RETRY_INTERVAL_MS = 200
 KEEP_ALIVE_INTERVAL_MS = 200
 QUALITY_REPORT_INTERVAL_MS = 200
@@ -323,6 +327,12 @@ class PeerProtocol(Generic[I, A]):
         self._sent_tip: Frame = NULL_FRAME
         self._regress_ack: Optional[Frame] = None
         self._regress_count = 0
+        self._last_nack_time = now - NACK_INTERVAL_MS
+        # nacking undecodable inputs is ADOPTION-ONLY: a fresh endpoint's
+        # drops are malformed or hostile packets whose pinned semantic is
+        # silence (the native bank drops them silently: wire parity); only
+        # a mid-stream resume can create the missing-base case the nack is for
+        self._nack_on_drop = False
 
         self._time_sync = TimeSync()
         self.local_frame_advantage = 0
@@ -700,6 +710,7 @@ class PeerProtocol(Generic[I, A]):
         # the gap, protocol.rs:588-590; we drop instead of crashing).
         staged = self._core.on_input(body.start_frame, body.bytes)
         if staged is None:
+            self._nack_current()
             return
         self._finish_input(staged)
 
@@ -797,6 +808,70 @@ class PeerProtocol(Generic[I, A]):
                     ours.last_frame = last_frame
         if staged is not None:
             self._finish_input(staged)
+        else:
+            # an input packet whose base our ring lacks (or a gap): tell the
+            # peer where our ring actually ends
+            self._nack_current()
+
+    def _nack_current(self) -> None:
+        """An input packet arrived that cannot delta-decode against our
+        ring (the endpoint was adopted mid-stream and holds less than the
+        peer believes): re-ack the true receive watermark, rate-limited, so
+        the peer's regressive-ack detector rewinds its send base to us."""
+        if not self._nack_on_drop:
+            return  # fresh endpoint: silent drop is the pinned semantic
+        now = self._clock()
+        if now - self._last_nack_time < NACK_INTERVAL_MS:
+            return
+        self._last_nack_time = now
+        self._queue_raw(encode_input_ack(self.magic, self._last_recv_frame))
+
+    # -- adoption (the host bank's eviction seam) ----------------------------
+
+    def adopt_endpoint_state(
+        self,
+        *,
+        magic: int,
+        running: bool,
+        peer_connect_status: Sequence[Tuple[bool, Frame]],
+        last_recv_frame: Frame,
+        recv_entries: Sequence[Tuple[Frame, bytes]],
+        last_acked_frame: Frame,
+        send_base: bytes,
+        pending: Sequence[Tuple[Frame, bytes]],
+        pending_checksums: Optional[Dict[Frame, int]] = None,
+    ) -> None:
+        """Adopt a mid-stream endpoint's peer-visible state: a faulted
+        native-bank slot resumes as a Python session, and the peer must see a
+        retransmission hiccup, not a brand-new endpoint.
+
+        Adopted: the wire magic, the connect-status mirror, the un-acked
+        pending-output window with its delta base (the 200 ms retry timer
+        resends it, closing the peer's sequence gap), and the received-frame
+        ring in-flight packets delta-decode against.  NOT adopted: timers,
+        RTT and the time-sync windows; liveness restarts from ``now`` and the
+        advantage estimate re-converges within one FRAME_WINDOW."""
+        self.magic = magic
+        self._nack_on_drop = True
+        for ours, (disc, lf) in zip(self.peer_connect_status, peer_connect_status):
+            ours.disconnected = bool(disc)
+            ours.last_frame = lf
+        self._core.seed_recv(last_recv_frame, recv_entries)
+        self._last_recv_frame = last_recv_frame
+        self._core.seed_send(last_acked_frame, send_base)
+        if last_acked_frame != NULL_FRAME:
+            self._remember_sent(last_acked_frame, send_base)
+        for frame, payload in pending:
+            self._core.push_input(frame, payload)
+            self._remember_sent(frame, payload)
+        if pending_checksums:
+            self.pending_checksums = dict(pending_checksums)
+        if running:
+            # self-contained even for a sync_required endpoint: the adopted
+            # peer already proved itself live mid-match, so no re-handshake
+            self._state = _State.RUNNING
+        else:
+            self.disconnect()
 
     def _on_checksum_report(self, body: ChecksumReport) -> None:
         interval = self.desync_detection.interval if self.desync_detection.enabled else 1

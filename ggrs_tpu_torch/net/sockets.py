@@ -115,6 +115,11 @@ class UdpNonBlockingSocket:
     def bind_to_port(port: int) -> "UdpNonBlockingSocket":
         return UdpNonBlockingSocket(port)
 
+    def fileno(self) -> int:
+        """The bound fd: what the host bank's one-crossing send table
+        (``ggrs_net_send_table``) writes to."""
+        return self._sock.fileno()
+
     def local_port(self) -> int:
         return self._sock.getsockname()[1]
 
@@ -152,6 +157,16 @@ class UdpNonBlockingSocket:
             self.stats.send_errors += 1
             _OBS_SEND_ERRORS.inc()
             logger.debug("UDP send to %s failed transiently: %s", addr, e)
+
+    def send_datagram_batch(self, items: List[Tuple[bytes, Tuple[str, int]]]) -> None:
+        """Flush many raw datagrams in one call: the per-datagram semantics
+        are exactly ``send_datagram``'s (transient errnos count as loss and
+        the flush continues; anything else raises after the datagrams
+        already sent).  A host bank with the fd prefers the native send
+        table; this is the portable path."""
+        send = self.send_datagram
+        for data, addr in items:
+            send(bytes(data), addr)
 
     def receive_all_messages(self) -> List[Tuple[Tuple[str, int], Message]]:
         received: List[Tuple[Tuple[str, int], Message]] = []
@@ -310,6 +325,15 @@ class FakeSocket:
         """Raw sibling of ``send_to`` (same fault injection, no Message
         wrapper) — protocol parity with ``UdpNonBlockingSocket``."""
         self._network._send(self.addr, addr, bytes(data))
+
+    def send_datagram_batch(self, items) -> None:
+        """One call per tick flushing ``(data, addr)`` datagrams in order,
+        through the same fault injection per datagram, so the seeded fault
+        stream is identical to per-datagram sends."""
+        send = self._network._send
+        me = self.addr
+        for data, addr in items:
+            send(me, addr, bytes(data))
 
     def receive_all_messages(self) -> List[Tuple[Hashable, Message]]:
         return self._network._receive(self.addr)

@@ -7,7 +7,8 @@ from .batch import (
     make_mesh,
     make_mesh2d,
 )
-from .session_pool import BatchedRequestExecutor
+from .host_bank import HostSessionPool, RequestPlan
+from .session_pool import BatchedRequestExecutor, HostedPool
 from .spec_rollback import SpeculativeRollback
 from .speculation import SpeculativeBranches, build_speculation_programs
 
@@ -16,7 +17,10 @@ __all__ = [
     "SESSION_AXIS",
     "BatchedRequestExecutor",
     "BatchedSessions",
+    "HostSessionPool",
+    "HostedPool",
     "Mesh",
+    "RequestPlan",
     "SpeculativeBranches",
     "SpeculativeRollback",
     "build_speculation_programs",

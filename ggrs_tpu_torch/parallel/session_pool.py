@@ -42,9 +42,15 @@ on its own device, and the masked tick runs per shard on that shard's slice
 of the descriptor.  Sessions are independent, so the tick needs no
 collectives.
 
-Not ported yet: the descriptor plane's ``raw_inputs_to_array``,
-``_run_plan``, ``_fill_resim``, ``_fulfill_fast`` and ``HostedPool``, which
-consume the host bank's ``RequestPlan`` (queue A item 6).
+The descriptor plane: given a ``host_bank.HostSessionPool`` tick's
+``RequestPlan`` (and ``raw_inputs_to_array``), ``run`` fills the descriptor
+from the plan's flat numpy columns (quiet rows in one gather, rollback-resim
+and save-only rows per row) and builds no ``GgrsRequest`` for them; the
+plan's other slots go through ``_parse``.  What it reads of the plan is
+copied into the descriptor before ``run`` returns, since the plan views the
+host pool's reused output buffer.  ``HostedPool`` is the whole serving tick:
+one ``stage_inputs`` crossing, one ``ggrs_bank_tick`` crossing, one masked
+batched tick on the card.
 """
 
 from __future__ import annotations
@@ -189,6 +195,17 @@ class BatchedRequestExecutor:
                         must divide ``batch_size``), so one pool spans cards.
                         The descriptor is built on the host and split per
                         shard.
+    ``raw_inputs_to_array``  optional bulk twin of ``inputs_to_array`` for
+                        the descriptor plane: called as ``raw(blobs,
+                        statuses)`` with the ENCODED input bytes ``[k,
+                        players, input_size]`` (u8) and status codes ``[k,
+                        players]`` (u8) of k advances, it returns the ``[k,
+                        ...]`` numpy array of per-session inputs.  With it, a
+                        ``HostSessionPool`` RequestPlan's quiet and resim
+                        slots are consumed as flat columns: zero
+                        ``GgrsRequest`` objects, zero per-slot
+                        ``input_decode`` calls.  Without it, plans still work
+                        (per-slot materialization, the reference semantics).
     """
 
     def __init__(
@@ -202,6 +219,7 @@ class BatchedRequestExecutor:
         with_checksums: bool = True,
         device: DeviceLike = None,
         mesh: Optional[Mesh] = None,
+        raw_inputs_to_array: Optional[Callable[[np.ndarray, np.ndarray], np.ndarray]] = None,
     ) -> None:
         assert batch_size >= 1 and ring_length >= 2 and max_burst >= 1
         self.batch_size = batch_size
@@ -222,7 +240,12 @@ class BatchedRequestExecutor:
         self.device = devices[0]
         self._advance = advance
         self._inputs_to_array = inputs_to_array
+        self._raw_inputs = raw_inputs_to_array
         self._with_checksums = with_checksums
+        # descriptor plane: per-(session, ring slot) pooled _BatchSlotRef /
+        # _LazyBatchChecksum pairs, so the plan path's cell fulfilment
+        # allocates nothing at steady state
+        self._ref_rings: List[Optional[List[Any]]] = [None] * batch_size
 
         R = ring_length
         self._rows = batch_size // len(devices)
@@ -470,16 +493,152 @@ class BatchedRequestExecutor:
                 self._ring.load_rows(shard["ring"], index)
         self.block_until_ready()
 
+    def _fulfill_fast(self, cells, b: int, frame: Frame) -> None:
+        """Fulfil one save cell WITHOUT a SaveGameState object (the
+        descriptor path): pooled per-(session, ring slot) refs refilled in
+        place.  Refs are pooled per ring slot, not per session: an older
+        cell in a different slot keeps seeing its own frame."""
+        ring = self._ref_rings[b]
+        if ring is None:
+            ring = self._ref_rings[b] = [
+                (_BatchSlotRef(self, b, -1), _LazyBatchChecksum(self, b, -1))
+                for _ in range(self.ring_length)
+            ]
+        slot = frame % self.ring_length
+        ref, cs = ring[slot]
+        ref.frame = frame
+        if self._with_checksums:
+            cs._frame = frame
+            cs._value = None
+        self._host_frames[b, slot] = frame
+        cells.get_cell(frame).save(frame, ref, cs if self._with_checksums else None)
+
+    def _fill_resim(self, plan, desc: Dict[str, np.ndarray], b: int, lf: int,
+                    n_adv: int, trailing: bool, adv_off: int, adv_stride: int) -> None:
+        """One rollback-resim slot straight from its descriptor row:
+        load, then advance^N with interleaved saves, inputs gathered from
+        the tick output buffer (copied into ``desc``), no request objects."""
+        cells = plan.saved_states(b)
+        data = cells.get_cell(lf).data()
+        # the two guards the request path applies through the LoadGameState
+        # cell: ownership and ring capacity
+        if not (
+            isinstance(data, _BatchSlotRef)
+            and data.owner is self
+            and data.index == b
+            and data.frame == lf
+        ):
+            raise ValueError(
+                f"session {b} loads frame {lf} from a cell this pool did "
+                f"not save ({data!r})"
+            )
+        held = self._host_frames[b, lf % self.ring_length]
+        if held != lf:
+            raise RuntimeError(
+                f"session {b}: rollback to frame {lf} but its ring slot "
+                f"holds frame {held} -- ring_length={self.ring_length} is "
+                f"too small for this session's prediction window"
+            )
+        if n_adv > self.max_burst:
+            raise ValueError(
+                f"session {b}: tick carries more than max_burst="
+                f"{self.max_burst} advances"
+            )
+        desc["do_load"][b] = True
+        desc["load_frame"][b] = lf
+        desc["n_adv"][b] = n_adv
+        players, isize = plan.players, plan.input_size
+        span = players * (1 + isize)
+        buf = plan.buffer
+        for j in range(n_adv):
+            so = adv_off + j * adv_stride
+            st = buf[so : so + players]
+            blobs = buf[so + players : so + span].reshape(1, players, isize)
+            desc["inputs"][b, j] = self._raw_inputs(blobs, st[None])[0]
+            # every advance except (with a trailing live advance) the last
+            # is followed by a save of the frame it produced: lf + 1 + j
+            if (j < n_adv - 1) if trailing else True:
+                f = lf + 1 + j
+                desc["save_mask"][b, j] = True
+                desc["save_frame"][b, j] = f
+                self._fulfill_fast(cells, b, f)
+
+    def _run_plan(self, plan) -> None:
+        """``run`` on a ``HostSessionPool`` RequestPlan: quiet slots fill
+        the descriptor vectorized, resim and save-only slots per row, and
+        only the plan's eager (slow / other) slots go through request
+        materialization and ``_parse``."""
+        pool = plan.pool
+        if plan.tick_no != pool._tick_no or plan is not pool._plan:
+            # the columns view the host pool's REUSED output buffer, so
+            # consuming an old plan would run garbage silently
+            raise RuntimeError(
+                "stale RequestPlan: request plans are only valid until "
+                "the next advance_all"
+            )
+        rows = plan.quiet_rows
+        eager = list(plan.eager_rows)
+        vector = self._raw_inputs is not None and plan.uniform
+        any_work = bool(
+            rows.size or plan.resim_rows or plan.save_only_rows
+        ) or any(plan.lists[b] for b in eager)
+        if not any_work:
+            _OBS_EMPTY_TICKS.inc()
+            return
+        desc = self._blank_desc()
+        try:
+            with self.tracer.span("device.dispatch"):
+                if vector and rows.size:
+                    frames = plan.quiet_frames
+                    desc["pre_save"][rows] = True
+                    desc["pre_frame"][rows] = frames
+                    desc["n_adv"][rows] = 1
+                    statuses, blobs = plan.gather_quiet()
+                    desc["inputs"][rows, 0] = self._raw_inputs(blobs, statuses)
+                    # _fulfill_fast writes the _host_frames shadow too: one
+                    # writer for the ring tags
+                    for b, f in zip(rows.tolist(), frames.tolist()):
+                        self._fulfill_fast(plan.saved_states(b), b, f)
+                elif rows.size:
+                    # no bulk converter or a non-uniform pool: quiet slots
+                    # materialize like any other (reference semantics)
+                    eager.extend(rows.tolist())
+                for b, f in plan.save_only_rows:
+                    desc["pre_save"][b] = True
+                    desc["pre_frame"][b] = f
+                    self._fulfill_fast(plan.saved_states(b), b, f)
+                for b, lf, n_adv, trailing, adv_off, adv_stride in plan.resim_rows:
+                    if vector:
+                        self._fill_resim(plan, desc, b, lf, n_adv, trailing, adv_off, adv_stride)
+                    else:
+                        eager.append(b)
+                for b in eager:
+                    reqs = plan[b]
+                    if reqs:
+                        self._parse(b, reqs, desc)
+                _OBS_DISPATCHES.inc()
+                _OBS_ROLLBACK_LOADS.inc(int(desc["do_load"].sum()))
+                _OBS_BURST_DEPTH.observe(int(desc["n_adv"].max()))
+                self._tick(desc)
+        except BaseException as e:  # incl. KeyboardInterrupt mid-fill
+            self._invalid = f"{type(e).__name__}: {e}"
+            raise
+
     def run(self, request_lists: Sequence[List[GgrsRequest]]) -> None:
         """Fulfil all B sessions' request lists as one tick (no device work
         when every list is empty).  ``request_lists[b]`` belongs to session
-        ``b``; sessions with nothing to do this tick pass ``[]``."""
+        ``b``; sessions with nothing to do this tick pass ``[]``.  A
+        ``HostSessionPool`` RequestPlan is consumed through its flat
+        columns: no ``GgrsRequest`` objects for its fast-path slots."""
         self._check_valid()
         if len(request_lists) != self.batch_size:
             raise ValueError(
                 f"run() got {len(request_lists)} request lists for a pool of "
                 f"{self.batch_size} sessions"
             )
+        if getattr(request_lists, "quiet_rows", None) is not None:
+            self._run_plan(request_lists)
+            return
         if all(not reqs for reqs in request_lists):
             _OBS_EMPTY_TICKS.inc()
             return
@@ -577,3 +736,46 @@ class BatchedRequestExecutor:
             for shard in self._shards:
                 if shard["device"].type == "cuda":
                     torch.cuda.synchronize(shard["device"])
+
+
+class HostedPool:
+    """The full massed-hosting tick, both halves pooled: a
+    ``host_bank.HostSessionPool`` steps all B sessions' protocol and sync
+    mechanism in ONE ctypes crossing, and a ``BatchedRequestExecutor``
+    fulfils the B request lists in one masked batched tick on the card.
+
+    ``host_pool`` must hold the same sessions, in the same order, as the
+    executor's batch indices.  A host pool on the per-session Python
+    fallback gives the same request lists, so this wrapper needs no
+    fallback of its own.
+    """
+
+    def __init__(self, host_pool, executor: BatchedRequestExecutor) -> None:
+        if len(host_pool) != executor.batch_size:
+            raise ValueError(
+                f"host pool has {len(host_pool)} sessions but the executor "
+                f"was built for batch_size={executor.batch_size}"
+            )
+        self.host = host_pool
+        self.executor = executor
+        # one trace per hosted pool: the device dispatch / fence spans join
+        # the host pool's tick -> crossing -> slot timeline
+        host_tracer = getattr(host_pool, "tracer", None)
+        if host_tracer is not None and host_tracer.enabled and not executor.tracer.enabled:
+            executor.tracer = host_tracer
+
+    def tick(self, local_inputs: Sequence[Tuple[int, int, Any]]) -> None:
+        """One pool tick: stage ``(session_index, handle, value)`` local
+        inputs (one batched native call on the descriptor plane), advance
+        every session, fulfil every request list."""
+        stage = getattr(self.host, "stage_inputs", None)
+        if stage is not None:
+            stage(local_inputs)
+        else:
+            add = self.host.add_local_input
+            for index, handle, value in local_inputs:
+                add(index, handle, value)
+        self.executor.run(self.host.advance_all())
+
+    def block_until_ready(self) -> None:
+        self.executor.block_until_ready()

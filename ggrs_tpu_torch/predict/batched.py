@@ -27,10 +27,11 @@ streams are bit-identical with the plane on or off.
 Batched strategies are deliberately NOT native-core eligible
 (``core.sync_layer._native_sync_semantics_ok`` tests ``type(predictor) is
 PredictRepeatLast``): a session configured with one keeps the Python input
-queues, which the plane serves.  In the JAX package the host session pool's
-tick runs the plane; that pool is not ported yet, so until then the caller
-runs ``begin_tick()`` once per tick, after the tick's local inputs are added
-and before the sessions advance, as that pool does.
+queues, which the plane serves.  A ``parallel.HostSessionPool`` given the
+plane (``attach_prediction_plane``) runs ``begin_tick()`` in each
+``advance_all``; a caller driving the sessions itself runs it once per tick,
+after the tick's local inputs are added and before the sessions advance, as
+that pool does.
 """
 
 from __future__ import annotations

@@ -20,8 +20,9 @@ list per tick for drivers that fulfil every list before the next tick (a
 registers a Python-path session's input queues with a
 ``predict.DevicePredictionPlane``.  For an eligible config (such as
 ``boxgame_config()``) the session runs the native sync core and native
-endpoint cores by default, as the JAX package's does.  The JAX package's
-fleet resume seam (``adopt_resume_state``) is not ported.
+endpoint cores by default, as the JAX package's does.  ``adopt_resume_state`` fast-forwards a fresh session
+to a mid-stream position: the host bank's eviction seam
+(``parallel.host_bank``), and the destination half of a resume bundle.
 """
 
 from __future__ import annotations
@@ -587,6 +588,54 @@ class P2PSession(ThreadOwned, Generic[I, S, A]):
             self.tracer = tracer
         if journal is not None:
             self._forensics_journal = journal
+
+    def adopt_resume_state(
+        self,
+        *,
+        frame: Frame,
+        last_confirmed: Frame,
+        saved_states,
+        connect_status: List,
+        player_inputs: List,
+        endpoint_states: Dict,
+        next_recommended_sleep: Frame = 0,
+        pending_events: List = (),
+        next_spectator_frame: Frame = 0,
+    ) -> None:
+        """Fast-forward a FRESH session to a mid-stream position: the
+        eviction path of the supervised session bank
+        (``parallel.host_bank``).  A faulted native slot's harvested state
+        (last committed frame, confirmed-input queues, connect statuses,
+        per-endpoint pending and received windows) is adopted, so the
+        session resumes the SAME match from frame ``frame`` while its peers
+        keep talking to the same address.
+
+        The caller loads the game state saved at ``frame`` before fulfilling
+        this session's next request list (the pool prepends the
+        ``LoadGameState``).  Any speculative state the faulted slot carried
+        past ``frame`` is discarded: predictions restart empty, so no
+        disconnect-rollback descriptor is adopted either."""
+        assert self._sync_layer.current_frame == 0, (
+            "adopt_resume_state() requires a freshly-built session"
+        )
+        self._sync_layer.adopt_resume_state(
+            frame, last_confirmed, saved_states, player_inputs
+        )
+        for handle, (disc, lf) in enumerate(connect_status):
+            self.local_connect_status[handle].disconnected = bool(disc)
+            self.local_connect_status[handle].last_frame = lf
+        for addr, state in endpoint_states.items():
+            self._player_reg.remotes[addr].adopt_endpoint_state(**state)
+        self._next_recommended_sleep = next_recommended_sleep
+        self._event_queue.extend(pending_events)
+        # spectator continuity: the relay resumes where the faulted slot's
+        # fan-out stopped (restarting at 0 would assert on inputs the
+        # watermark already discarded)
+        self._next_spectator_frame = next_spectator_frame
+        # desync-detection continuity: checksum reporting resumes from the
+        # adopted frame (the default cursor would assert on cells the
+        # resumed ring never held)
+        self._last_sent_checksum_frame = frame
 
     def adopt_spectator_endpoint(self, addr: A, endpoint) -> None:
         """Graft a spectator endpoint onto a LIVE session: the relay seam

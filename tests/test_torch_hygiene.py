@@ -43,6 +43,7 @@ def test_package_imports_with_jax_blocked():
         "import ggrs_tpu_torch.broadcast, ggrs_tpu_torch.broadcast.journal\n"
         "import ggrs_tpu_torch.sessions.replay\n"
         "import ggrs_tpu_torch.predict, ggrs_tpu_torch.predict.batched, ggrs_tpu_torch.net._native\n"
+        "import ggrs_tpu_torch.parallel.host_bank\n"
         "from ggrs_tpu_torch.parallel.batch import Mesh, make_mesh, make_mesh2d\n"
         "from ggrs_tpu_torch.parallel.batch import make_distributed_mesh\n"
         "assert ggrs_tpu_torch.net._native.available()\n"
