@@ -163,6 +163,32 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    adoption ``LoadGameState``, the other matches' sessions stay bitwise
    equal to leg (a), and the faulted match's peers hold equal states at
    their common confirmed frame.
+17. datapath -- the bank over real loopback UDP (fake 16 ms clock), into one
+   ``BatchedRequestExecutor`` with checksums on through ``HostedPool``.
+   Population A is ``bench.py``'s ``run_host_bank_io``: 64 two-peer
+   BoxGame(2) matches, each host slot on its own ``UdpNonBlockingSocket(0)``
+   and each peer an outside ``P2PSession``, 8 viewers a match attached
+   through ``SpectatorHub`` (viewer 0 of matches 0-3 a real
+   ``SpectatorSession``, the rest acking viewers), matches 0-3 journaled,
+   16 + 120 ticks; legs (a) ``native_io=True`` (the pump), (b) the Python
+   shuttle with the send and receive tables, (c) every slot a view on one
+   ``DispatchHub(siblings=1)``, (d) leg (c) under ``GGRS_TPU_NO_GSO`` and
+   ``GGRS_TPU_NO_GRO``, (e) leg (a) with the thread decode backend, (f) leg
+   (a) on the CPU.  Population B is ``run_inbound_gen2``'s: 512 matches, no
+   viewers, 24 ticks; legs (b), (c) and (g), leg (b) under
+   ``GGRS_TPU_NO_RECV_TABLE``.  The legs of a population are bitwise equal
+   (live states, last ring checksums, frames, request lists, each socket's
+   sent bytes with ports mapped to roles, the real viewers' streams); the
+   pump, the receive table (one crossing a tick, plus one per buffer
+   regrowth, no unroutable datagram), GSO on the fan-out and GRO on the hub
+   are shown on; no UDP receive drop; digest launches as the descriptors
+   predict.  The four journals replay to their viewers' streams, and the
+   fused scrub, digested on the card, equals the host's ring checksum.  The
+   fault leg storms one slot with ENOBUFS (nothing faults), then EPERM with
+   its harvest gone: the slot alone is evicted, resumed from its journal,
+   its viewers grafted, its journal still growing, and the other 63 matches
+   equal to leg (a).  Syscalls counted a tick, host ms a tick (p50, p99),
+   ``run`` ms, kernels, idle share, ``rmem_max``, ``RLIMIT_NOFILE``.
 
 Then the seconds each phase took, one ``{"kernels": [...]}`` line, the
 card's name and power limit as nvidia-smi prints them, and, last,
@@ -173,11 +199,15 @@ Exits non-zero with no result when CUDA is not available.
 from __future__ import annotations
 
 import contextlib
+import errno
 import hashlib
 import json
 import math
 import os
 import random
+import resource
+import socket as pysocket
+import struct
 import subprocess
 import sys
 import tempfile
@@ -228,10 +258,16 @@ from ggrs_tpu_torch import (
     make_mesh,
     make_mesh2d,
 )
+from ggrs_tpu_torch import NotSynchronized, PredictionThreshold, UdpNonBlockingSocket
+from ggrs_tpu_torch.broadcast import SpectatorHub
+from ggrs_tpu_torch.net import _native as net_native
 from ggrs_tpu_torch.net import protocol as net_protocol
+from ggrs_tpu_torch.net.messages import InputAck, InputMessage, Message
+from ggrs_tpu_torch.net.sockets import DispatchHub
+from ggrs_tpu_torch.net.wire import WireError
 from ggrs_tpu_torch.net.endpoint import PyEndpointCore
 from ggrs_tpu_torch.obs import FlightRecorder
-from ggrs_tpu_torch.ops.checksum import checksum_device, checksum_device_plain
+from ggrs_tpu_torch.ops.checksum import checksum_device, checksum_device_plain, checksum_to_u128
 from ggrs_tpu_torch.ops.digest import (
     MAX_LEAVES,
     lane_sums_rows,
@@ -297,6 +333,15 @@ BANK_ENV = {"bank": {}, "nofastpath": {"GGRS_TPU_NO_FASTPATH": "1"},
             "fallback": {"GGRS_TPU_NO_NATIVE": "1"}, "sessions": {}}
 BANK_FAULT_TICK, BANK_FAULT_SLOT = 60, 6
 BANK_PROFILED = 8
+# phase 17: population A (bench.py's run_host_bank_io: 64 matches x 8
+# viewers, the first 4 journaled with a real viewer 0) and population B
+# (run_inbound_gen2's 512 matches); the fault leg's slot and ticks
+DATAPATH_MATCHES, DATAPATH_VIEWERS, DATAPATH_JOURNALED = 64, 8, 4
+DATAPATH_WARMUP, DATAPATH_TICKS, DATAPATH_PROFILED = 16, 120, 8
+INBOUND_MATCHES, INBOUND_WARMUP, INBOUND_TICKS = 512, 4, 20
+DATAPATH_FAULT_SLOT, DATAPATH_STORM_TICK, DATAPATH_EPERM_TICK, DATAPATH_STORM = 2, 40, 70, 10
+# descriptors: population B's per-slot legs hold 1,024 UDP sockets at once
+FDS_NEEDED = 2 * INBOUND_MATCHES + 512
 
 
 class SmokeFailure(Exception):
@@ -2394,11 +2439,599 @@ def phase_bank() -> int:
     return launches
 
 
+# -- phase 17: the bank's datapath and broadcast on real sockets ----------------
+
+
+class TapSocket:
+    """A ``UdpNonBlockingSocket`` of an endpoint outside the pool (a peer or
+    a real viewer) that keeps every datagram it sends and receives, with its
+    address, in order: the host's sent bytes are read at their receivers."""
+
+    def __init__(self, inner) -> None:
+        self.inner = inner
+        self.sent, self.received = [], []
+
+    def local_port(self) -> int:
+        return self.inner.local_port()
+
+    def send_to(self, msg, addr) -> None:
+        self.send_datagram(msg.encode(), addr)
+
+    def send_datagram(self, data, addr) -> None:
+        self.sent.append((addr, bytes(data)))
+        self.inner.send_datagram(data, addr)
+
+    def send_datagram_batch(self, items) -> None:
+        for data, addr in items:
+            self.send_datagram(data, addr)
+
+    def receive_all_datagrams(self):
+        got = self.inner.receive_all_datagrams()
+        self.received.extend(got)
+        return got
+
+    def receive_all_messages(self):
+        out = []
+        for src, data in self.receive_all_datagrams():
+            try:
+                out.append((src, Message.decode(data)))
+            except WireError:
+                continue
+        return out
+
+    def close(self) -> None:
+        self.inner.close()
+
+
+class AckingViewer:
+    """``bench.py``'s ``_AckingViewer``: a bare UDP endpoint that acks the
+    newest input frame it saw once a tick (the host's stuck-viewer rule
+    never fires) without ticking a whole ``SpectatorSession``."""
+
+    def __init__(self, host_addr) -> None:
+        self.sock = TapSocket(UdpNonBlockingSocket(0))
+        self.addr = ("127.0.0.1", self.sock.local_port())
+        self.host = host_addr
+        self.last = -1
+
+    def tick(self) -> None:
+        saw = False
+        for _, msg in self.sock.receive_all_messages():
+            if isinstance(msg.body, InputMessage):
+                if msg.body.start_frame > self.last:
+                    self.last = msg.body.start_frame
+                saw = True
+        if saw:
+            self.sock.send_to(Message(0x5150, InputAck(self.last)), self.host)
+
+
+def datapath_leg_spec(leg: str) -> dict:
+    """Leg (a): the pump over per-slot sockets; (b) the Python shuttle with
+    the send and receive tables over per-slot sockets; (c) every slot a view
+    on one ``DispatchHub(siblings=1)``; (d) leg (c) without GSO and GRO;
+    (e) leg (a) with the thread decode backend; (f) leg (a) on the CPU;
+    (g) leg (b) under ``GGRS_TPU_NO_RECV_TABLE=1``."""
+    return {
+        "a": dict(native_io=True, host="private", env={}),
+        "b": dict(native_io=False, host="private", env={}),
+        "c": dict(native_io=False, host="dispatch", env={}),
+        "d": dict(native_io=False, host="dispatch",
+                  env={"GGRS_TPU_NO_GSO": "1", "GGRS_TPU_NO_GRO": "1"}),
+        "e": dict(native_io=True, host="private", env={"GGRS_TPU_DECODE_BACKEND": "thread"}),
+        "f": dict(native_io=True, host="private", env={}),
+        "g": dict(native_io=False, host="private", env={"GGRS_TPU_NO_RECV_TABLE": "1"}),
+    }[leg]
+
+
+def udp_drops():
+    """The kernel's UDP receive-buffer drops so far (``/proc/net/snmp``), or
+    None where the kernel does not report them (the legs' bitwise equality
+    still catches a drop)."""
+    try:
+        with open("/proc/net/snmp") as f:
+            rows = [line.split() for line in f if line.startswith("Udp:")]
+        return int(rows[1][rows[0].index("RcvbufErrors")])
+    except (OSError, IndexError, ValueError):
+        return None
+
+
+def segmented_send() -> dict:
+    """Does this kernel take a real UDP_SEGMENT send on loopback?  The
+    library's probe only sets the socket option; a kernel that refuses the
+    segmented send itself makes the send table retreat to one datagram a
+    record, which leaves the GSO counters at 0."""
+    rx = pysocket.socket(pysocket.AF_INET, pysocket.SOCK_DGRAM)
+    tx = pysocket.socket(pysocket.AF_INET, pysocket.SOCK_DGRAM)
+    try:
+        rx.bind(("127.0.0.1", 0))
+        rx.settimeout(1.0)
+        seg = struct.pack("=H", 32)
+        tx.sendmsg([b"a" * 32, b"b" * 32], [(pysocket.IPPROTO_UDP, 103, seg)], 0,
+                   rx.getsockname())  # 103: UDP_SEGMENT
+        got = [rx.recv(64), rx.recv(64)]
+        return {"accepted": got == [b"a" * 32, b"b" * 32], "errno": None}
+    except OSError as e:
+        return {"accepted": False, "errno": e.errno}
+    finally:
+        rx.close()
+        tx.close()
+
+
+def role_digests(n: int, host_addrs, peers, viewers) -> dict:
+    """sha256 per socket role of the datagrams it sent, addresses mapped to
+    roles: the host's sends as its receivers got them (per receiver, in
+    order), the peers' and viewers' at their send wrappers."""
+    out = {}
+    for m in range(n):
+        roles = {peers[m][1].sock_addr: "peer"}
+        for k, v in enumerate(viewers[m]):
+            roles[v["addr"]] = f"viewer{k}"
+        host = hashlib.sha256()
+        for role, tap in [("peer", peers[m][1])] + [(f"viewer{k}", v["tap"])
+                                                    for k, v in enumerate(viewers[m])]:
+            for src, data in tap.received:
+                if src == host_addrs[m]:
+                    host.update(f"{role}|{len(data)}|".encode() + bytes(data))
+        out[f"host {m}"] = host.hexdigest()
+        for role, tap in [("peer", peers[m][1])] + [(f"viewer{k}", v["tap"])
+                                                    for k, v in enumerate(viewers[m])]:
+            h = hashlib.sha256()
+            for dst, data in tap.sent:
+                h.update(f"{'host' if dst == host_addrs[m] else roles.get(dst, '?')}|"
+                         f"{len(data)}|".encode() + data)
+            out[f"{role} {m}" if role == "peer" else f"viewer {m}.{role[6:]}"] = h.hexdigest()
+    return out
+
+
+def raise_fd_limit() -> None:
+    """Raise the soft limit on open descriptors to the hard limit; fail,
+    naming the limit, when even that is below what phase 17 holds."""
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    want = hard if hard != resource.RLIM_INFINITY else max(soft, FDS_NEEDED)
+    if soft < want:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (want, hard))
+    soft = resource.getrlimit(resource.RLIMIT_NOFILE)[0]
+    check(soft == resource.RLIM_INFINITY or soft >= FDS_NEEDED,
+          f"RLIMIT_NOFILE is {soft} (hard {hard}); phase 17 needs {FDS_NEEDED} descriptors")
+
+
+def drive_datapath(population: str, leg: str, device=None, fault: bool = False,
+                   journal_dir=None, profiled: int = 0) -> dict:
+    """One leg of phase 17 over real loopback UDP on a fake 16 ms clock.
+
+    Population "A" is ``bench.py``'s ``run_host_bank_io`` topology on phase
+    16's game: ``DATAPATH_MATCHES`` two-peer ``BoxGame(2)`` matches (host
+    slot in the pool, peer an outside ``P2PSession``, rng seeds 3 + 5m and
+    4 + 5m, phase 16's inputs), ``DATAPATH_VIEWERS`` viewers per match
+    attached through ``SpectatorHub(pool, rng=random.Random(99))`` before
+    the first tick (viewer 0 of the first ``DATAPATH_JOURNALED`` matches a
+    real ``SpectatorSession``, the rest acking viewers), those matches
+    journaled through ``hub.attach_journal``; ``DATAPATH_WARMUP`` +
+    ``DATAPATH_TICKS`` ticks.  Population "B" is ``run_inbound_gen2``'s
+    shape: ``INBOUND_MATCHES`` matches, no viewers, ``INBOUND_TICKS`` ticks.
+    The pool feeds one ``BatchedRequestExecutor`` (checksums on) through
+    ``HostedPool``.  ``fault`` storms slot ``DATAPATH_FAULT_SLOT`` with
+    ENOBUFS, then makes it fail with EPERM with its native harvest gone."""
+    spec = datapath_leg_spec(leg)
+    a_pop = population == "A"
+    n = DATAPATH_MATCHES if a_pop else INBOUND_MATCHES
+    warmup, ticks = (DATAPATH_WARMUP, DATAPATH_TICKS) if a_pop else (INBOUND_WARMUP, INBOUND_TICKS)
+    total = warmup + ticks
+    game = BoxGame(2)
+    ex = BatchedRequestExecutor(game.advance, game.init_state_np(), executor_inputs,
+                                batch_size=n, ring_length=POOL_RING, max_burst=POOL_MAX_BURST,
+                                device=device, raw_inputs_to_array=bank_raw_inputs)
+    ex.warmup(np.zeros(2, np.uint8))
+    card = ex.device.type == "cuda"
+    predicted = 0
+    real_tick = ex._tick
+
+    def tick_counted(desc):
+        nonlocal predicted
+        predicted += pool_predicted(desc)
+        return real_tick(desc)
+
+    ex._tick = tick_counted
+    clock = [0]
+
+    def builder(seed, me, other):
+        return (SessionBuilder(boxgame_config()).with_clock(lambda: clock[0])
+                .with_rng(random.Random(seed)).add_player(Local(), me)
+                .add_player(Remote(other), 1 - me))
+
+    drops0 = udp_drops()
+    with env_set(spec["env"]):
+        pool = HostSessionPool(native_io=spec["native_io"])
+        hub = SpectatorHub(pool, rng=random.Random(99)) if a_pop else None
+        dhub = DispatchHub(siblings=1) if spec["host"] == "dispatch" else None
+        host_socks, host_addrs, peers, viewers, journals = [], [], [], [], {}
+        for m in range(n):
+            sock = dhub.view() if dhub is not None else UdpNonBlockingSocket(0)
+            host_addr = ("127.0.0.1", sock.local_port())
+            tap = TapSocket(UdpNonBlockingSocket(0))
+            tap.sock_addr = ("127.0.0.1", tap.local_port())
+            pool.add_session(builder(3 + 5 * m, 0, tap.sock_addr), sock)
+            peers.append((builder(4 + 5 * m, 1, host_addr).start_p2p_session(tap), tap))
+            host_socks.append(sock)
+            host_addrs.append(host_addr)
+            viewers.append([])
+        for m in range(n if a_pop else 0):
+            for k in range(DATAPATH_VIEWERS):
+                if k == 0 and m < DATAPATH_JOURNALED:
+                    tap = TapSocket(UdpNonBlockingSocket(0))
+                    sess = (SessionBuilder(boxgame_config()).with_clock(lambda: clock[0])
+                            .with_rng(random.Random(7000 + 13 * m))
+                            .start_spectator_session(host_addrs[m], tap))
+                    v = dict(addr=("127.0.0.1", tap.local_port()), tap=tap, session=sess,
+                             stream=[])
+                else:
+                    ack = AckingViewer(host_addrs[m])
+                    v = dict(addr=ack.addr, tap=ack.sock, acker=ack)
+                viewers[m].append(v)
+                hub.attach(m, v["addr"])
+            if m < DATAPATH_JOURNALED:
+                journals[m] = MatchJournal(os.path.join(journal_dir, f"{leg}{'-fault' if fault else ''}"
+                                                        f"-{m}.ggjl"),
+                                           2, boxgame_config().native_input_size)
+                hub.attach_journal(m, journals[m])
+        check(pool.native_active, f"datapath {population}{leg}: the native bank did not engage")
+        if spec["native_io"]:
+            states = [pool.io_state(m) for m in range(n)]
+            check(pool.native_io_active and states == ["native"] * n,
+                  f"datapath {population}{leg}: io states {sorted(set(states))}")
+        hosted = HostedPool(pool, ex)
+        summaries = [hashlib.sha256() for _ in range(2 * n)]
+        host_ms, run_ms, prof = [], [], []
+        # HostedPool.tick calls these two, then ex.run: each marks its time
+        marks = {}
+        stage_inputs, advance_all = pool.stage_inputs, pool.advance_all
+
+        def stage_marked(items):
+            marks["stage"] = time.perf_counter()
+            stage_inputs(items)
+
+        def advance_marked():
+            marks["reqs"] = advance_all()
+            marks["advanced"] = time.perf_counter()
+            return marks["reqs"]
+
+        pool.stage_inputs, pool.advance_all = stage_marked, advance_marked
+        timed_from = warmup
+        profiled_from = total - (profiled if card else 0)
+        io0 = sys0 = None
+        evicted_lead = None
+        target = DATAPATH_FAULT_SLOT
+        storm_errors = None
+        state_digest.launches = lane_sums_rows.launches = 0
+        for i in range(total):
+            clock[0] += 16
+            if i == timed_from:
+                io0 = pool.io_stats()
+                sys0 = (dhub.io_syscalls if dhub is not None
+                        else sum(s.io_syscalls for s in host_socks))
+            for m, (peer, _) in enumerate(peers):
+                peer.add_local_input(1, pool_sched(m, 1, i))
+                reqs = peer.advance_frame()
+                for r in reqs:
+                    if isinstance(r, SaveGameState):
+                        r.cell.save(r.frame, None, None)
+                summaries[n + m].update(repr(request_summary(reqs)).encode())
+            for group in viewers:
+                for v in group:
+                    if "acker" in v:
+                        v["acker"].tick()
+            if fault and i == DATAPATH_STORM_TICK:
+                pool.inject_socket_errno(target, errno.ENOBUFS, DATAPATH_STORM)
+            if fault and i == DATAPATH_EPERM_TICK:
+                storm_errors = (pool.slot_state(target), pool.io_stats()["send_errors"])
+                harvest = pool._harvest
+
+                def dead_harvest(index, harvest=harvest):
+                    if index == target:
+                        raise RuntimeError("the slot's native state is gone")
+                    return harvest(index)
+
+                pool._harvest = dead_harvest
+                pool.inject_socket_errno(target, errno.EPERM, 1)
+            items = [(m, 0, pool_sched(m, 0, i)) for m in range(n)]
+            if fault:
+                # the fault slot stages in Python (add_local_input): an
+                # eviction that resumes from the journal has no harvest to
+                # carry inputs staged in the bank (as in the JAX pool)
+                pool.add_local_input(*items.pop(target))
+            with no_device_reads(card):
+                if i < profiled_from:
+                    hosted.tick(items)
+                    done = time.perf_counter()
+                else:
+                    pool.stage_inputs(items)
+                    pool.advance_all()
+            reqs = marks["reqs"]
+            if i >= profiled_from:
+                prof.append(profile_device(lambda: guarded_run(ex.run, reqs, card), 1))
+            elif i >= timed_from:
+                host_ms.append((marks["advanced"] - marks["stage"]) * 1e3)
+                run_ms.append((done - marks["advanced"]) * 1e3)
+            for m in range(n):
+                summaries[m].update(repr(request_summary(reqs[m])).encode())
+            if fault and evicted_lead is None and pool.slot_state(target) == "evicted":
+                evicted_lead = request_summary(reqs[target])[:1]
+            for group in viewers:
+                for v in group:
+                    if "session" in v:
+                        try:
+                            got = v["session"].advance_frame()
+                        except (NotSynchronized, PredictionThreshold):
+                            continue
+                        v["stream"].extend(tuple(p[0] for p in r.inputs) for r in got)
+        ex.block_until_ready()
+        launches = state_digest.launches
+        around = lane_sums_rows.launches
+        io1 = pool.io_stats()
+        sys1 = dhub.io_syscalls if dhub is not None else sum(s.io_syscalls for s in host_socks)
+        caps = pool.io_capabilities()
+    for _, tap in peers:
+        tap.receive_all_datagrams()  # the last tick's sends onto the tapes
+    for group in viewers:
+        for v in group:
+            v["tap"].receive_all_datagrams()
+    counted = (io1["recv_calls"] + io1["send_calls"] + io1["drain"]["recv_calls"]
+               - io0["recv_calls"] - io0["send_calls"] - io0["drain"]["recv_calls"]
+               + sys1 - sys0)
+    busy = sum(r["busy_us"] for r in prof) / len(prof) / 1e3 if prof else None
+    tick_ms = float(np.mean(host_ms) + np.mean(run_ms))
+    last = [int(f) for f in ex._host_frames.max(axis=1)]
+    grafted = None
+    if fault:
+        grafted = sorted(repr(a) for a in pool.session(target)._player_reg.spectators)
+    out = {
+        "leg": leg, "population": population, "executor": ex, "pool": pool,
+        "launches": launches, "around": around, "predicted": predicted,
+        "states": [ex.live_state(b) for b in range(n)],
+        "last_checksums": [ex.ring_checksum(b, f) for b, f in enumerate(last)],
+        "frames": [pool.current_frame(m) for m in range(n)] + [p.current_frame for p, _ in peers],
+        "confirmed": [pool.last_confirmed_frame(m) for m in range(n)],
+        "summaries": [h.hexdigest() for h in summaries],
+        "sent": role_digests(n, host_addrs, peers, viewers),
+        "streams": [v["stream"] for group in viewers for v in group if "stream" in v],
+        "io": io1, "capabilities": caps, "crossings": pool.crossings,
+        "drain_crossings": pool.drain_crossings,
+        "crossings_one_per_tick": pool.crossings == total,
+        "slot_states": [pool.slot_state(m) for m in range(n)],
+        "fault_log": [f.detail for f in pool.fault_log(target)] if fault else None,
+        "evicted_lead": evicted_lead, "storm": storm_errors, "grafted": grafted,
+        "journal_next": {m: j.next_frame for m, j in journals.items()},
+        "journal_paths": {m: j.path for m, j in journals.items()},
+        "viewer_frames": [v["session"].current_frame for group in viewers for v in group
+                          if "session" in v],
+        "udp_drops": None if drops0 is None else udp_drops() - drops0,
+        "syscalls_counted_per_tick": counted / (total - timed_from),
+        "host_ms_p50": float(np.percentile(host_ms, 50)),
+        "host_ms_p99": float(np.percentile(host_ms, 99)),
+        "run_ms_per_tick": float(np.mean(run_ms)),
+        "kernels_per_tick": sum(r["kernels"] for r in prof) / len(prof) if prof else None,
+        "device_busy_ms_per_tick": busy,
+        "idle_share": None if busy is None else 1 - busy / tick_ms,
+        "fds": len(dhub.filenos()) if dhub is not None else n,
+    }
+    for j in journals.values():
+        j.close()
+    for s in host_socks:
+        s.close()
+    if dhub is not None:
+        out["rcvbuf"] = [pysocket.socket(fileno=os.dup(fd)).getsockopt(
+            pysocket.SOL_SOCKET, pysocket.SO_RCVBUF) for fd in dhub.filenos()]
+        dhub.close()
+    for _, tap in peers:
+        tap.close()
+    for group in viewers:
+        for v in group:
+            v["tap"].close()
+    return out
+
+
+DATAPATH_KEYS = ("states", "last_checksums", "frames", "summaries", "sent", "streams")
+
+
+def datapath_equal(a: dict, b: dict, matches=None) -> list:
+    """The keys on which two legs differ, over ``matches`` (all by default:
+    host rows, peers, socket roles and real viewers of those matches)."""
+    n = len(a["confirmed"])
+    idx = range(n) if matches is None else matches
+    bad = []
+    for k in DATAPATH_KEYS:
+        if k == "sent":
+            keep = lambda role: int(role.split()[1].split(".")[0]) in idx
+            same = {r: d for r, d in a[k].items() if keep(r)} == \
+                {r: d for r, d in b[k].items() if keep(r)}
+        elif k == "streams":
+            same = all(a[k][m] == b[k][m] for m in range(len(a[k])) if m in idx)
+        elif k in ("frames", "summaries"):
+            same = all(a[k][m] == b[k][m] and a[k][n + m] == b[k][n + m] for m in idx)
+        elif k == "states":
+            same = all(trees_equal(a[k][m], b[k][m]) for m in idx)
+        else:
+            same = all(a[k][m] == b[k][m] for m in idx)
+        if not same:
+            bad.append(k)
+    return bad
+
+
+def datapath_replay(run: dict) -> list:
+    """The journals of leg (a) replayed: each reproduces its real viewer's
+    confirmed stream, and the fused scrub on the card, digested, equals the
+    host's ring checksum at the newest ring frame the journal covers."""
+    ex, game, out = run["executor"], BoxGame(2), []
+    scrub = build_scrub_program(game.advance)
+    for m, path in sorted(run["journal_paths"].items()):
+        rs = ReplaySession(path, boxgame_config())
+        check(rs.closed and not rs.truncated and not rs.gaps and rs.first_frame == 0,
+              f"datapath replay {m}: the journal does not read back whole")
+        stream = run["streams"][m]
+        played = []
+        while rs.frames_remaining():
+            played.extend(tuple(v for v, _ in r.inputs) for r in rs.advance_frame())
+        check(len(stream) > DATAPATH_TICKS and played[:len(stream)] == stream,
+              f"datapath replay {m}: the journal != the viewer's stream "
+              f"({len(played)} journaled, {len(stream)} viewed)")
+        end = rs.last_frame + 1
+        ring = [int(f) for f in ex._host_frames[m] if 0 < f <= end]
+        check(ring, f"datapath replay {m}: no ring frame at or below the journal's end {end}")
+        frame = max(ring)
+        rs.seek(0)
+        inputs, _ = rs.stacked_inputs(frame)
+        state = scrub(game.init_state_np(), np.asarray(inputs, np.uint8))
+        lanes = checksum_device(tree_map(lambda leaf: leaf.unsqueeze(0), state))
+        digest = checksum_to_u128(lanes[0])
+        check(digest == ex.ring_checksum(m, frame)
+              and trees_equal(to_numpy(state), ex.ring_state(m, frame)),
+              f"datapath replay {m}: the scrub's digest at frame {frame} != the host's ring")
+        out.append({"match": m, "journal_frames": end, "viewer_frames": len(stream),
+                    "scrub_frame": frame})
+    return out
+
+
+def phase_datapath(cases: dict) -> int:
+    """Phase 17: the bank over real loopback UDP.  Returns the digest
+    launches of the card's legs."""
+    launches = 0
+    with open("/proc/sys/net/core/rmem_max") as f:
+        rmem_max = int(f.read())
+    seg = segmented_send()
+    emit({"phase": "datapath", "rmem_max": rmem_max,
+          "rlimit_nofile": list(resource.getrlimit(resource.RLIMIT_NOFILE)),
+          "gso_supported": net_native.net_lib().ggrs_net_gso_supported(),
+          "segmented_send": seg,
+          "gro_supported": net_native.net_lib().ggrs_net_gro_supported(),
+          "digest_at_phase_17_rows": {
+              name: {k: cases[name][k] for k in ("rows", "device_us", "plain_ms", "bound_us",
+                                                   "max_abs_err")}
+              for name in ("boxgame_pool_64", "boxgame_pool_512")}})
+    # GSO is on where the library's probe passes and the kernel takes a
+    # real segmented send
+    gso = net_native.net_lib().ggrs_net_gso_supported() and seg["accepted"]
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {leg: drive_datapath("A", leg, "cpu" if leg == "f" else None, journal_dir=tmp,
+                                    profiled=DATAPATH_PROFILED if leg in "ab" else 0)
+                for leg in "abcdef"}
+        a = runs["a"]
+        for leg, run in runs.items():
+            bad = datapath_equal(a, run)
+            check(not bad, f"datapath A: leg {leg} differs from leg a on {bad}")
+            check(run["around"] == 0, f"datapath A{leg}: the digest went around state_digest")
+            check(run["crossings_one_per_tick"],
+                  f"datapath A{leg}: {run['crossings']} crossings")
+            check(run["udp_drops"] in (0, None),
+                  f"datapath A{leg}: {run['udp_drops']} UDP receive drops")
+            if leg != "f":
+                check(run["launches"] == run["predicted"],
+                      f"datapath A{leg}: {run['launches']} digest launches, "
+                      f"predicted {run['predicted']}")
+            io = run["io"]
+            if leg in "aef":
+                check(io["recv_datagrams"] > io["recv_calls"] > 0,
+                      f"datapath A{leg}: no batching in io_stats {io}")
+                check(io["gso"]["gso_sends"] == 0, f"datapath A{leg}: GSO on the NetBatch path")
+            else:
+                d = io["drain"]
+                # one receive-table crossing a tick, plus one more each time
+                # a drain outgrew its record or slab buffer (they double)
+                check(d["crossings"] == run["crossings"] + d["backpressure_stops"]
+                      and d["backpressure_stops"] <= 4 and d["unroutable"] == 0
+                      and d["datagrams"] > d["recv_calls"],
+                      f"datapath A{leg}: drain {d}")
+                if leg in "bc":
+                    check(io["gso"]["gso_segments"] > io["gso"]["gso_sends"] > 0 if gso
+                          else io["gso"]["gso_sends"] == 0,
+                          f"datapath A{leg}: GSO {io['gso']} where the kernel "
+                          f"{'takes' if gso else 'refuses'} segmented sends")
+                if leg == "d":
+                    check(io["gso"] == {"gso_sends": 0, "gso_segments": 0}
+                          and not run["capabilities"]["gro_active"],
+                          f"datapath Ad: GSO {io['gso']} / GRO with both switched off")
+        check(runs["e"]["io"]["decode"]["backend"] == "thread"
+              and runs["e"]["io"]["decode"]["parallel_ticks"] > 0,
+              "datapath Ae: the decode plane did not fan out on the thread backend")
+        check(runs["c"]["capabilities"]["gro_active"]
+              == bool(net_native.net_lib().ggrs_net_gro_supported()),
+              f"datapath Ac: GRO {runs['c']['capabilities']}")
+        replay = datapath_replay(a)
+        fault = drive_datapath("A", "a", None, fault=True, journal_dir=tmp)
+        t = DATAPATH_FAULT_SLOT
+        others = [m for m in range(DATAPATH_MATCHES) if m != t]
+        check(fault["storm"] is not None and fault["storm"][0] == "native"
+              and fault["storm"][1] >= DATAPATH_STORM,
+              f"datapath fault: the ENOBUFS storm left {fault['storm']}")
+        check(fault["slot_states"][t] == "evicted"
+              and all(fault["slot_states"][m] == "native" for m in others),
+              f"datapath fault: slot states {sorted(set(fault['slot_states']))}")
+        check(any("journal tail" in d for d in fault["fault_log"])
+              and net_native.BANK_ERR_NAMES[net_native.BANK_ERR_IO] in fault["fault_log"],
+              f"datapath fault: fault log {fault['fault_log']}")
+        check(fault["evicted_lead"] and fault["evicted_lead"][0][0] == "LoadGameState",
+              f"datapath fault: the evicted list leads with {fault['evicted_lead']}")
+        check(len(fault["grafted"]) == DATAPATH_VIEWERS + 1,
+              f"datapath fault: grafted endpoints {fault['grafted']}")
+        end = DATAPATH_WARMUP + DATAPATH_TICKS - 20
+        check(fault["journal_next"][t] > end,
+              f"datapath fault: the journal stopped at {fault['journal_next'][t]}")
+        check(fault["viewer_frames"][t] > end,
+              f"datapath fault: the viewer stopped at {fault['viewer_frames'][t]}")
+        check(fault["launches"] == fault["predicted"], "datapath fault: launches != predicted")
+        bad = datapath_equal(a, fault, others)
+        check(not bad, f"datapath fault: the other matches differ from leg a on {bad}")
+    launches += sum(runs[leg]["launches"] for leg in "abcde") + fault["launches"]
+    keys = ("syscalls_counted_per_tick", "host_ms_p50", "host_ms_p99", "run_ms_per_tick",
+            "kernels_per_tick", "device_busy_ms_per_tick", "idle_share", "crossings",
+            "drain_crossings", "fds", "udp_drops")
+    emit({"phase": "datapath", "population": "A", "matches": DATAPATH_MATCHES,
+          "viewers_per_match": DATAPATH_VIEWERS, "ticks": DATAPATH_WARMUP + DATAPATH_TICKS,
+          "timed_ticks": DATAPATH_TICKS, "legs_bitwise_equal": sorted(runs),
+          "legs": {leg: {k: run[k] for k in keys} | {
+              "io": {k: run["io"][k] for k in ("recv_calls", "recv_datagrams", "send_calls",
+                                               "send_datagrams", "send_errors")},
+              "drain": run["io"]["drain"], "gso": run["io"]["gso"],
+              "decode": {k: run["io"]["decode"][k] for k in ("backend", "parallel_ticks")},
+              "digest_launches": run["launches"], "digest_predicted": run["predicted"]}
+                   for leg, run in runs.items()},
+          "capabilities": a["capabilities"], "replay": replay,
+          "fault": {"slot": t, "storm_tick": DATAPATH_STORM_TICK, "eperm_tick": DATAPATH_EPERM_TICK,
+                    "storm_send_errors": fault["storm"][1], "fault_log": fault["fault_log"],
+                    "journal_frames": fault["journal_next"][t],
+                    "others_bitwise_equal_to_leg_a": len(others)}})
+    runs_b = {leg: drive_datapath("B", leg) for leg in "bcg"}
+    b = runs_b["b"]
+    for leg, run in runs_b.items():
+        bad = datapath_equal(b, run)
+        check(not bad, f"datapath B: leg {leg} differs from leg b on {bad}")
+        check(run["crossings_one_per_tick"] and run["launches"] == run["predicted"]
+              and run["around"] == 0, f"datapath B{leg}: crossings or launches")
+        check(run["udp_drops"] in (0, None), f"datapath B{leg}: {run['udp_drops']} UDP receive drops "
+              f"(rmem_max {rmem_max}, granted {run.get('rcvbuf')})")
+        d = run["io"]["drain"]
+        if leg == "g":
+            check(d["crossings"] == 0, f"datapath Bg: the switch left {d['crossings']} drains")
+        else:
+            check(d["crossings"] == run["crossings"] + d["backpressure_stops"]
+                  and d["backpressure_stops"] <= 4 and d["unroutable"] == 0,
+                  f"datapath B{leg}: drain {d}")
+        launches += run["launches"]
+    emit({"phase": "datapath", "population": "B", "matches": INBOUND_MATCHES,
+          "ticks": INBOUND_WARMUP + INBOUND_TICKS, "timed_ticks": INBOUND_TICKS,
+          "legs_bitwise_equal": sorted(runs_b),
+          "rcvbuf_granted": runs_b["c"].get("rcvbuf"), "rmem_max": rmem_max,
+          "legs": {leg: {k: run[k] for k in keys} | {"drain": run["io"]["drain"],
+                                                      "digest_launches": run["launches"]}
+                   for leg, run in runs_b.items()}})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs the card",
               file=sys.stderr)
         return 2
+    raise_fd_limit()
     smi = nvidia_smi()
     seconds = {}
 
@@ -2427,6 +3060,7 @@ def main() -> int:
     plane_launches = timed("plane", phase_plane)
     mesh_launches = timed("mesh", phase_mesh)
     bank_launches = timed("bank", phase_bank)
+    datapath_launches = timed("datapath", phase_datapath, cases)
     emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
     main_case = cases[MAIN_CASE]
     emit({"kernels": [{
@@ -2438,6 +3072,7 @@ def main() -> int:
         "launches_speculation": spec_launches, "launches_pool": pool_launches,
         "launches_native": native_launches, "launches_plane": plane_launches,
         "launches_mesh": mesh_launches, "launches_bank": bank_launches,
+        "launches_datapath": datapath_launches,
         "max_abs_err": worst,
         "ms": main_case["device_us"] / 1e3, "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_us"] / 1e3, "bound_by": "bytes", "library_ms": None,

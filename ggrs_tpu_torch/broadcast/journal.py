@@ -27,9 +27,11 @@ simulate from that state), GAP (a known hole; replays stop here), CLOSE
 bytes: one staged LOCAL input, written at staging time, ahead of the
 confirmed stream, for fleet crash failover).
 
-The JAX package's crash-recovery readers of the journal (``recovery_harvest``,
-``_window_resume``, ``resume_from_file``) belong to its session bank and
-fleet, which the port does not have yet.
+The journal is also the crash-recovery seam: :meth:`MatchJournal.
+recovery_harvest` synthesizes a harvest-shaped resume dict from the in-memory
+tail window, so an evicted bank slot whose native harvest is gone still
+resumes mid-match (``HostSessionPool.set_confirmed_stream(recovery=...)``),
+and :func:`resume_from_file` does the same from the durable file alone.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from collections import deque
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from ..core.types import NULL_FRAME
+from ..net.wire import encode_uvarint
 from ..obs.registry import Registry, default_registry
 from ..obs.trace import NULL_TRACER
 
@@ -75,11 +78,12 @@ class JournalExhausted(Exception):
 class MatchJournal:
     """Append-only journal for one match.
 
-    ``append_frames(start_frame, records)`` is the sink contract a
-    ``JournalTap`` calls (records are ``(blank_flags, joined_inputs)`` byte
-    pairs, one per consecutive frame).  The journal also keeps an in-memory
-    tail window (``tail_window`` newest frames), which a session's forensics
-    read around a divergence.
+    ``append_frames(start_frame, records)`` is the sink contract the session
+    bank's confirmed-stream tap and a ``JournalTap`` call (records are
+    ``(blank_flags, joined_inputs)`` byte pairs, one per consecutive frame).
+    The journal also keeps an in-memory tail window (``tail_window`` newest
+    frames) for crash recovery: :meth:`recovery_harvest` rebuilds an evicted
+    slot's resume state from it without touching disk.
 
     ``fsync_every``: fsync after that many appended frames (0 = leave
     durability to ``close()``/the OS).  Fsync latency lands in the
@@ -301,6 +305,214 @@ class MatchJournal:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+    # ------------------------------------------------------------------
+    # crash recovery (the journal adoption seam)
+    # ------------------------------------------------------------------
+
+    def recovery_harvest(self, pool, index: int) -> Dict[str, Any]:
+        """Synthesize a ``ggrs_bank_harvest``-shaped resume dict from the
+        in-memory tail window: the eviction path's stand-in when the
+        native harvest itself fails (crash recovery; registered through
+        ``HostSessionPool.set_confirmed_stream(recovery=...)``).
+
+        The window holds every player's confirmed inputs for the newest
+        ``tail_window`` frames, which is exactly what the harvest recovers:
+        sync-queue seeds, per-endpoint send windows (resent by the retry
+        timer, closing the peers' sequence gap — peers skip the overlap),
+        receive rings, and the spectator fan-out windows.  Liveness state
+        comes from the pool's Python-side mirrors."""
+        if not self.tail:
+            raise JournalError("journal tail is empty: nothing to resume")
+        m = pool._mirrors[index]
+        return _window_resume(
+            list(self.tail),
+            num_players=self.num_players,
+            input_size=self.input_size,
+            local_handles=m.local_handles,
+            endpoints=[(ep.handles, ep.running) for ep in m.endpoints],
+            spectators=[sp.running for sp in m.spectators],
+            disc=self._disc,
+            last=self._last,
+            current=m.current_frame,
+        )
+
+
+def _window_resume(
+    window: Sequence[Tuple[int, bytes, bytes]],
+    *,
+    num_players: int,
+    input_size: int,
+    local_handles: Sequence[int],
+    endpoints: Sequence[Tuple[Sequence[int], bool]],
+    spectators: Sequence[bool],
+    disc: Sequence[bool],
+    last: Sequence[int],
+    current: int,
+) -> Dict[str, Any]:
+    """A ``ggrs_bank_harvest``-shaped resume dict from one contiguous
+    window of confirmed frames (``(frame, blank_flags, joined_blob)``
+    triples) — the core shared by :meth:`MatchJournal.recovery_harvest`
+    (live in-memory tail + pool mirrors) and :func:`resume_from_file`
+    (durable journal alone, fleet crash failover).  ``endpoints`` is
+    ``(handles, running)`` per remote endpoint; ``spectators`` is one
+    running flag per fan-out endpoint."""
+    isize = input_size
+    frames = [f for f, _, _ in window]
+    w0, tip = frames[0], frames[-1]
+    blob_at = {f: blob for f, _, blob in window}
+
+    def join(handles: Sequence[int], frame: int) -> bytes:
+        blob = blob_at[frame]
+        return b"".join(
+            encode_uvarint(isize) + blob[h * isize : (h + 1) * isize]
+            for h in handles
+        )
+
+    def send_window(handles: Sequence[int]):
+        """(last_acked, base, pending) so the pending head follows the
+        base exactly (the emit-side invariant)."""
+        if w0 == 0:
+            zeros = bytes(isize)
+            base = b"".join(encode_uvarint(isize) + zeros for _ in handles)
+            return NULL_FRAME, base, [
+                (f, join(handles, f)) for f in frames
+            ]
+        return w0, join(handles, w0), [
+            (f, join(handles, f)) for f in frames[1:]
+        ]
+
+    eps = []
+    for handles, running in endpoints:
+        acked, base, pending = send_window(local_handles)
+        eps.append(dict(
+            state=0 if running else 1,
+            last_acked_frame=acked, send_base=base, pending=pending,
+            last_recv=tip,
+            recv_entries=[(f, join(handles, f)) for f in frames],
+        ))
+    all_players = list(range(num_players))
+    sps = []
+    for running in spectators:
+        acked, base, pending = send_window(all_players)
+        sps.append(dict(
+            state=0 if running else 1,
+            last_acked_frame=acked, send_base=base, pending=pending,
+        ))
+    player_inputs = [
+        (w0, [blob_at[f][p * isize : (p + 1) * isize] for f in frames])
+        for p in all_players
+    ]
+    resume = min(tip, current)
+    return dict(
+        current=current,
+        last_confirmed=resume,
+        disconnect_frame=NULL_FRAME,
+        local_disc=list(disc),
+        local_last=list(last),
+        player_inputs=player_inputs,
+        endpoints=eps,
+        next_spectator_frame=tip + 1,
+        spectators=sps,
+    )
+
+
+def resume_from_file(
+    path,
+    *,
+    local_handles: Sequence[int],
+    endpoints: Sequence[Tuple[Sequence[int], bool]],
+    spectators: Sequence[bool] = (),
+    tail_window: int = 128,
+) -> Dict[str, Any]:
+    """Crash-failover recovery from the DURABLE journal alone (the JAX
+    package's fleet layer, docs/DESIGN.md §16): parse the intact crc32
+    prefix of ``path`` and synthesize the resume material for a match
+    whose shard process (its native bank, mirrors, and in-memory journal
+    tail) is GONE.
+
+    Safe to call while the (dead or dying) writer's last append is torn
+    mid-record: the crc chain truncates the parse at the last durable
+    record, so the result always resumes to the last durable frame.
+
+    Topology comes from the caller (the fleet supervisor's match
+    registry), not the journal: ``endpoints`` is ``(handles, running)``
+    per remote endpoint in the source slot's endpoint order,
+    ``spectators`` one running flag per carried-over viewer.
+
+    Returns ``dict(harvest=…, checkpoint=(frame, npz_blob) | None,
+    durable_tip=frame, window=[(frame, flags, blob), …],
+    local_tail={frame: {handle: raw_input}})``: ``harvest``
+    is the harvest-shaped resume dict over the newest contiguous
+    confirmed window (capped at ``tail_window`` frames, returned raw as
+    ``window`` so failover can build its fast-forward prelude),
+    ``checkpoint`` the newest embedded state checkpoint whose frame lies
+    inside that window (the only state a dead process leaves behind;
+    without one the game state cannot be rebuilt and the caller must
+    treat the match as unrecoverable)."""
+    parsed = read_journal(path)
+    frames = parsed["frames"]
+    if not frames:
+        raise JournalError(f"{path}: no durable frames to resume from")
+    window: List[Tuple[int, bytes, bytes]] = []
+    for rec in reversed(frames):
+        if window and rec[0] != window[-1][0] - 1:
+            break  # a gap record (or lost prefix) ends the usable window
+        window.append(rec)
+        if len(window) >= tail_window:
+            break
+    window.reverse()
+    meta = parsed["meta"]
+    players = int(meta["num_players"])
+    isize = int(meta["input_size"])
+    disc = [False] * players
+    last = [NULL_FRAME] * players
+    for f, flags, _ in frames:
+        for p in range(players):
+            if flags[p]:
+                disc[p] = True
+            else:
+                disc[p] = False
+                last[p] = f
+    w0, tip = window[0][0], window[-1][0]
+    checkpoint = None
+    for cf, blob in reversed(parsed["checkpoints"]):
+        # resumable: the state at cf (frames 0..cf-1 applied) plus the
+        # confirmed inputs cf..tip-1 (all in the window) rebuild the
+        # state AT the durable tip.  cf == tip+1 is NOT resumable even
+        # though it is durable: that state already includes frame tip,
+        # and the fast-forward prelude would store it under the tip's
+        # cell, making the resumed session re-apply frame tip — a silent
+        # desync.  (Reachable for bank-tier matches: checkpoints follow
+        # the pool's confirmed watermark while the journal's frame feed
+        # trails it by the fan-out deferral.)
+        if w0 <= cf <= tip:
+            checkpoint = (cf, blob)
+            break
+    harvest = _window_resume(
+        window,
+        num_players=players,
+        input_size=isize,
+        local_handles=list(local_handles),
+        endpoints=list(endpoints),
+        spectators=list(spectators),
+        disc=disc,
+        last=last,
+        current=tip,
+    )
+    # the staged-local tail: values the dead incarnation SENT for frames
+    # at/after the durable tip (a rollback host sends predicted frames
+    # immediately), which the resumed incarnation must replay verbatim —
+    # re-sending different values for frames the peers already hold would
+    # silently desync the match.  Last record wins (re-staging after a
+    # readmission overwrites).
+    local_tail: Dict[int, Dict[int, bytes]] = {}
+    for f, handle, payload in parsed["local_inputs"]:
+        if f >= tip:
+            local_tail.setdefault(f, {})[handle] = payload
+    return dict(harvest=harvest, checkpoint=checkpoint, durable_tip=tip,
+                window=window, local_tail=local_tail)
 
 
 class JournalTap:

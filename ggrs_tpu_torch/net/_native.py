@@ -1,13 +1,16 @@
 """ctypes bindings of the native host code: the input codec and message
 framing (``native/codec.cpp``), the endpoint datapath
 (``native/endpoint.cpp``), the sync core (``native/sync_core.cpp``), the
-session bank (``native/session_bank.cpp``) and the batched send table of the
-socket datapath (``native/net_batch.cpp``).
+session bank with its spectator fan-out, confirmed-stream tap and socket pump
+(``native/session_bank.cpp``) and the kernel-batched socket datapath
+(``native/net_batch.cpp``: per-socket ``NetBatch`` recvmmsg/sendmmsg, the
+one-crossing send and receive tables, GSO and GRO).
 
-The port's own copy of the codec, message, endpoint, sync, bank and
-send-table bindings of ``ggrs_tpu/net/_native.py``, with the packed-table
-layouts the bank speaks (``BANK_HDR_FIELDS``, ``BANK_REQ_FIELDS``,
-``BANK_STAGE_FIELDS``, ``NET_SEND_FIELDS``).  The sources are the repository's
+The port's own copy of the bindings of ``ggrs_tpu/net/_native.py``, with the
+packed-table layouts the bank and the datapath speak (``BANK_HDR_FIELDS``,
+``BANK_REQ_FIELDS``, ``BANK_STAGE_FIELDS``, ``NET_SEND_FIELDS``,
+``NET_FD_FIELDS``, ``NET_ROUTE_FIELDS``, ``NET_RECV_FIELDS``); every stride is
+checked against the library when it loads, and a skew raises.  The sources are the repository's
 ``native/*.cpp``, compiled as they are into one host library by
 ``_build.build_host`` at first use (``g++``, into ``ggrs_tpu_torch/_build/``).
 A failed build raises: nothing here quietly serves the Python codec or cores
@@ -140,6 +143,16 @@ NET_ERR_UNSUPPORTED = -80
 NET_ERR_FATAL = -81
 NET_ERR_BAD_ARGS = -82
 
+# NetBatch counter order (ggrs_net_stats; also the per-slot io tail of
+# ggrs_bank_stats).  After the six scalars come two 8-bucket batch-size
+# histograms (recv then send) with upper bounds IO_BATCH_BUCKETS + inf.
+IO_STAT_FIELDS = (
+    "recv_calls", "recv_datagrams", "send_calls", "send_datagrams",
+    "send_errors", "oversized",
+)
+IO_BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
+IO_STAT_WORDS = len(IO_STAT_FIELDS) + 2 * (len(IO_BATCH_BUCKETS) + 1)  # 22
+
 # endpoint-core observability counter order (ggrs_ep_stats; also the
 # per-endpoint tail of each ggrs_bank_stats record)
 EP_STAT_FIELDS = (
@@ -189,9 +202,42 @@ NET_SEND_FIELDS = (
     ("off", "<u4"), ("len", "<u4"),
 )  # itemsize 20 == net_batch.cpp kSendStride
 NET_SEND_STRIDE = 20
+# ``flags`` bit 0 marks a record on a SHARED dispatch fd: a fatal errno there
+# faults only that record's slot, and the co-tenants' records keep flushing
+NET_SEND_FLAG_DISPATCH = 1  # net_batch.cpp kSendFlagDispatch
 # ggrs_net_send_table stats words: {sent, transient_errors, oversized,
 # gso_sends, gso_segments}
 NET_SEND_STATS = 5
+
+# The one-crossing inbound drain (ggrs_net_recv_table).  The fd table names
+# every socket to drain (slot == -1 marks a shared dispatch fd demuxed by
+# source address); the route table maps (ip, port) -> slot and is sorted
+# ascending by (ip << 16) | port; the record table describes each received
+# datagram as a jump into the shared slab, in per-fd arrival order.
+NET_FD_FIELDS = (
+    ("fd", "<i4"), ("slot", "<i4"),
+)  # itemsize 8 == net_batch.cpp kFdStride
+NET_FD_STRIDE = 8
+NET_ROUTE_FIELDS = (
+    ("ip", "<u4"), ("port", "<u2"), ("pad", "<u2"), ("slot", "<i4"),
+)  # itemsize 12 == net_batch.cpp kRouteStride
+NET_ROUTE_STRIDE = 12
+NET_RECV_FIELDS = (
+    ("slot", "<i4"), ("fd_idx", "<i4"), ("ip", "<u4"), ("port", "<u2"),
+    ("seg", "<u2"), ("off", "<u4"), ("len", "<u4"),
+)  # itemsize 24 == net_batch.cpp kRecvStride; ``seg`` is the segment index
+# when a GRO-coalesced train was split back into wire datagrams (else 0)
+NET_RECV_STRIDE = 24
+# ggrs_net_recv_table stats words (net_batch.cpp kRecvTableStats):
+# {recv_calls, datagrams, unroutable, backpressure_stops}, the 8-bucket
+# batch-size histogram (bounds IO_BATCH_BUCKETS + inf) in words [4..11],
+# then the GRO tail (gro_datagrams, gro_segments) in [12..13].  ``datagrams``
+# counts post-split wire datagrams, equal to the count with GRO off.
+NET_RECV_TABLE_STAT_FIELDS = (
+    "recv_calls", "datagrams", "unroutable", "backpressure_stops",
+    "gro_datagrams", "gro_segments",
+)
+NET_RECV_TABLE_STATS = 14
 
 # packed per-tick output header (session_bank.cpp kHdr*): one record per
 # session leads the tick output.  The pool classifies all B slots from this
@@ -318,10 +364,59 @@ def _bind(lib: ctypes.CDLL) -> None:
     _sig(lib.ggrs_bank_req_stride, cint)
     _sig(lib.ggrs_bank_stage_stride, cint)
     _sig(lib.ggrs_bank_stage_inputs, i64, vp, vp, i64, cp, sz)
-    # ---- the one-shot batched send table (native/net_batch.cpp) ----
+    # the broadcast entry points: spectator fan-out and the journal tap
+    _sig(lib.ggrs_bank_attach_spectator, i64, vp, i64, ctypes.c_uint16, i64)
+    _sig(lib.ggrs_bank_detach_spectator, cint, vp, i64, i64)
+    _sig(lib.ggrs_bank_set_confirmed_stream, cint, vp, i64, cint)
+    # the pump: the tick crossing plus native socket I/O for attached slots
+    _sig(lib.ggrs_bank_pump, cint, vp, i64, cp, sz, cp, sz, c_size_p)
+    _sig(lib.ggrs_bank_attach_socket, cint, vp, i64, vp)
+    _sig(lib.ggrs_bank_detach_socket, cint, vp, i64)
+    _sig(lib.ggrs_bank_map_addr, cint, vp, i64, cint, i64, ctypes.c_uint32, ctypes.c_uint16)
+    # ---- the kernel-batched socket datapath (native/net_batch.cpp) ----
+    u64_p = ctypes.POINTER(ctypes.c_uint64)
     _sig(lib.ggrs_net_supported, cint)
-    _sig(lib.ggrs_net_send_table, cint, vp, i64, cp, sz,
-         ctypes.POINTER(ctypes.c_uint64), i32_p, cint)
+    _sig(lib.ggrs_net_attach, vp, cint, cint)
+    _sig(lib.ggrs_net_free, None, vp)
+    _sig(lib.ggrs_net_recv_all, cint, vp)
+    _sig(lib.ggrs_net_stage, cint, vp, ctypes.c_uint32, ctypes.c_uint16, cp, sz)
+    _sig(lib.ggrs_net_flush, cint, vp)
+    _sig(lib.ggrs_net_staged_len, i64, vp)
+    _sig(lib.ggrs_net_stats, None, vp, u64_p)
+    _sig(lib.ggrs_net_set_capture, None, vp, cint)
+    _sig(lib.ggrs_net_drain_capture, cint, vp, cp, sz, c_size_p)
+    _sig(lib.ggrs_net_inject_send_errno, None, vp, cint, cint)
+    _sig(lib.ggrs_net_send_table, cint, vp, i64, cp, sz, u64_p, i32_p, cint)
+    _sig(lib.ggrs_net_recv_table, cint, vp, cint, vp, cint, vp, cint, vp, i64,
+         u64_p, i32_p, cint, i32_p)
+    _sig(lib.ggrs_net_gso_supported, cint)
+    _sig(lib.ggrs_net_set_gso, None, cint)
+    _sig(lib.ggrs_net_gro_supported, cint)
+    _sig(lib.ggrs_net_set_gro, None, cint)
+    _sig(lib.ggrs_net_inject_table_errno, None, cint, i64, cint)
+    for probe in ("ggrs_net_recv_stride", "ggrs_net_route_stride", "ggrs_net_fd_stride",
+                  "ggrs_net_send_stats_len", "ggrs_net_recv_stats_len"):
+        _sig(getattr(lib, probe), cint)
+
+
+def _check_layouts(lib: ctypes.CDLL) -> None:
+    """The datapath's packed strides and stats lengths against this module's
+    tables: the library is built from the checkout's ``native/`` sources,
+    so a difference is a drift here, and it raises."""
+    import numpy as np
+
+    want = {
+        "ggrs_net_fd_stride": (NET_FD_STRIDE, np.dtype(list(NET_FD_FIELDS)).itemsize),
+        "ggrs_net_route_stride": (NET_ROUTE_STRIDE, np.dtype(list(NET_ROUTE_FIELDS)).itemsize),
+        "ggrs_net_recv_stride": (NET_RECV_STRIDE, np.dtype(list(NET_RECV_FIELDS)).itemsize),
+        "ggrs_net_send_stats_len": (NET_SEND_STATS, NET_SEND_STATS),
+        "ggrs_net_recv_stats_len": (NET_RECV_TABLE_STATS, NET_RECV_TABLE_STATS),
+    }
+    for probe, (size, table) in want.items():
+        got = int(getattr(lib, probe)())
+        if got != size or table != size:
+            raise RuntimeError(f"{probe}() is {got}, this module's table says {size} "
+                               f"(packed size {table})")
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -337,6 +432,7 @@ def _load() -> Optional[ctypes.CDLL]:
         if _lib is None:
             lib = _build.load_host()
             _bind(lib)
+            _check_layouts(lib)
             _lib = lib
     return _lib
 
@@ -348,6 +444,24 @@ def available() -> bool:
 def bank_lib() -> Optional[ctypes.CDLL]:
     """The loaded library for ``parallel.HostSessionPool``'s native bank, or
     None (the caller asked for the per-session Python sessions)."""
+    return _load()
+
+
+def net_lib() -> Optional[ctypes.CDLL]:
+    """The loaded library when the kernel-batched socket datapath is usable
+    on this platform (``ggrs_net_supported`` is 0 on non-Linux builds), or
+    None: the library is switched off, or ``GGRS_TPU_NO_NATIVE_IO=1`` asks
+    for the Python shuttle (read at each call, as the JAX package reads
+    it)."""
+    lib = _load()
+    if lib is None or os.environ.get("GGRS_TPU_NO_NATIVE_IO") or not lib.ggrs_net_supported():
+        return None
+    return lib
+
+
+def broadcast_lib() -> Optional[ctypes.CDLL]:
+    """The loaded library for the bank's spectator fan-out and
+    confirmed-stream tap, or None (the library is switched off)."""
     return _load()
 
 

@@ -36,11 +36,14 @@ _OBS_OVERSIZED = default_registry().counter(
     "ggrs_socket_oversized_packets_total",
     "datagrams sent above the ideal fragmentation-safe UDP size",
 )
-# Syscall accounting: one syscall per datagram, plus the EAGAIN probe per
-# drain.  Increments are batched per drain, not per datagram.
+# Syscall accounting: the Python shuttle pays one syscall per datagram, plus
+# the EAGAIN probe per drain; the host bank's kernel-batched datapath counts
+# its recvmmsg/sendmmsg calls in the same family.  Increments are batched
+# per drain, not per datagram.
 _OBS_SYSCALLS = default_registry().counter(
     "ggrs_io_syscalls_total",
-    "socket syscalls by kind (sendto/recvfrom: one per datagram)",
+    "socket syscalls by kind (sendto/recvfrom = per-datagram Python path; "
+    "recvmmsg/sendmmsg = kernel-batched native path)",
     labels=("kind",),
 )
 _OBS_SENDTO = _OBS_SYSCALLS.labels(kind="sendto")
@@ -116,8 +119,8 @@ class UdpNonBlockingSocket:
         return UdpNonBlockingSocket(port)
 
     def fileno(self) -> int:
-        """The bound fd: what the host bank's one-crossing send table
-        (``ggrs_net_send_table``) writes to."""
+        """The bound fd: what the host bank hands to the native batched
+        datapath (``ggrs_net_attach``, the send and receive tables)."""
         return self._sock.fileno()
 
     def local_port(self) -> int:
@@ -340,3 +343,233 @@ class FakeSocket:
 
     def receive_all_datagrams(self) -> List[Tuple[Hashable, bytes]]:
         return self._network._receive_raw(self.addr)
+
+
+class DispatchHub:
+    """One bound UDP port serving MANY pool slots: the shared *dispatch
+    socket* (docs/DESIGN.md §23).
+
+    Where every match slot normally owns a bound fd (and with it about 2
+    syscalls per slot per tick), a DispatchHub binds ONE port, plus
+    ``siblings`` extra SO_REUSEPORT sockets when the platform has the option, so the kernel spreads inbound load across
+    several queues — and hands each slot a :class:`DispatchSocket` view.
+    Demux is by *source address*: each view ``claim``\\ s the remote
+    addresses that belong to its slot (the pool claims every endpoint and
+    spectator address it maps).  The native one-crossing drain
+    (``ggrs_net_recv_table``) does the same demux in C through the pool's
+    sorted route table; this class carries the reference Python demux so
+    the mode degrades per-feature when the native library is absent.
+
+    Datagrams from unclaimed sources are dropped and counted
+    (``unroutable``) — exactly what real UDP does to packets nobody
+    listens for.  Outbound shares the primary fd (peers see one stable
+    source port), with ``UdpNonBlockingSocket``'s transient-errno-as-loss
+    semantics.
+    """
+
+    def __init__(self, port: int = 0, siblings: int = 0) -> None:
+        self.reuseport = hasattr(_socket, "SO_REUSEPORT")
+        n = 1 + (siblings if self.reuseport else 0)
+        self._socks: List[_socket.socket] = []
+        bound_port = port
+        for _ in range(n):
+            s = _socket.socket(_socket.AF_INET, _socket.SOCK_DGRAM)
+            if n > 1:
+                # must be set on EVERY socket (the first included) before
+                # bind, or the siblings' binds fail with EADDRINUSE
+                s.setsockopt(_socket.SOL_SOCKET, _socket.SO_REUSEPORT, 1)
+            s.bind(("0.0.0.0", bound_port))
+            s.setblocking(False)
+            # a shared fd aggregates MANY slots' inbound between drains;
+            # the default SO_RCVBUF (~208 KiB) holds only a few hundred
+            # skb-padded datagrams, so a B>=256 pool overflows it every
+            # tick and the kernel drops are invisible (no errno, no
+            # counter).  Ask deep; the kernel clamps to net.core.rmem_max.
+            try:
+                s.setsockopt(_socket.SOL_SOCKET, _socket.SO_RCVBUF, 8 << 20)
+            except OSError:
+                pass
+            if bound_port == 0:
+                bound_port = s.getsockname()[1]
+            self._socks.append(s)
+        self.gro = False
+        self.stats = NetworkStats()
+        self.io_syscalls = 0
+        self.unroutable = 0
+        self._claims: Dict[Hashable, "DispatchSocket"] = {}
+        self._views: List["DispatchSocket"] = []
+        self._recv_buf = bytearray(RECV_BUFFER_SIZE)
+        self._recv_view = memoryview(self._recv_buf)
+
+    def view(self) -> "DispatchSocket":
+        v = DispatchSocket(self, primary=not self._views)
+        self._views.append(v)
+        return v
+
+    def filenos(self) -> List[int]:
+        """Every bound fd (primary + SO_REUSEPORT siblings) — ALL must be
+        drained; the kernel hashes inbound flows across them."""
+        return [s.fileno() for s in self._socks]
+
+    def local_port(self) -> int:
+        return self._socks[0].getsockname()[1]
+
+    def enable_gro(self) -> bool:
+        """Ask the kernel to coalesce inbound UDP trains (``UDP_GRO``) on
+        every sibling fd.  ONLY the pool's native
+        one-crossing drain may enable this: the reference Python
+        :meth:`drain` reads into a ``RECV_BUFFER_SIZE`` buffer and would
+        mis-handle a coalesced train, so the caller flips GRO on exactly
+        when ``ggrs_net_recv_table`` (which splits trains back into wire
+        datagrams) covers these fds.  Idempotent; returns whether GRO is
+        now on."""
+        if self.gro:
+            return True
+        ok = True
+        # SOL_UDP=17 / UDP_GRO=104: numeric because pre-3.12 socket
+        # modules don't export UDP_GRO
+        sol_udp = getattr(_socket, "IPPROTO_UDP", 17)
+        udp_gro = getattr(_socket, "UDP_GRO", 104)
+        for s in self._socks:
+            try:
+                s.setsockopt(sol_udp, udp_gro, 1)
+            except OSError:
+                ok = False
+                break
+        self.gro = ok
+        return ok
+
+    def claim(self, addr: Hashable, view: "DispatchSocket") -> None:
+        self._claims[addr] = view
+
+    def release(self, view: "DispatchSocket") -> None:
+        """Drop every claim owned by ``view`` (slot detached/evicted)."""
+        self._claims = {
+            a: v for a, v in self._claims.items() if v is not view
+        }
+
+    def send_datagram(self, data: bytes, addr: Tuple[str, int]) -> None:
+        if len(data) > IDEAL_MAX_UDP_PACKET_SIZE:
+            _OBS_OVERSIZED.inc()
+        self.io_syscalls += 1
+        _OBS_SENDTO.inc()
+        try:
+            self._socks[0].sendto(data, addr)
+        except OSError as e:
+            if e.errno not in _TRANSIENT_SEND_ERRNOS:
+                raise
+            self.stats.send_errors += 1
+            _OBS_SEND_ERRORS.inc()
+            logger.debug("dispatch send to %s failed transiently: %s",
+                         addr, e)
+
+    def drain(self) -> None:
+        """Reference Python demux: sweep every sibling fd dry, bucketing
+        datagrams into the claiming view's pending queue in arrival order
+        (per fd).  Same errno semantics as
+        ``UdpNonBlockingSocket.receive_all_datagrams``."""
+        buf, view = self._recv_buf, self._recv_view
+        claims = self._claims
+        calls = 0
+        for s in self._socks:
+            while True:
+                calls += 1
+                try:
+                    n, src = s.recvfrom_into(buf, RECV_BUFFER_SIZE)
+                except BlockingIOError:
+                    break
+                except ConnectionError:
+                    continue
+                owner = claims.get(src)
+                if owner is None:
+                    self.unroutable += 1
+                    continue
+                owner._pending.append((src, bytes(view[:n])))
+        self.io_syscalls += calls
+        _OBS_RECVFROM.inc(calls)
+
+    def close(self) -> None:
+        for s in self._socks:
+            s.close()
+
+    def __del__(self) -> None:  # pragma: no cover
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+class DispatchSocket:
+    """One slot's view of a :class:`DispatchHub`: a ``NonBlockingSocket``
+    whose receive side sees exactly the datagrams whose source address the
+    slot claimed.  ``is_dispatch`` marks it for the pool: never attached
+    to the in-crossing NetBatch path (the hub's fds are SHARED: per-slot
+    fault isolation needs the record-level dispatch flag of the table paths,
+    not a whole-fd attach)."""
+
+    is_dispatch = True
+
+    def __init__(self, hub: DispatchHub, primary: bool) -> None:
+        self.hub = hub
+        self._primary = primary
+        self._pending: List[Tuple[Tuple[str, int], bytes]] = []
+
+    @property
+    def io_syscalls(self) -> int:
+        # the hub's syscalls are shared work: report them once, on the
+        # primary view, so summing a pool's sockets stays truthful
+        return self.hub.io_syscalls if self._primary else 0
+
+    @property
+    def stats(self) -> NetworkStats:
+        return self.hub.stats
+
+    def fileno(self) -> int:
+        return self.hub.filenos()[0]
+
+    def local_port(self) -> int:
+        return self.hub.local_port()
+
+    def claim(self, addr: Hashable) -> None:
+        self.hub.claim(addr, self)
+
+    def send_to(self, msg: Message, addr: Tuple[str, int]) -> None:
+        self.hub.send_datagram(msg.encode(), addr)
+
+    def send_datagram(self, data: bytes, addr: Tuple[str, int]) -> None:
+        self.hub.send_datagram(bytes(data), addr)
+
+    def send_datagram_batch(
+        self, items: List[Tuple[bytes, Tuple[str, int]]]
+    ) -> None:
+        send = self.hub.send_datagram
+        for data, addr in items:
+            send(bytes(data), addr)
+
+    def receive_all_messages(self) -> List[Tuple[Tuple[str, int], Message]]:
+        received: List[Tuple[Tuple[str, int], Message]] = []
+        for src, data in self.receive_all_datagrams():
+            try:
+                received.append((src, Message.decode(data)))
+            except WireError:
+                continue
+        return received
+
+    def receive_all_datagrams(self) -> List[Tuple[Tuple[str, int], bytes]]:
+        self.hub.drain()
+        out, self._pending = self._pending, []
+        return out
+
+    def take_pending(self) -> List[Tuple[Tuple[str, int], bytes]]:
+        """Hand over what a prior ``hub.drain()`` already bucketed here
+        WITHOUT re-draining the hub — the ingress forwarding pump drains
+        once per cycle and then collects every view (one drain sweep for
+        N virtual endpoints, not N sweeps)."""
+        out, self._pending = self._pending, []
+        return out
+
+    def close(self) -> None:
+        # the hub owns the fds; a single slot closing must not kill the
+        # co-tenants.  Claims are released so late datagrams count as
+        # unroutable instead of queueing forever.
+        self.hub.release(self)

@@ -58,10 +58,29 @@ crossing per scrape (cached per tick).  ``network_stats(index, handle)``
 returns ``P2PSession.network_stats``'s shape for native, quarantined and
 evicted slots alike.
 
-Not in this module yet: the kernel-batched socket datapath
-(``native_io=True``, which raises), the inbound recv table, GSO/GRO, shared
-dispatch sockets and the parallel decode plane; the bank's spectator fan-out
-and confirmed-stream tap.  Incoming datagrams are drained per socket.
+NATIVE I/O (docs/DESIGN.md §15, §23): with ``native_io=True`` each slot's
+UDP fd is attached to the kernel-batched datapath (native/net_batch.cpp) and
+the tick crossing becomes ``ggrs_bank_pump``: datagrams flow socket ->
+crossing -> socket through recvmmsg/sendmmsg with ZERO Python on the packet
+path, with the same wire bytes in the same send order, one receive drain and
+one send flush per slot per tick.  Fallback is per slot, the JAX package's:
+unattachable sockets (in-memory networks, wrappers without fileno,
+unresolvable addresses, non-Linux, ``GGRS_TPU_NO_NATIVE_IO``) keep the
+Python shuttle, and ``io_state(i)`` says so.  Every other fd-backed socket,
+private or a view on a shared ``net.sockets.DispatchHub``, is drained by ONE
+``ggrs_net_recv_table`` crossing a tick (the native demux routes by source
+address; GRO is armed on covered hubs), unless ``GGRS_TPU_NO_RECV_TABLE``
+asks for the per-socket drain; spectator fan-out flushes through the native
+send table, GSO-coalesced unless ``GGRS_TPU_NO_GSO``.  Slow slots' records
+decode on a ``parallel.decode_pool.DecodePool`` when its backend is not
+``serial``; their side effects replay on the owning thread in slot order.
+
+BROADCAST (docs/DESIGN.md §13): with a ``broadcast.SpectatorHub`` attached
+before the first tick, matches with spectators are bank-eligible; the bank
+fans each slot's confirmed inputs out to its viewers and taps the confirmed
+stream into a ``MatchJournal`` inside the one tick crossing.  An evicted
+slot's viewers are grafted onto the resumed Python session, and a journal
+can stand in for a failed harvest (``MatchJournal.recovery_harvest``).
 """
 
 from __future__ import annotations
@@ -165,14 +184,12 @@ _HDR_DTYPE = np.dtype(list(_native.BANK_HDR_FIELDS))
 _REQ_DTYPE = np.dtype(list(_native.BANK_REQ_FIELDS))
 _STAGE_DTYPE = np.dtype(list(_native.BANK_STAGE_FIELDS))
 _SEND_DTYPE = np.dtype(list(_native.NET_SEND_FIELDS))
+_RECV_DTYPE = np.dtype(list(_native.NET_RECV_FIELDS))
 # per-session command flag bytes (session_bank.cpp kFlag*, mirrored as
 # _native.CMD_FLAG_*; ggrs-verify pins the pairs equal)
 _CMD_INPUTS = bytes([_native.CMD_FLAG_INPUTS])
 _CMD_SKIP = bytes([_native.CMD_FLAG_SKIP])
 _CMD_STAGED = bytes([_native.CMD_FLAG_INPUTS | _native.CMD_FLAG_STAGED])
-# the command stream's per-slot spectator-datagram count: the library speaks
-# the broadcast layout, and this pool attaches no fan-out endpoint
-_NO_SPEC_DATAGRAMS = struct.pack("<H", 0)
 # resume bundles cross process boundaries: pin the pickle protocol (the JAX
 # package's fleet.rpc.PICKLE_PROTOCOL), so that either package reads them
 _BUNDLE_PICKLE_PROTOCOL = 4
@@ -257,8 +274,6 @@ _SLOT_TRANSITION_SET = frozenset(SLOT_TRANSITIONS)
 EVICT_MAX_ATTEMPTS = 3
 EVICT_BACKOFF_TICKS = 8
 EVICT_MAX_PER_TICK = 4
-# events each slot's flight recorder keeps
-FLIGHT_RECORDER_EVENTS = 256
 
 
 def _evict_jitter(index: int, attempt: int) -> int:
@@ -320,24 +335,6 @@ def _uvarint_len(v: int) -> int:
     return n
 
 
-def _skip_broadcast_tail(buf, pos: int) -> int:
-    """Jump over a slot record's broadcast tail (spectator mirrors, the
-    fan-out streams, hub events, the confirmed-stream tap) and return the
-    position after it.  The library speaks the broadcast layout; this pool
-    attaches no fan-out endpoint and no confirmed stream, so every count
-    in it is 0 unless the layout drifted, which is an error here."""
-    _next_spec, n_specs = struct.unpack_from("<qB", buf, pos)
-    pos += 9
-    (n_spec_out,) = struct.unpack_from("<H", buf, pos + 9 * n_specs)
-    (n_spec_events,) = struct.unpack_from("<H", buf, pos + 9 * n_specs + 2)
-    (n_conf,) = struct.unpack_from("<H", buf, pos + 9 * n_specs + 4)
-    if n_specs or n_spec_out or n_spec_events or n_conf:
-        raise RuntimeError(
-            "bank output carries spectator or confirmed-stream records, "
-            "which this pool never attaches (output layout drift)"
-        )
-    return pos + 6
-
 def _phase_names(n_ph: int):
     """The ``n_ph`` phase names of a timing tail (shared by the tick-tail
     and stats-tail parsers); the library is built from the same sources as
@@ -348,13 +345,17 @@ def _phase_names(n_ph: int):
     return _native.BANK_PHASES[:n_ph]
 
 
-def _bank_eligible(builder) -> bool:
+def _bank_eligible(builder, hub_active: bool = False) -> bool:
     """Can this builder's session run on the native bank mechanism?  The
     checks mirror the bank's scope; anything outside it uses the Python
-    sessions (identical semantics, per-session cost).  A match with
-    spectators is outside it here: the bank's spectator fan-out waits for
-    the broadcast hub, so such a match runs as a Python session (the JAX
-    package's hubless behavior)."""
+    sessions (identical semantics, per-session cost).
+
+    ``hub_active``: a ``broadcast.SpectatorHub`` owns spectator relaying for
+    this pool.  A match with spectators is then bank-eligible: the bank fans
+    the confirmed-input stream out natively inside the tick crossing.
+    Hubless callers keep the JAX package's behavior: spectator matches run
+    as per-session Python sessions, whose own relay path is the semantic
+    reference."""
     cfg = builder._config
     from ..core.sync_layer import _native_sync_semantics_ok
     from ..core.types import Spectator
@@ -367,7 +368,9 @@ def _bank_eligible(builder) -> bool:
         return False
     if builder._local_players < 1 or builder._num_players > 64:
         return False
-    if any(isinstance(t, Spectator) for t in builder._player_reg.handles.values()):
+    if not hub_active and any(
+        isinstance(t, Spectator) for t in builder._player_reg.handles.values()
+    ):
         return False
     # worst-case packet must fit the native staging caps
     size = cfg.native_input_size
@@ -491,6 +494,24 @@ class _EndpointMirror:
         self.pending_checksums: Dict[Frame, int] = {}
 
 
+class _SpectatorMirror:
+    """Python-side view of one native fan-out (spectator) endpoint: the
+    identity plus the hub-facing state (attach handles, liveness, the ack
+    watermark the catchup-lag gauge reads, and the one-tick datagram
+    deferral that reproduces the Python session's flush order)."""
+
+    __slots__ = ("addr", "magic", "handles", "running", "last_acked",
+                 "deferred")
+
+    def __init__(self, addr, magic: int, handles: List[int]):
+        self.addr = addr
+        self.magic = magic
+        self.handles = handles  # builder spectator handles ([] = hub-joined)
+        self.running = True
+        self.last_acked: Frame = NULL_FRAME
+        self.deferred: List[bytes] = []  # fan-out datagrams, sent next tick
+
+
 class _SessionMirror:
     """Python-side policy state for one bank session."""
 
@@ -499,11 +520,14 @@ class _SessionMirror:
         "local_handles", "local_handle_set", "endpoints", "addr_to_ep",
         "saved_states", "current_frame", "last_confirmed", "frames_ahead",
         "local_disc", "local_last", "event_queue", "next_recommended_sleep",
-        "staged_inputs", "pending_ctrl", "send_raw",
-        # vectorized policy plane: the pooled request-object caches the fast
-        # path refills in place, valid until the next advance_all like the
+        "staged_inputs", "pending_ctrl",
+        "spectators", "addr_to_spec", "next_spec_frame", "send_raw",
+        # vectorized policy plane: the byte length of this slot's
+        # status-mirror section (to jump to the broadcast tail without
+        # parsing) and the pooled request-object caches the fast path
+        # refills in place, valid until the next advance_all like the
         # scrape records
-        "pooled_list", "pool_saves", "pool_loads",
+        "mirror_len", "pooled_list", "pool_saves", "pool_loads",
         "pool_advs",
         # descriptor plane (DESIGN.md §21): the set of handles staged
         # NATIVELY this tick (ggrs_bank_stage_inputs — the blobs live in
@@ -533,6 +557,12 @@ class _SessionMirror:
         self.next_recommended_sleep: Frame = 0
         self.staged_inputs: Dict[int, bytes] = {}
         self.pending_ctrl: List[Tuple[int, int, Frame]] = []
+        # broadcast fan-out (hub-owned): mirrors of the slot's native
+        # spectator endpoints, plus the next-frame cursor the attach policy
+        # reads (native truth, refreshed from every tick's broadcast tail)
+        self.spectators: List[_SpectatorMirror] = []
+        self.addr_to_spec: Dict[Any, int] = {}
+        self.next_spec_frame: Frame = 0
         # raw datagram send: the socket's send_datagram when it has one
         # (no RawMessage wrapper, no re-encode), else a send_to shim —
         # bound once at finalization, called per outbound datagram
@@ -552,6 +582,7 @@ class _SessionMirror:
         # vectorized policy plane: filled by _finalize on the native path.
         # The pools grow to the deepest tick seen (rollback resims append
         # extra save/advance pairs) and are reused in place from then on.
+        self.mirror_len = 0
         self.pooled_list: List[Any] = []
         self.pool_saves: List[SaveGameState] = []
         self.pool_loads: List[LoadGameState] = []
@@ -592,15 +623,66 @@ class HostSessionPool:
     def __init__(self, retire_dead_matches: bool = False,
                  metrics: Optional[Registry] = None,
                  tracer: Optional[Tracer] = None,
-                 native_io: bool = False) -> None:
-        if native_io:
-            # the kernel-batched socket datapath (ggrs_bank_pump, the recv
-            # table, GSO/GRO) is ROADMAP queue A's datapath item; no quiet
-            # fall back to the Python shuttle here
-            raise NotImplementedError(
-                "native_io=True is not ported yet (ROADMAP queue A: the "
-                "datapath item); pools drain each socket in Python"
-            )
+                 flight_recorder_size: int = 256,
+                 native_io: bool = False,
+                 evict_max_per_tick: Optional[int] = None) -> None:
+        # per-pool override of the eviction storm clamp (None = the module
+        # default); the fleet layer passes its tuning's value through
+        self._evict_max_per_tick = (
+            EVICT_MAX_PER_TICK if evict_max_per_tick is None
+            else evict_max_per_tick
+        )
+        # native_io (docs/DESIGN.md §15): attach each slot's UDP fd to the
+        # kernel-batched datapath (net_batch.cpp) so datagrams flow
+        # socket -> crossing -> socket with zero Python on the packet path
+        # (one recvmmsg + one sendmmsg per slot per tick instead of one
+        # syscall per datagram).  Per-slot fallback to the Python shuttle
+        # whenever the fd is not native-attachable: in-memory networks,
+        # wrapped sockets, unresolvable peer addresses, non-Linux builds,
+        # GGRS_TPU_NO_NATIVE_IO=1.
+        self.native_io = native_io
+        self._use_pump = False
+        self._net_handles: List[Optional[int]] = []
+        self._io_attached: List[bool] = []
+        self._io_live: List[int] = []  # attached slot indices (the io-delta
+        # walk is driven by this list, not range(B))
+        self._io_prev: Dict[Tuple[int, int], int] = {}  # (slot, word) deltas
+        # final counter snapshots of detached/evicted slots: io_stats()
+        # totals must never regress when a NetBatch is released
+        self._io_final: Dict[int, Dict[str, Any]] = {}
+        # ---- the one-crossing inbound drain (docs/DESIGN.md §23) over all
+        # non-attached fd-backed sockets (ggrs_net_recv_table), shared
+        # dispatch sockets and GSO fan-out.  The drain tables are rebuilt
+        # by _refresh_drain() on any membership/state change.
+        self._drain_ok = False
+        self._drain_fd_tab = b""      # packed NET_FD_STRIDE entries
+        self._drain_route_tab = b""   # packed NET_ROUTE_STRIDE entries
+        self._drain_n_fds = 0
+        self._drain_n_routes = 0
+        self._drain_fd_fault: List[List[int]] = []  # fd_idx -> slots to
+        # fault on a fatal recv errno (one slot per private fd; every
+        # routed slot for a shared dispatch fd)
+        self._drain_covered: List[bool] = []  # slot served by the drain
+        self._drain_covered_keys: List[int] = []  # covered slot indices
+        self._drain_wire: List[Optional[Dict]] = []  # slot ->
+        # {(ip, port): ('e'|'s', idx)}: the Python-side half of the demux
+        self._drain_deliver: Dict[int, Any] = {}  # quarantined/evicted
+        # co-tenant on a shared hub -> its view (records go to _pending)
+        self._drain_recs: Optional[ctypes.Array] = None
+        self._drain_recs_cap = 0
+        self._drain_slab: Optional[ctypes.Array] = None
+        self._drain_slab_cap = 0
+        self._drain_totals = dict.fromkeys(
+            _native.NET_RECV_TABLE_STAT_FIELDS, 0
+        )
+        self._drain_hist = [0] * (len(_native.IO_BATCH_BUCKETS) + 1)
+        self.drain_crossings = 0  # ggrs_net_recv_table invocations
+        self.drain_ns = 0  # wall ns in _drain_inbound (profiling split)
+        self._send_flags: List[int] = []  # per-slot NET_SEND_FIELDS flags
+        self._gso_totals = {"gso_sends": 0, "gso_segments": 0}
+        self._gro_on = False  # UDP_GRO armed on >=1 covered hub
+        self._decode_pool = None  # parallel slow-slot decode plane (§24)
+        self.decode_parallel_ticks = 0  # ticks that fanned decode out
         self._builders: List[Tuple[Any, Any]] = []
         self._finalized = False
         self._native_active = False
@@ -667,6 +749,7 @@ class HostSessionPool:
         m = self.metrics
         self._obs_on = m.enabled
         self._recorders: List[Optional[FlightRecorder]] = []
+        self._flight_capacity = flight_recorder_size
         # ---- tracing (DESIGN.md §14) ----
         # tracer: tick -> crossing -> slot spans on the Python side; when
         # the library carries ggrs_bank_set_timing, the native per-phase
@@ -747,22 +830,75 @@ class HostSessionPool:
         self._m_rollbacks = m.counter(
             "ggrs_pool_rollbacks_total",
             "rollback decisions executed by pooled slots")
-        # spectator catch-up lag of the Python-path sessions' viewers
+        # ---- broadcast (docs/DESIGN.md §13): fan-out + journal
+        # observability ----
+        self._m_fanout_dgrams = m.counter(
+            "ggrs_fanout_datagrams_total",
+            "confirmed-input datagrams fanned out to spectators",
+            labels=("slot",))
+        self._m_fanout_bytes = m.counter(
+            "ggrs_fanout_bytes_total",
+            "wire bytes fanned out to spectators", labels=("slot",))
+        self._m_spectators = m.gauge(
+            "ggrs_spectators_attached",
+            "spectator endpoints attached per slot", labels=("slot",))
         self._m_spec_lag = m.gauge(
             "ggrs_spectator_catchup_lag",
             "frames broadcast but not yet acked by the viewer",
             labels=("slot", "spectator"))
-        # the native send table's transient-error and oversize counts
+        # ---- batched I/O (docs/DESIGN.md §15): refreshed from the scrape's
+        # per-slot io tail (the native counters ride the SAME one-crossing
+        # stats harvest; nothing here touches the packet path) ----
+        self._m_io_syscalls = m.counter(
+            "ggrs_io_syscalls_total",
+            "socket syscalls by kind (sendto/recvfrom = per-datagram "
+            "Python path; recvmmsg/sendmmsg = kernel-batched native path)",
+            labels=("kind",))
+        self._m_io_dgrams = m.counter(
+            "ggrs_io_datagrams_total",
+            "datagrams moved by the kernel-batched datapath, by direction",
+            labels=("dir",))
         self._m_io_send_errors = m.counter(
             "ggrs_io_send_errors_total",
             "transient native send failures counted as packet loss")
         self._m_io_oversized = m.counter(
             "ggrs_io_oversized_total",
             "natively-sent datagrams above the ideal UDP size")
+        self._m_io_recv_batch = m.histogram(
+            "ggrs_io_recv_batch_size",
+            "datagrams per recvmmsg call", buckets=_native.IO_BATCH_BUCKETS)
+        self._m_io_send_batch = m.histogram(
+            "ggrs_io_send_batch_size",
+            "datagrams per sendmmsg call", buckets=_native.IO_BATCH_BUCKETS)
+        self._m_io_recvmmsg = self._m_io_syscalls.labels(kind="recvmmsg")
+        self._m_io_sendmmsg = self._m_io_syscalls.labels(kind="sendmmsg")
+        self._m_io_dgrams_in = self._m_io_dgrams.labels(dir="in")
+        self._m_io_dgrams_out = self._m_io_dgrams.labels(dir="out")
         self._m_fast_slots = m.counter(
             "ggrs_pool_fastpath_slots_total",
             "slot ticks served by the vectorized quiet path (no per-slot "
             "body parse)")
+        # the one-crossing inbound drain + GSO (docs/DESIGN.md §23)
+        self._m_drain_crossings = m.counter(
+            "ggrs_io_drain_crossings_total",
+            "ggrs_net_recv_table invocations (one per pool tick when the "
+            "batched inbound drain is active)")
+        self._m_drain_dgrams = m.counter(
+            "ggrs_io_drain_datagrams_total",
+            "datagrams moved by the one-crossing inbound drain")
+        self._m_drain_unroutable = m.counter(
+            "ggrs_io_drain_unroutable_total",
+            "dispatch-socket datagrams dropped for an unclaimed source")
+        self._m_drain_batch = m.histogram(
+            "ggrs_io_drain_batch_size",
+            "datagrams per recvmmsg call on the batched inbound drain",
+            buckets=_native.IO_BATCH_BUCKETS)
+        self._m_gso_sends = m.counter(
+            "ggrs_io_gso_sends_total",
+            "UDP_SEGMENT segmented sends on the batched outbound path")
+        self._m_gso_segments = m.counter(
+            "ggrs_io_gso_segments_total",
+            "datagrams coalesced into UDP_SEGMENT segmented sends")
         self._quarantined_at: Dict[int, int] = {}  # index -> quarantine tick
         self._stats_cache: Optional[Tuple[int, List[Dict[str, Any]]]] = None
         self._setter_cache: Dict[int, Any] = {}  # slot -> prebound gauge sets
@@ -770,6 +906,9 @@ class HostSessionPool:
         # resolution (str() + dict walk) off the scrape loop, like
         # _setter_cache — part of the B=256 allocation-free scrape pin
         self._spec_setter_cache: Dict[int, List[Any]] = {}
+        # slot -> prebound (datagrams.inc, bytes.inc): label resolution off
+        # the per-tick fan-out send loop, like _setter_cache for scrapes
+        self._fanout_counters: Dict[int, Tuple[Any, Any]] = {}
         self._scrape_buf: Optional[ctypes.Array] = None  # persistent (GC)
         self._bank_records: Optional[List[Dict[str, Any]]] = None
         # scrape-refreshed gauges (set by scrape(), one label set per slot /
@@ -827,6 +966,17 @@ class HostSessionPool:
         self._evict_next_try: Dict[int, int] = {}
         self._inject_dgrams: Dict[int, List[Tuple[int, bytes]]] = {}
         self._inject_err: Dict[int, int] = {}
+        # ---- broadcast seams (broadcast/) ----
+        # _spectator_hub: the SpectatorHub that owns relay policy for this
+        # pool (set by SpectatorHub.__init__, must precede finalization);
+        # _journal_sinks: per-slot confirmed-stream consumers
+        # (MatchJournal.append_frames signature); _journal_recovery holds
+        # per-slot callables that synthesize a harvest-shaped resume dict
+        # from the journal tail when ggrs_bank_harvest itself fails (crash
+        # recovery).
+        self._spectator_hub: Optional[Any] = None
+        self._journal_sinks: Dict[int, Any] = {}
+        self._journal_recovery: Dict[int, Any] = {}
 
     # ------------------------------------------------------------------
     # construction
@@ -844,8 +994,10 @@ class HostSessionPool:
         self._finalized = True
         self._slot_state = [SLOT_NATIVE] * len(self._builders)
         self._fault_log = [[] for _ in self._builders]
+        self._net_handles = [None] * len(self._builders)
+        self._io_attached = [False] * len(self._builders)
         self._recorders = [
-            FlightRecorder(FLIGHT_RECORDER_EVENTS) if self._obs_on else None
+            FlightRecorder(self._flight_capacity) if self._obs_on else None
             for _ in self._builders
         ]
         if self._builders:
@@ -889,8 +1041,10 @@ class HostSessionPool:
                     return False
             return True
 
+        hub_active = self._spectator_hub is not None and lib is not None
         eligible = lib is not None and same_timebase() and all(
-            _bank_eligible(b) and hasattr(s, "receive_all_datagrams")
+            _bank_eligible(b, hub_active=hub_active)
+            and hasattr(s, "receive_all_datagrams")
             for b, s in self._builders
         )
         if not eligible:
@@ -970,6 +1124,46 @@ class HostSessionPool:
                     _EndpointMirror(addr, handles, magic,
                                     builder._num_players)
                 )
+            # builder-declared spectators (hub-owned relay): native fan-out
+            # endpoints, created AFTER the remotes with the same rng draws
+            # start_p2p_session would make, so the remote endpoints' magic
+            # numbers — and hence the host's remote-facing wire bytes —
+            # are bit-identical to the per-session baseline
+            spectator_by_addr: Dict[Any, List[int]] = {}
+            for handle, ptype in builder._player_reg.handles.items():
+                if isinstance(ptype, Spectator):
+                    spectator_by_addr.setdefault(ptype.addr, []).append(
+                        handle
+                    )
+            for addr, handles in spectator_by_addr.items():
+                rng = builder._rng if builder._rng is not None else (
+                    random.Random()
+                )
+                magic = draw_magic(rng)
+                sp_idx = lib.ggrs_bank_attach_spectator(
+                    self._bank, idx, magic, now
+                )
+                if sp_idx < 0:
+                    raise RuntimeError(
+                        f"ggrs_bank_attach_spectator failed: {sp_idx}"
+                    )
+                mirror.addr_to_spec[addr] = int(sp_idx)
+                mirror.spectators.append(
+                    _SpectatorMirror(addr, magic, sorted(handles))
+                )
+            if mirror.spectators:
+                self._m_spectators.labels(slot=str(idx)).set(
+                    len(mirror.spectators)
+                )
+            # fast-path geometry: the status-mirror section's byte length
+            # (u8 n_eps + per-endpoint u8 state + players*(u8,i64) + the
+            # local players*(u8,i64) tail): the jump from the outbound
+            # sections to the broadcast tail without a positional parse
+            mirror.mirror_len = (
+                1
+                + len(mirror.endpoints) * (1 + 9 * mirror.num_players)
+                + 9 * mirror.num_players
+            )
             self._mirrors.append(mirror)
         self._clock = self._builders[0][0]._clock
         # output buffer sized to the worst realistic tick (rollback resim
@@ -983,7 +1177,8 @@ class HostSessionPool:
                 4096
                 + (m.max_prediction + 4) * (16 + adv_bytes)
                 + len(m.endpoints) * (2048 + 32 * m.num_players)
-                + (m.max_prediction + 4) * (16 + adv_bytes),
+                + len(m.spectators) * 2048
+                + (m.max_prediction + 4) * (16 + adv_bytes),  # journal tap
             )
         self._out_buf = ctypes.create_string_buffer(
             max(1 << 16, per_session * len(self._mirrors)
@@ -998,24 +1193,61 @@ class HostSessionPool:
         self._stagers = [
             self._make_stager(i) for i in range(len(self._mirrors))
         ]
-        # batched outbound eligibility: fd-backed sockets flush through the
-        # one-crossing native send table
+        # ---- batched socket datapath (docs/DESIGN.md §15) ----
+        # opt-in, per-slot, and failure is always a clean per-slot fallback
+        # to the Python shuttle, never an error.  net_lib() is None when
+        # the platform has no recvmmsg/sendmmsg or GGRS_TPU_NO_NATIVE_IO is
+        # set.
+        if self.native_io and _native.net_lib() is lib:
+            for i, m in enumerate(self._mirrors):
+                self._try_attach_io(i, m)
+            # pump only when someone actually attached: with zero attached
+            # slots the pump is semantically the tick but pays a per-tick
+            # cmd re-parse for its pre-drain scan
+            self._use_pump = any(self._io_attached)
+        # batched outbound eligibility, after the io attach pass, so
+        # NetBatch-attached slots (whose sends never re-enter Python) are
+        # excluded
         self._send_fds = [None] * len(self._mirrors)
         self._ep_wire = [None] * len(self._mirrors)
+        self._send_flags = [0] * len(self._mirrors)
         for i in range(len(self._mirrors)):
             self._refresh_send_fd(i)
+        # ---- the one-crossing inbound drain, GSO, GRO (§23) ----
+        # GSO posture: the env switch is applied once, process-wide (the
+        # probe result itself is cached in the library); the per-feature
+        # fallback matrix is reported by io_capabilities()
+        lib.ggrs_net_set_gso(0 if os.environ.get("GGRS_TPU_NO_GSO") else -1)
+        self._refresh_drain()
+        # parallel slow-slot decode plane (§24): backend resolved once per
+        # pool (env kill switch / force inside the constructor); "serial"
+        # means the pool object exists for the capability matrix but every
+        # decode stays on the inline _parse_slot reference
+        if self._decode_pool is None and self._native_active:
+            from .decode_pool import DecodePool
+
+            self._decode_pool = DecodePool()
 
     def _refresh_send_fd(self, index: int) -> None:
         """(Re)compute slot ``index``'s native batched-outbound
-        eligibility: an fd-backed socket whose endpoint addresses resolve
-        to (ipv4, port) sends through the one-crossing
-        ``ggrs_net_send_table`` flush.  Everything else (in-memory networks,
-        wrapped sockets, unresolvable addresses, a library without
-        ``sendmmsg``) keeps the Python batch and per-datagram paths."""
+        eligibility: an fd-backed, non-NetBatch-attached socket whose
+        endpoint addresses resolve to (ipv4, port) sends through the
+        one-crossing ``ggrs_net_send_table`` flush.  Everything else
+        (in-memory networks, wrapped sockets, unresolvable addresses,
+        non-Linux, ``GGRS_TPU_NO_NATIVE_IO``) keeps the Python batch and
+        per-datagram paths."""
+        if not self._send_fds:
+            return
         self._send_fds[index] = None
         self._ep_wire[index] = None
+        if self._send_flags:
+            self._send_flags[index] = 0
         m = self._mirrors[index]
-        if not self._lib.ggrs_net_supported():
+        if (
+            not self._lib.ggrs_net_supported()
+            or os.environ.get("GGRS_TPU_NO_NATIVE_IO")
+            or self._io_attached[index]
+        ):
             return
         fileno = getattr(m.socket, "fileno", None)
         if fileno is None:
@@ -1034,6 +1266,11 @@ class HostSessionPool:
             return
         self._send_fds[index] = fd
         self._ep_wire[index] = wire
+        if self._send_flags and getattr(m.socket, "is_dispatch", False):
+            # shared dispatch fd: a fatal errno on one record must fault
+            # only the owning slot, so the native flush skips the record
+            # instead of abandoning the co-tenants' run
+            self._send_flags[index] = _native.NET_SEND_FLAG_DISPATCH
 
     @staticmethod
     def _resolve_wire_addr(addr) -> Tuple[int, int]:
@@ -1047,6 +1284,452 @@ class HostSessionPool:
         # into sin_addr.s_addr, so the bytes must round-trip unchanged
         # (wire_common.h refuses to build on big-endian hosts)
         return int.from_bytes(packed, "little"), int(port)
+
+    def _try_attach_io(self, index: int, m: _SessionMirror) -> None:
+        """Attach one slot's socket to the native datapath: the fd must be
+        a real one and every remote/spectator address must resolve to
+        (ipv4, port).  Any miss leaves the slot on the Python shuttle."""
+        lib = self._lib
+        if getattr(m.socket, "is_dispatch", False):
+            # shared dispatch fd (§23b): a whole-fd NetBatch attach would
+            # couple co-tenant faults; dispatch slots ride the table
+            # paths, whose per-record dispatch flag keeps §9 isolation
+            return
+        fileno = getattr(m.socket, "fileno", None)
+        if fileno is None:
+            return
+        try:
+            fd = fileno()
+        except Exception:
+            return
+        if not isinstance(fd, int) or fd < 0:
+            return
+        try:
+            eps = [
+                (idx,) + self._resolve_wire_addr(addr)
+                for addr, idx in m.addr_to_ep.items()
+            ]
+            sps = [
+                (idx,) + self._resolve_wire_addr(addr)
+                for addr, idx in m.addr_to_spec.items()
+            ]
+        except (TypeError, ValueError, OSError):
+            return
+        handle = lib.ggrs_net_attach(fd, 64)
+        if not handle:
+            return
+        if lib.ggrs_bank_attach_socket(self._bank, index, handle) != 0:
+            lib.ggrs_net_free(handle)
+            return
+        for idx, ip, port in eps:
+            lib.ggrs_bank_map_addr(self._bank, index, 0, idx, ip, port)
+        for idx, ip, port in sps:
+            lib.ggrs_bank_map_addr(self._bank, index, 1, idx, ip, port)
+        self._net_handles[index] = handle
+        self._io_attached[index] = True
+        self._io_live.append(index)
+
+    def _refresh_drain(self) -> None:
+        """(Re)build the gen-2 one-crossing inbound drain plan (§23a):
+        the packed fd table (every SLOT_NATIVE, non-NetBatch-attached,
+        fd-backed socket — dispatch hubs contribute their sibling fds
+        once, marked slot ``-1``), the sorted (ip, port) -> slot route
+        table the native demux binary-searches, and the per-slot wire
+        maps the Python side uses to turn records into the cmd stream's
+        ``(ep_idx, data)`` sections.  Any ineligible slot simply stays on
+        the per-slot ``receive_all_datagrams`` reference drain — the
+        per-feature fallback, never an error."""
+        self._drain_ok = False
+        if not self._finalized or not self._native_active:
+            return
+        # dispatch claims first, OUTSIDE the native gate: the hub's
+        # reference Python demux needs them even when ggrs_net_recv_table
+        # is unavailable (per-feature degradation)
+        for i, m in enumerate(self._mirrors):
+            sock = m.socket
+            if getattr(sock, "is_dispatch", False) and hasattr(
+                sock, "claim"
+            ):
+                for addr in m.addr_to_ep:
+                    sock.claim(addr)
+                for addr in m.addr_to_spec:
+                    sock.claim(addr)
+        lib = self._lib
+        if (
+            not lib.ggrs_net_supported()
+            or os.environ.get("GGRS_TPU_NO_NATIVE_IO")
+            or os.environ.get("GGRS_TPU_NO_RECV_TABLE")
+        ):
+            return
+        n = len(self._mirrors)
+        fd_rows: List[Tuple[int, int]] = []
+        fd_fault: List[List[int]] = []
+        route_rows: List[Tuple[int, int, int]] = []
+        covered = [False] * n
+        wire_maps: List[Optional[Dict]] = [None] * n
+        deliver: Dict[int, Any] = {}  # slot -> hub view (pending queue)
+        dispatch_idx: Dict[int, int] = {}  # shared fd -> fd table index
+        hubs: List[Any] = []  # covered dispatch hubs (GRO candidates)
+        for i, m in enumerate(self._mirrors):
+            sock = m.socket
+            if self._slot_state[i] != SLOT_NATIVE or self._io_attached[i]:
+                # §9 on a SHARED fd: a quarantined/evicted co-tenant's
+                # inbound still arrives on the hub socket the native
+                # drain keeps reading — dropping its routes would starve
+                # the Python-path session (its datagrams become
+                # unroutable drops).  Keep its routes and deliver its
+                # records into the view's pending queue, where the
+                # evicted session's receive path already looks.
+                if (
+                    getattr(sock, "is_dispatch", False)
+                    and self._slot_state[i] in (SLOT_QUARANTINED,
+                                                SLOT_EVICTED)
+                ):
+                    try:
+                        for addr in m.addr_to_ep:
+                            ip, port = self._resolve_wire_addr(addr)
+                            route_rows.append((ip, port, i))
+                        for addr in m.addr_to_spec:
+                            ip, port = self._resolve_wire_addr(addr)
+                            route_rows.append((ip, port, i))
+                    except (TypeError, ValueError, OSError):
+                        continue
+                    deliver[i] = sock
+                continue
+            fileno = getattr(sock, "fileno", None)
+            if fileno is None:
+                continue
+            try:
+                fd = fileno()
+            except Exception:
+                continue
+            if not isinstance(fd, int) or fd < 0:
+                continue
+            try:
+                wire: Dict[Tuple[int, int], Tuple[str, int]] = {}
+                for addr, idx in m.addr_to_ep.items():
+                    wire[self._resolve_wire_addr(addr)] = ("e", idx)
+                for addr, idx in m.addr_to_spec.items():
+                    wire[self._resolve_wire_addr(addr)] = ("s", idx)
+            except (TypeError, ValueError, OSError):
+                continue
+            if getattr(sock, "is_dispatch", False):
+                hub = getattr(sock, "hub", None)
+                if hub is None:
+                    continue
+                for fd2 in hub.filenos():
+                    at = dispatch_idx.get(fd2)
+                    if at is None:
+                        dispatch_idx[fd2] = len(fd_rows)
+                        fd_rows.append((fd2, -1))
+                        fd_fault.append([i])
+                    elif i not in fd_fault[at]:
+                        fd_fault[at].append(i)
+                if hub not in hubs:
+                    hubs.append(hub)
+                for ip, port in wire:
+                    route_rows.append((ip, port, i))
+            else:
+                fd_rows.append((fd, i))
+                fd_fault.append([i])
+            covered[i] = True
+            wire_maps[i] = wire
+        if not fd_rows:
+            return
+        pack = struct.pack
+        route_rows.sort(key=lambda r: (r[0] << 16) | r[1])
+        self._drain_fd_tab = b"".join(
+            pack("<ii", fd, slot) for fd, slot in fd_rows
+        )
+        self._drain_route_tab = b"".join(
+            pack("<IHHi", ip, port, 0, slot)
+            for ip, port, slot in route_rows
+        )
+        self._drain_n_fds = len(fd_rows)
+        self._drain_n_routes = len(route_rows)
+        self._drain_fd_fault = fd_fault
+        self._drain_covered = covered
+        self._drain_covered_keys = [
+            i for i, c in enumerate(covered) if c
+        ]
+        self._drain_wire = wire_maps
+        self._drain_deliver = deliver
+        # GRO (§23d): every covered hub's inbound is now drained by the
+        # native recv table — which splits coalesced trains back into
+        # wire datagrams — so it is safe, and ONLY now, to let the kernel
+        # coalesce.  Hubs on the reference Python drain must never see
+        # GRO (drain() reads into a RECV_BUFFER_SIZE buffer).  The
+        # crossing's ring posture is process-wide, refreshed per plan
+        # like the GSO posture in _finalize.
+        gro_on = False
+        if (
+            hubs
+            and not os.environ.get("GGRS_TPU_NO_GRO")
+            and lib.ggrs_net_gro_supported()
+        ):
+            for hub in hubs:
+                if hub.enable_gro():
+                    gro_on = True
+        self._gro_on = gro_on
+        lib.ggrs_net_set_gro(1 if gro_on else 0)
+        if self._drain_recs is None:
+            # a GRO drain can legally turn ONE message into 64 records /
+            # 64 KiB of slab, and the crossing reserves that worst case
+            # before each syscall — size the buffers so the reserve never
+            # clamps a recvmmsg below the ring's full 64-message window
+            # (recs: 64 msgs x 64 segs; slab: 64 msgs x 64 KiB = 4 MiB),
+            # else an armed drain batches WORSE than the plain ring on
+            # traffic the kernel happens not to coalesce
+            if gro_on:
+                self._drain_recs_cap = max(4096, 4 * len(fd_rows))
+                self._drain_slab_cap = max(4 << 20, 4096 * len(fd_rows))
+            else:
+                self._drain_recs_cap = max(256, 4 * len(fd_rows))
+                self._drain_slab_cap = max(1 << 18, 4096 * len(fd_rows))
+            self._drain_recs = ctypes.create_string_buffer(
+                self._drain_recs_cap * _native.NET_RECV_STRIDE
+            )
+            self._drain_slab = ctypes.create_string_buffer(
+                self._drain_slab_cap
+            )
+        self._drain_ok = True
+
+    def _drain_inbound(self) -> Optional[Dict[int, Tuple[list, list]]]:
+        """The gen-2 inbound drain: ONE ctypes crossing pulls every
+        covered slot's pending datagrams (recvmmsg per fd, dispatch demux
+        in C) and this routine walks the packed record table once to
+        build each slot's ``(datagrams, spec_datagrams)`` cmd sections —
+        zero per-slot Python calls.  A fatal recv errno faults exactly
+        the owning slot(s) BEFORE the tick snapshot, so the faulted slot
+        skips this tick (§9); the drain itself never raises.  Returns
+        None when the drain plan is stale/disabled (caller falls back to
+        the reference per-slot drain)."""
+        if not self._drain_ok:
+            return None
+        lib = self._lib
+        nb = len(_native.IO_BATCH_BUCKETS) + 1
+        # every covered slot gets a key (the consumer reads membership as
+        # "already drained" — a missing key would re-drain the socket on
+        # the shuttle path); the two lists are allocated only for slots
+        # with traffic this tick
+        out: Dict[int, Optional[Tuple[list, list]]] = dict.fromkeys(
+            self._drain_covered_keys
+        )
+        stats = (ctypes.c_uint64 * _native.NET_RECV_TABLE_STATS)()
+        fatal = (ctypes.c_int32 * 64)()
+        n_fatal = ctypes.c_int32(0)
+        wire_maps = self._drain_wire
+        # local snapshot: a fault below triggers _refresh_drain(), which
+        # REPLACES these tables — the indices in this call's record/fatal
+        # buffers refer to the plan the crossing actually ran against
+        fault_map = self._drain_fd_fault
+        deliver = self._drain_deliver
+        for _round in range(8):  # regrow-and-continue bound (backpressure)
+            ctypes.memset(stats, 0, ctypes.sizeof(stats))
+            n_recs = lib.ggrs_net_recv_table(
+                self._drain_fd_tab, self._drain_n_fds,
+                self._drain_route_tab, self._drain_n_routes,
+                self._drain_recs, self._drain_recs_cap,
+                self._drain_slab, self._drain_slab_cap,
+                stats, fatal, 32, ctypes.byref(n_fatal),
+            )
+            self.drain_crossings += 1
+            if n_recs < 0:
+                # builder bug (corrupt tables): disable the drain and let
+                # this tick run the reference path rather than poison it
+                self._drain_ok = False
+                return None
+            slab = self._drain_slab
+            if n_recs:
+                # one vectorized parse of the record table, then plain-int
+                # column lists for the routing walk (a B=512 dispatch pool
+                # sees ~2B records per tick — per-record unpack_from was
+                # the walk's hottest line)
+                arr = np.frombuffer(
+                    self._drain_recs, dtype=_RECV_DTYPE, count=n_recs
+                )
+                slot_l = arr["slot"].tolist()
+                ip_l = arr["ip"].tolist()
+                port_l = arr["port"].tolist()
+                off_l = arr["off"].tolist()
+                len_l = arr["len"].tolist()
+            for k in range(n_recs):
+                slot = slot_l[k]
+                ip = ip_l[k]
+                port = port_l[k]
+                off = off_l[k]
+                wire = wire_maps[slot]
+                if wire is None:
+                    # quarantined/evicted co-tenant on a shared hub: hand
+                    # the record to the view's pending queue — the slot's
+                    # Python session drains it exactly where the hub's
+                    # reference demux would have put it
+                    view = deliver.get(slot)
+                    if view is not None:
+                        src = (
+                            _pysocket.inet_ntoa(ip.to_bytes(4, "little")),
+                            port,
+                        )
+                        view._pending.append(
+                            (src, slab[off:off + len_l[k]])
+                        )
+                    continue
+                dst = wire.get((ip, port))
+                if dst is None:
+                    continue  # unknown source: the reference drain's drop
+                kind, idx = dst
+                data = slab[off:off + len_l[k]]
+                entry = out[slot]
+                if entry is None:
+                    entry = out[slot] = ([], [])
+                if kind == "e":
+                    entry[0].append((idx, data))
+                else:
+                    entry[1].append((idx, data))
+            t = self._drain_totals
+            t["recv_calls"] += int(stats[0])
+            t["datagrams"] += int(stats[1])
+            t["unroutable"] += int(stats[2])
+            t["backpressure_stops"] += int(stats[3])
+            # the GRO tail lives at words [12..13], after the histogram
+            t["gro_datagrams"] += int(stats[12])
+            t["gro_segments"] += int(stats[13])
+            for b in range(nb):
+                self._drain_hist[b] += int(stats[4 + b])
+            if self._obs_on:
+                self._m_drain_crossings.inc()
+                if stats[1]:
+                    self._m_drain_dgrams.inc(int(stats[1]))
+                if stats[2]:
+                    self._m_drain_unroutable.inc(int(stats[2]))
+                hist = getattr(self._m_drain_batch, "_default", None)
+                if hist is not None and stats[0]:
+                    for b in range(nb):
+                        hist.counts[b] += int(stats[4 + b])
+                    hist.count += int(stats[0])
+                    hist.sum += int(stats[1])
+            for k in range(min(int(n_fatal.value), 32)):
+                fd_idx = fatal[2 * k]
+                err = fatal[2 * k + 1]
+                for slot in fault_map[fd_idx]:
+                    self._on_slot_fault(
+                        slot, _native.BANK_ERR_IO,
+                        f"batched inbound drain errno {err}",
+                    )
+            if int(n_fatal.value):
+                # supervision transitions invalidated the plan (and the
+                # faulted slots must not be re-drained this tick)
+                break
+            if not int(stats[3]):
+                break
+            # backpressure: the kernel still holds datagrams — double the
+            # record/slab capacity and keep draining (appending)
+            self._drain_recs_cap *= 2
+            self._drain_recs = ctypes.create_string_buffer(
+                self._drain_recs_cap * _native.NET_RECV_STRIDE
+            )
+            self._drain_slab_cap *= 2
+            self._drain_slab = ctypes.create_string_buffer(
+                self._drain_slab_cap
+            )
+        return out
+
+    def io_capabilities(self) -> Dict[str, bool]:
+        """The gen-2 per-feature capability/fallback matrix (§23): which
+        datapath tiers THIS pool can use right now.  Every False here is
+        a per-feature fallback to the tier below, never an error."""
+        lib = self._lib
+        native = bool(
+            lib is not None
+            and lib.ggrs_net_supported()
+            and not os.environ.get("GGRS_TPU_NO_NATIVE_IO")
+        )
+        return {
+            "native_io": native,
+            "recv_table": bool(
+                native and not os.environ.get("GGRS_TPU_NO_RECV_TABLE")
+            ),
+            "send_table": native,
+            "dispatch": any(
+                getattr(m.socket, "is_dispatch", False)
+                for m in self._mirrors
+            ),
+            "reuseport": hasattr(_pysocket, "SO_REUSEPORT"),
+            "gso": bool(
+                native
+                and lib.ggrs_net_gso_supported()
+                and not os.environ.get("GGRS_TPU_NO_GSO")
+            ),
+            # kernel probe ok + not killed; _gro_on says whether THIS
+            # pool actually armed it (needs a covered dispatch hub)
+            "gro": bool(
+                native
+                and lib.ggrs_net_gro_supported()
+                and not os.environ.get("GGRS_TPU_NO_GRO")
+            ),
+            "gro_active": self._gro_on,
+            # parallel slow-slot decode plane (§24): backend the pool's
+            # DecodePool resolved ("serial" is the bit-identical
+            # fallback; the kill switch forces it)
+            "parallel_decode": bool(
+                self._decode_pool is not None
+                and self._decode_pool.backend != "serial"
+            ),
+            "decode_backend": (
+                self._decode_pool.backend
+                if self._decode_pool is not None else "serial"
+            ),
+        }
+
+    @staticmethod
+    def _io_words_to_dict(words) -> Dict[str, Any]:
+        """One NetBatch counter dump (22 u64s) as the scrape's io-record
+        shape."""
+        nf = len(_native.IO_STAT_FIELDS)
+        nb = len(_native.IO_BATCH_BUCKETS) + 1
+        io: Dict[str, Any] = dict(zip(_native.IO_STAT_FIELDS, words[:nf]))
+        io["recv_batches"] = list(words[nf:nf + nb])
+        io["send_batches"] = list(words[nf + nb:nf + 2 * nb])
+        return io
+
+    def _detach_io(self, index: int) -> None:
+        """Per-slot automatic fallback: return the slot to the Python
+        shuttle (eviction, or a late-attached spectator address the
+        native side cannot route) and release its NetBatch.  The final
+        counter snapshot is retained (and folded into the registry) so
+        ``io_stats()`` totals never regress across a detach."""
+        if not self._io_attached[index]:
+            return
+        self._lib.ggrs_bank_detach_socket(self._bank, index)
+        self._io_attached[index] = False
+        if index in self._io_live:
+            self._io_live.remove(index)
+        handle = self._net_handles[index]
+        self._net_handles[index] = None
+        if handle:
+            words = (ctypes.c_uint64 * _native.IO_STAT_WORDS)()
+            self._lib.ggrs_net_stats(handle, words)
+            io = self._io_words_to_dict(list(words))
+            self._io_final[index] = io
+            # flush the tail accrued since the last scrape into the
+            # registry counters before the source disappears
+            self._apply_io_metrics([dict(index=index, io=io)])
+            self._lib.ggrs_net_free(handle)
+        # drop the slot's delta-tracking keys: a later attach on this fd
+        # (e.g. the match re-admitted on a destination pool) starts its
+        # NetBatch counters at zero, and stale high-water marks here would
+        # silently swallow its deltas — the classic re-attach leak
+        for k in [k for k in self._io_prev if k[0] == index]:
+            del self._io_prev[k]
+        if not any(self._io_attached):
+            # last attached slot gone: drop back to the plain tick entry
+            # (the pump's pre-drain scan would walk the cmd for nothing)
+            self._use_pump = False
+        # the slot is back on the Python shuttle: it may now qualify for
+        # the batched one-crossing outbound flush and the gen-2 batched
+        # inbound drain instead
+        self._refresh_send_fd(index)
+        self._refresh_drain()
 
     # ------------------------------------------------------------------
     # per-tick API
@@ -1242,6 +1925,15 @@ class HostSessionPool:
                     f"Missing local input for handle {missing} while "
                     "calling advance_frame()."
                 )
+        # the one-crossing inbound drain (§23): ONE crossing drains every
+        # covered fd-backed socket BEFORE the tick snapshot; a fatal recv
+        # errno faults the owning slot(s) here, so they skip this tick
+        if self._drain_ok:
+            _dt0 = time.perf_counter_ns()
+            drained = self._drain_inbound()
+            self.drain_ns += time.perf_counter_ns() - _dt0
+        else:
+            drained = None
         # snapshot which slots the bank steps this tick: the parse below
         # must use the build-time view even if new faults land mid-parse
         ticked = [s == SLOT_NATIVE for s in self._slot_state]
@@ -1267,28 +1959,53 @@ class HostSessionPool:
             cmd_parts.append(pack("<H", len(ctrl)))
             for op, ep_idx, frame in ctrl:
                 cmd_parts.append(pack("<BHq", op, ep_idx, frame))
-            # the Python shuttle: drain + route per datagram here (a
-            # datagram from an unknown address is dropped, as a session's
-            # receive path drops it)
-            addr_to_ep = m.addr_to_ep
             datagrams = []
-            for from_addr, data in m.socket.receive_all_datagrams():
-                ep_idx = addr_to_ep.get(from_addr)
-                if ep_idx is not None:
-                    datagrams.append((ep_idx, data))
+            spec_datagrams = []
+            if drained is not None and i in drained:
+                # this slot's inbound was already pulled by the one-crossing
+                # drain above: routed record table, zero per-slot Python
+                # calls (None = covered, no traffic)
+                rec = drained[i]
+                if rec is not None:
+                    datagrams, spec_datagrams = rec
+            elif not self._io_attached[i]:
+                # the Python shuttle: drain + route per datagram here (a
+                # datagram from an unknown address is dropped, as a
+                # session's receive path drops it).  Attached slots drain
+                # INSIDE the crossing (recvmmsg): only injected chaos
+                # traffic rides the cmd sections.
+                addr_to_spec = m.addr_to_spec
+                for from_addr, data in m.socket.receive_all_datagrams():
+                    ep_idx = m.addr_to_ep.get(from_addr)
+                    if ep_idx is not None:
+                        datagrams.append((ep_idx, data))
+                    elif addr_to_spec:
+                        sp_idx = addr_to_spec.get(from_addr)
+                        if sp_idx is not None:
+                            spec_datagrams.append((sp_idx, data))
             datagrams.extend(self._inject_dgrams.pop(i, ()))
             cmd_parts.append(pack("<H", len(datagrams)))
             for ep_idx, data in datagrams:
                 cmd_parts.append(pack("<HI", ep_idx, len(data)))
                 cmd_parts.append(data)
-            # the spectator-datagram section: no fan-out endpoints here
-            cmd_parts.append(_NO_SPEC_DATAGRAMS)
+            # inbound viewer traffic (acks, quality, keep-alives, sync
+            # probes) rides the SAME crossing
+            cmd_parts.append(pack("<H", len(spec_datagrams)))
+            for sp_idx, data in spec_datagrams:
+                cmd_parts.append(pack("<HI", sp_idx, len(data)))
+                cmd_parts.append(data)
         cmd = b"".join(cmd_parts)
 
         self.crossings += 1
         self._m_cross_tick.inc()
         t_cross = tracer.now_ns() if tracing else 0
-        rc = self._lib.ggrs_bank_tick(
+        # the pump is the tick crossing plus native socket I/O for attached
+        # slots: still exactly ONE crossing per pool tick
+        crossing = (
+            self._lib.ggrs_bank_pump if self._use_pump
+            else self._lib.ggrs_bank_tick
+        )
+        rc = crossing(
             self._bank, self._clock(), cmd, len(cmd),
             self._out_buf, len(self._out_buf), ctypes.byref(self._out_len),
         )
@@ -1379,11 +2096,31 @@ class HostSessionPool:
         request_lists: List[List[GgrsRequest]] = []
         tracer = self.tracer
         tracing = tracer.enabled
+        # parallel decode plane (§24): with the header table's rec_len jump
+        # chain every slot's byte range is known up front, so this path
+        # fans ALL slots across the DecodePool.  A TRACED pool stays on the
+        # interleaved reference decoder: per-slot spans are the point of
+        # tracing, and fanning the byte walk out would destroy that
+        # attribution.
+        decs = None
+        if not tracing and n > 1:
+            hdr = np.frombuffer(self._out_buf, dtype=_HDR_DTYPE, count=n)
+            offs = np.empty(n, np.int64)
+            offs[0] = pos
+            offs[1:] = pos + np.cumsum(hdr["rec_len"][:-1], dtype=np.int64)
+            decs = self._decode_slow_slots(
+                buf, list(range(n)), offs.tolist(), ticked
+            )
         for idx in range(n):
             t_slot = tracer.now_ns() if tracing else 0
-            requests, pos, current = self._parse_slot(
-                buf, pos, idx, ticked[idx]
-            )
+            if decs is not None:
+                requests, pos, current = self._apply_slot(
+                    decs[idx], idx, ticked[idx]
+                )
+            else:
+                requests, pos, current = self._parse_slot(
+                    buf, pos, idx, ticked[idx]
+                )
             request_lists.append(requests)
             if tracing:
                 tracer.add_complete(
@@ -1397,8 +2134,8 @@ class HostSessionPool:
         slots from the packed header table AND read their request
         programs from the request descriptor table — both flat NumPy
         views — then run only the irreducible per-slot work (outbound
-        sends, the wait-recommendation policy, frame mirrors) for fast
-        slots, constructing ZERO request objects for
+        sends, journal taps, the wait-recommendation policy, frame mirrors)
+        for fast slots, constructing ZERO request objects for
         them.  The returned :class:`RequestPlan` materializes a slot's
         pooled ``GgrsRequest`` list only when indexed;
         ``BatchedRequestExecutor`` consumes the descriptor columns
@@ -1407,7 +2144,8 @@ class HostSessionPool:
         Outbound is batched (§21c): fast slots' datagrams go out through
         one ``send_datagram_batch`` call per slot (in-memory / batchable
         sockets), or ride ONE ``ggrs_net_send_table`` crossing for the
-        whole tick (fd-backed sockets): the send-table payload is the tick output buffer itself, zero
+        whole tick (fd-backed sockets that are not NetBatch-attached): the
+        send-table payload is the tick output buffer itself, zero
         copies.  Per-socket send order is unchanged (records stay in slot
         order); slow slots keep the reference per-datagram path.
 
@@ -1454,10 +2192,18 @@ class HostSessionPool:
             # than the column extraction + two-pass walk below when every
             # slot is slow anyway
             buf = memoryview(self._out_buf).cast("B")[:out_len]
+            decs = self._decode_slow_slots(
+                buf, list(range(n)), offs_l, ticked
+            )
             for idx in range(n):
-                reqs, _, _ = self._parse_slot(
-                    buf, offs_l[idx], idx, ticked[idx]
-                )
+                if decs is not None:
+                    reqs, _, _ = self._apply_slot(
+                        decs[idx], idx, ticked[idx]
+                    )
+                else:
+                    reqs, _, _ = self._parse_slot(
+                        buf, offs_l[idx], idx, ticked[idx]
+                    )
                 plan.lists[idx] = reqs
                 plan.eager_rows.append(idx)
             self.desc_slow_slots += n
@@ -1502,6 +2248,7 @@ class HostSessionPool:
         fa_l = hdr["fa"].tolist()
         cur_l = hdr["current"].tolist()
         conf_l = hdr["confirmed"].tolist()
+        flags_l = flags.tolist()
         pattern_l = pattern.tolist()
         trailing_l = trailing.tolist()
         ops_end_l = req["ops_end"].tolist()
@@ -1511,6 +2258,7 @@ class HostSessionPool:
         n_adv_l = req["n_adv"].tolist()
         adv_off_l = req["adv_off"].tolist()
         adv_stride_l = req["adv_stride"].tolist()
+        CONF = _native.BANK_HDR_CONF
         unpack_from = struct.unpack_from
         recorders = self._recorders
         lists = plan.lists
@@ -1520,13 +2268,26 @@ class HostSessionPool:
         # slots' outbound staged/sent + per-slot pass-2 work queued ----
         table_rows: List[Tuple[int, int, int, int, int]] = []  # native tbl
         table_slots: List[int] = []
-        pass2: List[int] = []  # fast slots, in slot order
+        pass2: List[Tuple[int, int]] = []  # (slot, pos after out sections)
         flush_failed: Dict[int, Tuple[int, str]] = {}  # slot -> code, msg
+        # parallel decode plane (§24): every slow slot's byte range is known
+        # up front (the offs jump chain), so their pure decode fans out
+        # across the DecodePool BEFORE the slot walk; the walk below then
+        # applies each decoded record in slot order, interleaved with the
+        # fast slots exactly where the serial decoder ran: side-effect order
+        # is untouched because decode is pure
+        slow_rows = [idx for idx in range(n) if not fast_l[idx]]
+        decs = self._decode_slow_slots(buf, slow_rows, offs_l, ticked)
         for idx in range(n):
             if not fast_l[idx]:
-                requests, _, _ = self._parse_slot(
-                    buf, offs_l[idx], idx, ticked[idx]
-                )
+                if decs is not None:
+                    requests, _, _ = self._apply_slot(
+                        decs[idx], idx, ticked[idx]
+                    )
+                else:
+                    requests, _, _ = self._parse_slot(
+                        buf, offs_l[idx], idx, ticked[idx]
+                    )
                 lists[idx] = requests
                 eager.append(idx)
                 continue
@@ -1590,7 +2351,7 @@ class HostSessionPool:
                     failed = f"socket send failed: {e!r}"
             if failed is not None:
                 flush_failed[idx] = (0, failed)
-            pass2.append(idx)
+            pass2.append((idx, pos))
 
         # ---- the one native outbound crossing for fd-backed slots ----
         if table_rows:
@@ -1599,7 +2360,11 @@ class HostSessionPool:
             desc["fd"] = cols[0]
             desc["ip"] = cols[1]
             desc["port"] = cols[2]
-            desc["flags"] = 0
+            # dispatch-mode rows carry kSendFlagDispatch: a fatal errno on
+            # the SHARED fd faults only the owning record's slot, and the
+            # run continues for co-tenants
+            send_flags = self._send_flags
+            desc["flags"] = [send_flags[s] for s in table_slots]
             desc["off"] = cols[3]
             desc["len"] = cols[4]
             stats3 = (ctypes.c_uint64 * _native.NET_SEND_STATS)()
@@ -1642,14 +2407,22 @@ class HostSessionPool:
                 self._m_io_send_errors.inc(int(stats3[1]))
             if self._obs_on and stats3[2]:
                 self._m_io_oversized.inc(int(stats3[2]))
+            if stats3[3]:
+                self._gso_totals["gso_sends"] += int(stats3[3])
+                self._gso_totals["gso_segments"] += int(stats3[4])
+                if self._obs_on:
+                    self._m_gso_sends.inc(int(stats3[3]))
+                    self._m_gso_segments.inc(int(stats3[4]))
 
-        # ---- pass 2: policy, frame mirrors, forensics ----
-        for idx in pass2:
+        # ---- pass 2: journal taps, policy, frame mirrors, forensics ----
+        for idx, pos in pass2:
             m = mirrors[idx]
             failed = idx in flush_failed
             if failed:
                 # reference-decoder parity (_parse_slot): a send fault
-                # suppresses the slot's requests and policy, but the frame
+                # suppresses the slot's requests and policy, but the journal
+                # tap below still appends (the confirmed records are in
+                # hand: dropping them would gap the journal) and the frame
                 # mirrors still update; staged inputs are KEPT for the
                 # eviction path.  Natively-staged inputs were already
                 # consumed by the crossing's trailing advance: reconstruct
@@ -1671,6 +2444,32 @@ class HostSessionPool:
                 code, detail = flush_failed[idx]
                 self._on_slot_fault(idx, code, detail)
                 lists[idx] = []
+            hf = flags_l[idx]
+            players, isize = m.num_players, m.input_size
+            blob_len = players * isize
+            if hf & CONF:
+                # journal tap: read the confirmed-record section directly
+                # (no spectators on a fast slot, so the intervening
+                # sections are fixed-size)
+                pos += 2 + m.mirror_len  # n_events(=0) + status mirrors
+                (next_spec,) = unpack_from("<q", buf, pos)
+                m.next_spec_frame = next_spec
+                pos += 9 + 4  # + n_specs(=0) + n_spec_out/evts(=0)
+                (n_conf,) = unpack_from("<H", buf, pos)
+                pos += 2
+                (conf_start,) = unpack_from("<q", buf, pos)
+                pos += 8
+                conf_records = []
+                for _ in range(n_conf):
+                    cflags = bytes(buf[pos : pos + players])
+                    pos += players
+                    conf_records.append(
+                        (cflags, bytes(buf[pos : pos + blob_len]))
+                    )
+                    pos += blob_len
+                sink = self._journal_sinks.get(idx)
+                if sink is not None:
+                    sink.append_frames(conf_start, conf_records)
             current = cur_l[idx]
             if not failed:
                 pat = pattern_l[idx]
@@ -1893,31 +2692,43 @@ class HostSessionPool:
                             f"load frame {frame} (was at "
                             f"{m.current_frame})",
                         )
-        # outbound: the poll-phase section, then the advance-phase (input)
-        # section.  With no spectator queues between them, the Python
-        # session's per-socket order is exactly this one.
+        # outbound.  Broadcast layout: the poll-phase remote
+        # datagrams send immediately; the adv-phase (input) sends wait
+        # until the spectator queues — LAST tick's deferred fan-out plus
+        # this tick's spectator poll messages — have gone out, which is
+        # the Python session's exact per-socket order (poll's
+        # send_all_messages flushes remotes then spectators, then
+        # advance_frame sends the remote input messages inline; the
+        # fan-out messages it queues flush at the NEXT tick's poll).
         send_raw = m.send_raw  # socket.send_datagram (raw bytes, no
         # RawMessage wrapper / re-encode) or the send_to shim
         send_failed: Optional[str] = None
-        for _section in (0, 1):
-            (n_out,) = unpack_from("<H", buf, pos)
-            pos += 2
-            for _ in range(n_out):
-                ep_idx, dlen = unpack_from("<HI", buf, pos)
-                pos += 6
-                data = bytes(buf[pos : pos + dlen])
-                pos += dlen
-                if send_failed is not None:
-                    continue  # slot already faulted; keep consuming bytes
-                if rec is not None:
-                    # wire digest: a tuple of scalars, formatted lazily by
-                    # dump(), cheap enough to leave on for healthy slots
-                    rec.record(self._tick_no, EV_WIRE,
-                               (ep_idx, dlen, zlib.crc32(data)))
-                try:
-                    send_raw(data, m.endpoints[ep_idx].addr)
-                except Exception as e:  # a send fault is THIS slot's fault
-                    send_failed = f"socket send failed: {e!r}"
+        (n_out_poll,) = unpack_from("<H", buf, pos)
+        pos += 2
+        for _ in range(n_out_poll):
+            ep_idx, dlen = unpack_from("<HI", buf, pos)
+            pos += 6
+            data = bytes(buf[pos : pos + dlen])
+            pos += dlen
+            if send_failed is not None:
+                continue  # slot already faulted; keep consuming bytes
+            if rec is not None:
+                # wire digest: a tuple of scalars, formatted lazily by
+                # dump() — cheap enough to leave on for healthy slots
+                rec.record(self._tick_no, EV_WIRE,
+                           (ep_idx, dlen, zlib.crc32(data)))
+            try:
+                send_raw(data, m.endpoints[ep_idx].addr)
+            except Exception as e:  # a send fault is THIS slot's fault
+                send_failed = f"socket send failed: {e!r}"
+        adv_out: List[Tuple[int, bytes]] = []
+        (n_out_adv,) = unpack_from("<H", buf, pos)
+        pos += 2
+        for _ in range(n_out_adv):
+            ep_idx, dlen = unpack_from("<HI", buf, pos)
+            pos += 6
+            adv_out.append((ep_idx, bytes(buf[pos : pos + dlen])))
+            pos += dlen
         # stage event records; dispatch AFTER the status mirrors below
         # are parsed — _on_protocol_disconnected reads m.local_last, and
         # p2p.py's _handle_event sees the status as updated by this
@@ -1955,7 +2766,153 @@ class HostSessionPool:
             m.local_disc[h] = bool(disc)
             m.local_last[h] = lf
 
-        pos = _skip_broadcast_tail(buf, pos)
+        # ---- broadcast tail (docs/DESIGN.md §13): spectator mirror, the
+        # phase-tagged fan-out streams, hub events, journal tap ----
+        next_spec, n_specs = unpack_from("<qB", buf, pos)
+        pos += 9
+        m.next_spec_frame = next_spec
+        for e in range(n_specs):
+            st, la = unpack_from("<Bq", buf, pos)
+            pos += 9
+            sp = m.spectators[e]
+            sp.running = st == 0
+            sp.last_acked = la
+        (n_spec_out,) = unpack_from("<H", buf, pos)
+        pos += 2
+        spec_poll: List[List[bytes]] = [[] for _ in range(n_specs)]
+        spec_adv: List[List[bytes]] = [[] for _ in range(n_specs)]
+        for _ in range(n_spec_out):
+            sp_idx, phase, dlen = unpack_from("<HBI", buf, pos)
+            pos += 7
+            (spec_adv if phase else spec_poll)[sp_idx].append(
+                bytes(buf[pos : pos + dlen])
+            )
+            pos += dlen
+        (n_spec_events,) = unpack_from("<H", buf, pos)
+        pos += 2
+        spec_events: List[Tuple[int, int, Any]] = []
+        for _ in range(n_spec_events):
+            kind, sp_idx = unpack_from("<BH", buf, pos)
+            pos += 3
+            payload = None
+            if kind == _EV_INTERRUPTED:
+                (payload,) = unpack_from("<q", buf, pos)
+                pos += 8
+            spec_events.append((kind, sp_idx, payload))
+        (n_conf,) = unpack_from("<H", buf, pos)
+        pos += 2
+        conf_start: Frame = NULL_FRAME
+        conf_records: List[Tuple[bytes, bytes]] = []
+        if n_conf:
+            (conf_start,) = unpack_from("<q", buf, pos)
+            pos += 8
+            blob_len = players * isize
+            for _ in range(n_conf):
+                flags = bytes(buf[pos : pos + players])
+                pos += players
+                conf_records.append((
+                    flags, bytes(buf[pos : pos + blob_len]),
+                ))
+                pos += blob_len
+        if live and m.spectators:
+            # spectator sends: per viewer, last tick's deferred
+            # fan-out datagrams then this tick's poll messages —
+            # then the remote input messages, then stash this
+            # tick's fan-out for the next (the Python flush order)
+            fan = self._fanout_counters.get(idx)
+            if fan is None:
+                fan = (
+                    self._m_fanout_dgrams.labels(slot=str(idx)).inc,
+                    self._m_fanout_bytes.labels(slot=str(idx)).inc,
+                )
+                self._fanout_counters[idx] = fan
+            fan_d, fan_b = fan
+            # fan-out through the send table (§23): when the slot's
+            # socket rides the native send table, stage every viewer datagram as a
+            # table row and flush ONCE — the native side coalesces
+            # same-viewer equal-size runs into GSO segmented sends
+            # (sendmmsg fallback when UDP_SEGMENT is unavailable).
+            # GGRS_TPU_NO_FASTPATH pins this loop per-datagram.
+            fd = (
+                self._send_fds[idx] if self._vectorized
+                and self._send_fds else None
+            )
+            spec_rows: Optional[List[Tuple[int, int, bytes]]] = None
+            if fd is not None:
+                try:
+                    spec_wire = [
+                        self._resolve_wire_addr(sp.addr)
+                        for sp in m.spectators
+                    ]
+                    spec_rows = []
+                except (TypeError, ValueError, OSError):
+                    spec_rows = None  # unresolvable viewer: reference
+            for e, sp in enumerate(m.spectators):
+                to_send = sp.deferred
+                sp.deferred = []
+                if e < n_specs:
+                    to_send = to_send + spec_poll[e]
+                for data in to_send:
+                    if send_failed is not None:
+                        continue
+                    if rec is not None:
+                        rec.record(
+                            self._tick_no, EV_WIRE,
+                            (f"spec{e}", len(data),
+                             zlib.crc32(data)),
+                        )
+                    if spec_rows is not None:
+                        # same forensics caveat as §21c: the flush
+                        # outcome lands after the whole stage, so
+                        # these counters may include datagrams a
+                        # mid-flush fatal abandons (bounded by the
+                        # EV_FAULT marker)
+                        ip, port = spec_wire[e]
+                        spec_rows.append((ip, port, data))
+                        fan_d()
+                        fan_b(len(data))
+                        continue
+                    try:
+                        send_raw(data, sp.addr)
+                        fan_d()
+                        fan_b(len(data))
+                    except Exception as exc:
+                        send_failed = f"socket send failed: {exc!r}"
+            if spec_rows and send_failed is None:
+                # flushed BEFORE the adv-phase endpoint sends below:
+                # the reference path interleaves on the same socket
+                # in exactly this order
+                send_failed = self._spec_send_table(
+                    idx, fd, spec_rows
+                )
+        elif not live:
+            # a faulted/skipped slot's deferred stream is stale: the
+            # fan-out window lives in the harvest's pending dumps
+            # and is re-emitted by the evicted relay's retry timer
+            for sp in m.spectators:
+                sp.deferred = []
+        for ep_idx, data in adv_out:
+            if send_failed is not None:
+                continue
+            if rec is not None:
+                rec.record(self._tick_no, EV_WIRE,
+                           (ep_idx, len(data), zlib.crc32(data)))
+            try:
+                send_raw(data, m.endpoints[ep_idx].addr)
+            except Exception as e:
+                send_failed = f"socket send failed: {e!r}"
+        if live and m.spectators:
+            for e, sp in enumerate(m.spectators):
+                if e < n_specs:
+                    sp.deferred.extend(spec_adv[e])
+            hub = self._spectator_hub
+            if hub is not None and spec_events:
+                for kind, sp_idx, payload in spec_events:
+                    hub._on_native_event(idx, sp_idx, kind, payload)
+        if live and n_conf:
+            sink = self._journal_sinks.get(idx)
+            if sink is not None:
+                sink.append_frames(conf_start, conf_records)
         if send_failed is not None:
             if m.staged_native and advanced:
                 # batched staging (§21): the bank consumed the staged
@@ -2017,6 +2974,287 @@ class HostSessionPool:
             requests = []
         return requests, pos, current
 
+    def _apply_slot(self, dec, idx, ticked_slot):
+        """Replay ONE slot's side effects from a decoded record (§24).
+
+        The stateful half of :meth:`_parse_slot`: ``dec`` is the
+        plain-data tuple ``decode_pool.decode_slot_record`` produced on
+        a worker; this method performs — on the owning thread, in slot
+        order — exactly the side effects the reference decoder
+        interleaves with its byte walk: request construction (cells,
+        pooled objects, user input_decode), sends, EV_WIRE/EV_ROLLBACK
+        forensics, event staging, status/frame mirrors, journal taps,
+        fault handling, policy.  Returns ``(requests, end_pos,
+        current_frame)``, ``_parse_slot``'s contract, bit for bit."""
+        m = self._mirrors[idx]
+        players, isize = m.num_players, m.input_size
+        (err, landed, frames_ahead, current, confirmed, consensus, ops,
+         poll_out, adv_out, staged_events, eps_t, local_t, spec,
+         end_pos) = dec
+        live = ticked_slot and err == 0
+        if ticked_slot and err != 0:
+            self._on_slot_fault(idx, err)
+        requests: List[GgrsRequest] = []
+        advanced = False
+        decode = m.config.input_decode
+        rec = self._recorders[idx] if self._recorders else None
+        for kind, a, b in ops:
+            if kind == 2:
+                statuses, blob = a, b
+                requests.append(AdvanceFrame(inputs=[
+                    (decode(blob[p * isize : (p + 1) * isize]),
+                     _STATUS[statuses[p]])
+                    for p in range(players)
+                ]))
+                advanced = True
+                self._m_req_advance.inc()
+            else:
+                frame = a
+                cell = m.saved_states.get_cell(frame)
+                if kind == 0:
+                    requests.append(SaveGameState(cell=cell, frame=frame))
+                    advanced = False
+                    self._m_req_save.inc()
+                else:
+                    assert cell.frame == frame, (
+                        f"rollback loads frame {frame} but its cell "
+                        f"holds {cell.frame} — was the save fulfilled?"
+                    )
+                    requests.append(LoadGameState(cell=cell, frame=frame))
+                    advanced = False
+                    self._m_req_load.inc()
+                    self._m_rollbacks.inc()
+                    if rec is not None:
+                        rec.record(
+                            self._tick_no, EV_ROLLBACK,
+                            f"load frame {frame} (was at "
+                            f"{m.current_frame})",
+                        )
+        send_raw = m.send_raw
+        send_failed: Optional[str] = None
+        for ep_idx, data in poll_out:
+            if send_failed is not None:
+                continue
+            if rec is not None:
+                rec.record(self._tick_no, EV_WIRE,
+                           (ep_idx, len(data), zlib.crc32(data)))
+            try:
+                send_raw(data, m.endpoints[ep_idx].addr)
+            except Exception as e:
+                send_failed = f"socket send failed: {e!r}"
+        for e, (running, prs) in enumerate(eps_t):
+            ep = m.endpoints[e]
+            ep.running = running == 0
+            for h in range(players):
+                disc, lf = prs[h]
+                ep.peer_disc[h] = bool(disc)
+                ep.peer_last[h] = lf
+        for h in range(players):
+            disc, lf = local_t[h]
+            m.local_disc[h] = bool(disc)
+            m.local_last[h] = lf
+        if spec is not None:
+            (next_spec, n_specs, sstat, spec_poll, spec_adv, spec_events,
+             conf_start, conf_records) = spec
+            m.next_spec_frame = next_spec
+            for e, (st, la) in enumerate(sstat):
+                sp = m.spectators[e]
+                sp.running = st == 0
+                sp.last_acked = la
+            n_conf = len(conf_records)
+            if live and m.spectators:
+                fan = self._fanout_counters.get(idx)
+                if fan is None:
+                    fan = (
+                        self._m_fanout_dgrams.labels(slot=str(idx)).inc,
+                        self._m_fanout_bytes.labels(slot=str(idx)).inc,
+                    )
+                    self._fanout_counters[idx] = fan
+                fan_d, fan_b = fan
+                fd = (
+                    self._send_fds[idx] if self._vectorized
+                    and self._send_fds else None
+                )
+                spec_rows: Optional[List[Tuple[int, int, bytes]]] = None
+                if fd is not None:
+                    try:
+                        spec_wire = [
+                            self._resolve_wire_addr(sp.addr)
+                            for sp in m.spectators
+                        ]
+                        spec_rows = []
+                    except (TypeError, ValueError, OSError):
+                        spec_rows = None
+                for e, sp in enumerate(m.spectators):
+                    to_send = sp.deferred
+                    sp.deferred = []
+                    if e < n_specs:
+                        to_send = to_send + spec_poll[e]
+                    for data in to_send:
+                        if send_failed is not None:
+                            continue
+                        if rec is not None:
+                            rec.record(
+                                self._tick_no, EV_WIRE,
+                                (f"spec{e}", len(data),
+                                 zlib.crc32(data)),
+                            )
+                        if spec_rows is not None:
+                            ip, port = spec_wire[e]
+                            spec_rows.append((ip, port, data))
+                            fan_d()
+                            fan_b(len(data))
+                            continue
+                        try:
+                            send_raw(data, sp.addr)
+                            fan_d()
+                            fan_b(len(data))
+                        except Exception as exc:
+                            send_failed = f"socket send failed: {exc!r}"
+                if spec_rows and send_failed is None:
+                    send_failed = self._spec_send_table(
+                        idx, fd, spec_rows
+                    )
+            elif not live:
+                for sp in m.spectators:
+                    sp.deferred = []
+        for ep_idx, data in adv_out:
+            if send_failed is not None:
+                continue
+            if rec is not None:
+                rec.record(self._tick_no, EV_WIRE,
+                           (ep_idx, len(data), zlib.crc32(data)))
+            try:
+                send_raw(data, m.endpoints[ep_idx].addr)
+            except Exception as e:
+                send_failed = f"socket send failed: {e!r}"
+        if spec is not None and live and m.spectators:
+            for e, sp in enumerate(m.spectators):
+                if e < n_specs:
+                    sp.deferred.extend(spec_adv[e])
+            hub = self._spectator_hub
+            if hub is not None and spec_events:
+                for kind, sp_idx, payload in spec_events:
+                    hub._on_native_event(idx, sp_idx, kind, payload)
+        if spec is not None and live and n_conf:
+            sink = self._journal_sinks.get(idx)
+            if sink is not None:
+                sink.append_frames(conf_start, conf_records)
+        if send_failed is not None:
+            if m.staged_native and advanced:
+                adv = next(
+                    (r for r in reversed(requests)
+                     if type(r) is AdvanceFrame), None,
+                )
+                if adv is not None:
+                    encode = m.encode
+                    for h in m.local_handles:
+                        m.staged_inputs[h] = encode(adv.inputs[h][0])
+                m.staged_native.clear()
+            self._on_slot_fault(idx, 0, send_failed)
+            live = False
+        if live:
+            for kind, ep_idx, payload in staged_events:
+                ep = m.endpoints[ep_idx]
+                if kind == _EV_INTERRUPTED:
+                    m.push_event((_LZ_INTERRUPTED, ep.addr, payload))
+                elif kind == _EV_RESUMED:
+                    m.push_event((_LZ_RESUMED, ep.addr))
+                elif kind == _EV_DISCONNECTED:
+                    self._on_protocol_disconnected(m, ep_idx)
+                elif kind == _EV_CHECKSUM:
+                    frame, lo, hi = payload
+                    self._store_checksum(ep, frame, lo | (hi << 64))
+            pre_current = current - (1 if advanced else 0)
+            m.frames_ahead = frames_ahead
+            if (
+                pre_current > m.next_recommended_sleep
+                and frames_ahead >= MIN_RECOMMENDATION
+            ):
+                m.next_recommended_sleep = (
+                    pre_current + RECOMMENDATION_INTERVAL
+                )
+                m.push_event((_LZ_WAIT, frames_ahead))
+            if advanced:
+                m.staged_inputs.clear()
+                if m.staged_native:
+                    m.staged_native.clear()
+            if consensus:
+                self._run_consensus(m)
+        if ticked_slot:
+            m.current_frame = current
+            m.last_confirmed = confirmed
+        if not live:
+            requests = []
+        return requests, end_pos, current
+
+    def _decode_slow_slots(self, buf, slots: List[int], offs_l,
+                           ticked) -> Optional[Dict[int, Any]]:
+        """Fan the tick's slow slots across the DecodePool (§24) and
+        return ``slot -> decoded tuple`` — or None when the parallel
+        plane must stay out of the way (serial backend, no pool, a
+        single slot not worth the fan-out): the caller then uses the
+        reference ``_parse_slot`` directly, which IS the serial
+        fallback, bit for bit."""
+        pool = self._decode_pool
+        if pool is None or pool.backend == "serial" or len(slots) < 2:
+            return None
+        mirrors = self._mirrors
+        jobs = []
+        for idx in slots:
+            m = mirrors[idx]
+            # every record carries the broadcast sections
+            jobs.append((offs_l[idx], m.num_players, m.input_size, True))
+        decs = pool.decode_slots(buf, jobs)
+        self.decode_parallel_ticks += 1
+        return dict(zip(slots, decs))
+
+    def _spec_send_table(self, idx: int, fd: int,
+                         rows: List[Tuple[int, int, bytes]]) -> Optional[str]:
+        """Flush one slot's staged spectator fan-out through the native
+        send table (§23): one crossing for the whole viewer burst; the
+        native side GSO-coalesces same-viewer equal-size runs and windows
+        the rest through sendmmsg.  Returns a fault string (the
+        ``send_failed`` contract of :meth:`_parse_slot`) or None."""
+        payload = b"".join(r[2] for r in rows)
+        desc = np.empty(len(rows), _SEND_DTYPE)
+        desc["fd"] = fd
+        desc["ip"] = [r[0] for r in rows]
+        desc["port"] = [r[1] for r in rows]
+        desc["flags"] = self._send_flags[idx] if self._send_flags else 0
+        off = 0
+        offs: List[int] = []
+        lens: List[int] = []
+        for _, _, data in rows:
+            offs.append(off)
+            lens.append(len(data))
+            off += len(data)
+        desc["off"] = offs
+        desc["len"] = lens
+        stats = (ctypes.c_uint64 * _native.NET_SEND_STATS)()
+        fatal = (ctypes.c_int32 * 8)()
+        rc = self._lib.ggrs_net_send_table(
+            desc.ctypes.data, len(rows), payload, len(payload),
+            stats, fatal, 4,
+        )
+        if self._obs_on and stats[1]:
+            self._m_io_send_errors.inc(int(stats[1]))
+        if self._obs_on and stats[2]:
+            self._m_io_oversized.inc(int(stats[2]))
+        if stats[3]:
+            self._gso_totals["gso_sends"] += int(stats[3])
+            self._gso_totals["gso_segments"] += int(stats[4])
+            if self._obs_on:
+                self._m_gso_sends.inc(int(stats[3]))
+                self._m_gso_segments.inc(int(stats[4]))
+        if rc < 0:
+            return f"socket send failed: ggrs_net_send_table {rc}"
+        if rc > 0:
+            return (
+                "socket send failed: batched fan-out errno "
+                f"{fatal[1]}"
+            )
+        return None
 
     # ------------------------------------------------------------------
     # supervision: quarantine, eviction, retirement (fault isolation)
@@ -2131,7 +3369,7 @@ class HostSessionPool:
                 # per supervision pass — the rest stay quarantined and are
                 # picked up on following ticks, keeping the tick budget
                 # bounded while the jittered backoff spreads the retries
-                if evictions_this_tick < EVICT_MAX_PER_TICK:
+                if evictions_this_tick < self._evict_max_per_tick:
                     if self._try_evict(i):
                         evictions_this_tick += 1
                 state = self._slot_state[i]
@@ -2195,6 +3433,17 @@ class HostSessionPool:
             (index, old, new_state, self._tick_no)
         )
         del self._state_transitions[:-max(256, 2 * len(self._slot_state))]
+        if new_state != SLOT_NATIVE and self._io_attached[index]:
+            # a slot leaving the bank leaves the batched datapath with it:
+            # the evicted session owns the socket (per-datagram Python
+            # path), so io_state() must say "python" and the NetBatch is
+            # released rather than idling attached forever
+            self._detach_io(index)
+        # the drain plan indexes slots by state: any transition in or out
+        # of SLOT_NATIVE changes which fds/routes the one-crossing inbound
+        # drain may touch (a faulted slot must drop out of the plan
+        # IMMEDIATELY: its socket now belongs to supervision)
+        self._refresh_drain()
         self._m_transitions.labels(src=old, dst=new_state).inc()
         self._m_slot_state.labels(state=old).dec()
         self._m_slot_state.labels(state=new_state).inc()
@@ -2238,8 +3487,8 @@ class HostSessionPool:
         """DesyncReport for a desync-class native fault: no local checksum
         history exists on the bank path (desync detection is a fallback
         feature), so the report carries the evidence that IS available —
-        the peers' reported checksums, the flight recorder and the active
-        trace window."""
+        the peers' reported checksums, the flight recorder, the journal
+        tail, and the active trace window."""
         m = self._mirrors[index]
         rec = self._recorders[index] if self._recorders else None
         # per-peer attribution: same-frame reports from different peers
@@ -2255,6 +3504,7 @@ class HostSessionPool:
             addr=single,
             remote_history=peer_windows[single] if single is not None else {},
             recorder=rec,
+            journal=self._journal_sinks.get(index),
             tracer=self.tracer,
             detail=f"slot {index} quarantined by desync-class fault "
                    f"code={code} ({named}) at pool tick {self._tick_no}",
@@ -2355,18 +3605,40 @@ class HostSessionPool:
             # good), so sharing the registry object is safe
             builder = copy.copy(builder)
             builder.with_max_prediction_window(0)
-        h = self._harvest(index)
+        try:
+            h = self._harvest(index)
+        except Exception:
+            # crash recovery (docs/DESIGN.md §13): the native slot's
+            # resumable state is gone (corrupt harvest, dead bank memory).
+            # A match journal, when attached, can stand in: its tail window
+            # holds the same confirmed inputs the harvest would have
+            # recovered, so the slot resumes from the journal instead of
+            # dying.
+            recover = self._journal_recovery.get(index)
+            if recover is None:
+                raise
+            h = recover()
+            self._fault_log[index].append(SlotFault(
+                self._tick_no, 0,
+                "harvest unavailable; resuming from journal tail "
+                f"(frame {h['last_confirmed']})",
+            ))
         resume, cell = _select_resume_frame(h, m.saved_states)
         session = builder.start_p2p_session(socket)
         endpoint_states = {}
         for e, ep in enumerate(m.endpoints):
             he = h["endpoints"][e]
             # peer mirrors: the harvest copy is authoritative (the
-            # vectorized pool's Python mirrors may be quiet-tick stale)
+            # vectorized pool's Python mirrors may be quiet-tick stale);
+            # journal-synthesized harvests lack them: fall back to the
+            # mirror, which was fresh as of the fault tick's slow parse
             endpoint_states[ep.addr] = dict(
                 magic=ep.magic,
                 running=he["state"] == 0,
-                peer_connect_status=list(zip(he["peer_disc"], he["peer_last"])),
+                peer_connect_status=list(zip(
+                    he.get("peer_disc") or ep.peer_disc,
+                    he.get("peer_last") or ep.peer_last,
+                )),
                 last_recv_frame=he["last_recv"],
                 recv_entries=he["recv_entries"],
                 last_acked_frame=he["last_acked_frame"],
@@ -2386,6 +3658,22 @@ class HostSessionPool:
             next_spectator_frame=h.get("next_spectator_frame", 0),
         )
         m.event_queue.clear()
+        # broadcast continuity: the relay falls back to the Python session
+        # (p2p.py's own spectator path), resuming each viewer's fan-out
+        # window mid-stream: builder-declared endpoints are adopted in
+        # place, hub-attached viewers are grafted through the adoption seam
+        if m.spectators:
+            self._adopt_spectators(session, builder, m, h)
+        sink = self._journal_sinks.get(index)
+        if sink is not None:
+            from ..broadcast.journal import JournalTap
+
+            # the tap needs the session config: it re-ENCODES the decoded
+            # inputs the relay hands it back into the journal's fixed-size
+            # wire blobs
+            session.adopt_spectator_endpoint(
+                JournalTap.ADDR, JournalTap(sink, m.config)
+            )
         decode = m.config.input_decode
         staged_native = h.get("staged_inputs") or {}
         for handle in m.local_handles:
@@ -2405,10 +3693,12 @@ class HostSessionPool:
         # bench host_bank_degraded)
         session.enable_request_pooling()
         # forensic continuity: the evicted session keeps tracing into the
-        # pool's ring and recording into the slot's flight recorder
+        # pool's ring, recording into the slot's flight recorder, and citing
+        # the slot's journal tail in any future DesyncReport
         session.attach_forensics(
             recorder=self._recorders[index] if self._recorders else None,
             tracer=self.tracer if self.tracer.enabled else None,
+            journal=self._journal_sinks.get(index),
         )
         return session, LoadGameState(cell=cell, frame=resume)
 
@@ -2494,12 +3784,30 @@ class HostSessionPool:
                 last_recv=last_recv, recv_entries=recv_entries,
                 peer_disc=peer_disc, peer_last=peer_last,
             ))
-        # the broadcast section (spectator send windows): this pool
-        # attaches no fan-out endpoint, so it holds the cursor and n = 0
+        # the broadcast section: the fan-out cursor, then each spectator
+        # endpoint's send window
         next_spec, n_specs = unpack_from("<qB", b, pos)
         pos += 9
-        if n_specs:
-            raise RuntimeError("harvest carries spectator endpoints")
+        spectators: List[Dict[str, Any]] = []
+        for _ in range(n_specs):
+            (state,) = unpack_from("<B", b, pos)
+            pos += 1
+            last_acked, base_len = unpack_from("<qI", b, pos)
+            pos += 12
+            send_base = b[pos : pos + base_len]
+            pos += base_len
+            (n_pending,) = unpack_from("<H", b, pos)
+            pos += 2
+            pending = []
+            for _ in range(n_pending):
+                frame, dlen = unpack_from("<qI", b, pos)
+                pos += 12
+                pending.append((frame, b[pos : pos + dlen]))
+                pos += dlen
+            spectators.append(dict(
+                state=state, last_acked_frame=last_acked,
+                send_base=send_base, pending=pending,
+            ))
         # staged-inputs tail: inputs staged natively that no advance
         # consumed; eviction and export re-feed them like the Python-side
         # staged dict
@@ -2518,9 +3826,32 @@ class HostSessionPool:
             disconnect_frame=disc_frame, local_disc=local_disc,
             local_last=local_last, player_inputs=player_inputs,
             endpoints=endpoints, next_spectator_frame=next_spec,
-            spectators=[], staged_inputs=staged,
+            spectators=spectators, staged_inputs=staged,
         )
 
+    def _adopt_spectators(self, session, builder, m: _SessionMirror,
+                          h: Dict[str, Any]) -> None:
+        """Graft the slot's fan-out endpoints onto the evicted Python
+        session: builder-declared spectator endpoints are adopted in place,
+        hub-attached viewers get fresh ``PeerProtocol``s through
+        ``P2PSession.adopt_spectator_endpoint``.  Each resumes its harvested
+        send window (ack base + unacked pending), so the viewer sees a
+        retransmission hiccup, not a reset stream.  The grafting itself is
+        shared with migration's adoption
+        (``broadcast.hub.graft_spectator_endpoints``)."""
+        from ..broadcast.hub import graft_spectator_endpoints
+
+        spec_states = h.get("spectators") or []
+        graft_spectator_endpoints(session, builder, [
+            dict(
+                addr=sp.addr, magic=sp.magic, handles=list(sp.handles),
+                running=sp.running,
+                state=spec_states[e] if e < len(spec_states) else None,
+            )
+            for e, sp in enumerate(m.spectators)
+        ])
+        for sp in m.spectators:
+            sp.deferred = []
 
     # ------------------------------------------------------------------
     # fleet seam (ggrs_tpu/fleet): live migration export + slot release
@@ -2530,12 +3861,14 @@ class HostSessionPool:
         """Process-portable resume bundle for one bank-resident slot, the
         source half of match migration.  The bundle carries everything
         ``adopt_resume_bundle`` needs to resume the match on ANOTHER pool,
-        possibly in another process: the harvested native state, the resume
-        frame's fulfilled game state (pickled), the endpoint wire identities
-        (magics, connect mirrors, pending checksums), and this tick's staged
-        inputs.  Plain data only: it survives a serialize/deserialize round
-        trip.  Read-only and retry-safe; pair with :meth:`release_slot` once
-        the bundle is adopted elsewhere."""
+        possibly in another process: the harvested native state (falling
+        back to the registered journal recovery when the harvest is dead),
+        the resume frame's fulfilled game state (pickled), the endpoint and
+        spectator wire identities (magics, connect mirrors, pending
+        checksums), and this tick's staged inputs.  Plain data only: it
+        survives a serialize/deserialize round trip.  Read-only and
+        retry-safe; pair with :meth:`release_slot` once the bundle is
+        adopted elsewhere."""
         if not self._finalized:
             self._finalize()
         if not self._native_active:
@@ -2549,7 +3882,15 @@ class HostSessionPool:
                 "export a resume bundle"
             )
         m = self._mirrors[index]
-        h = self._harvest(index)
+        try:
+            h = self._harvest(index)
+        except Exception:
+            # the same crash-recovery ladder as eviction: the journal tail
+            # stands in when the native resumable state is gone
+            recover = self._journal_recovery.get(index)
+            if recover is None:
+                raise
+            h = recover()
         resume, cell = _select_resume_frame(h, m.saved_states)
         return dict(
             version=1,
@@ -2569,18 +3910,33 @@ class HostSessionPool:
             pending_events=_materialize_events(m.event_queue),
             endpoints=[
                 # identity from the mirror; liveness and peer mirrors from
-                # the harvest (authoritative under the vectorized parse:
-                # the Python mirrors may be quiet-tick stale)
+                # the harvest when it carries them (authoritative under the
+                # vectorized parse: the Python mirrors may be quiet-tick
+                # stale), mirror fallback otherwise (journal-synthesized)
                 dict(
                     addr=ep.addr, handles=list(ep.handles), magic=ep.magic,
-                    running=he["state"] == 0,
-                    peer_disc=list(he["peer_disc"]),
-                    peer_last=list(he["peer_last"]),
+                    running=(
+                        h["endpoints"][e]["state"] == 0
+                        if e < len(h["endpoints"]) and "state" in h["endpoints"][e]
+                        else ep.running
+                    ),
+                    peer_disc=list(
+                        h["endpoints"][e].get("peer_disc") or ep.peer_disc
+                        if e < len(h["endpoints"]) else ep.peer_disc
+                    ),
+                    peer_last=list(
+                        h["endpoints"][e].get("peer_last") or ep.peer_last
+                        if e < len(h["endpoints"]) else ep.peer_last
+                    ),
                     pending_checksums=dict(ep.pending_checksums),
                 )
-                for ep, he in zip(m.endpoints, h["endpoints"])
+                for e, ep in enumerate(m.endpoints)
             ],
-            spectators=[],
+            spectators=[
+                dict(addr=sp.addr, magic=sp.magic, handles=list(sp.handles),
+                     running=sp.running)
+                for sp in m.spectators
+            ],
             staged_inputs={
                 # native staging first (§21 harvest tail), inline staging
                 # wins on conflict (the same precedence advance_all uses)
@@ -2597,10 +3953,11 @@ class HostSessionPool:
 
     def release_slot(self, index: int, detail: str = "migrated") -> None:
         """Retire a slot whose match now lives on another pool (the commit
-        point of migration): the bank stops stepping it, its staged state
-        drops, and the slot lands in the MIGRATED state: request lists and
-        events go empty, like dead, but the state records that the match
-        itself lives on elsewhere."""
+        point of migration): the bank stops stepping it, its native I/O
+        detaches cleanly (NetBatch freed, delta keys purged), its journal
+        tap and staged state drop, and the slot lands in the MIGRATED state:
+        request lists and events go empty, like dead, but the state records
+        that the match itself lives on elsewhere."""
         if not self._finalized:
             self._finalize()
         state = self._slot_state[index]
@@ -2615,8 +3972,13 @@ class HostSessionPool:
             m.staged_native.clear()
             m.event_queue.clear()
             m.pending_ctrl = []
+            for sp in m.spectators:
+                sp.deferred = []
         self._inject_dgrams.pop(index, None)
         self._inject_err.pop(index, None)
+        if index in self._journal_sinks:
+            # the destination journals through its own tap from here on
+            self.set_confirmed_stream(index, None)
         self._fault_log[index].append(
             SlotFault(self._tick_no, 0, f"released: {detail}")
         )
@@ -2720,6 +4082,337 @@ class HostSessionPool:
     def prediction_plane(self):
         """The attached ``DevicePredictionPlane``, or None."""
         return self._prediction_plane
+
+    # ------------------------------------------------------------------
+    # broadcast seams (driven by broadcast.SpectatorHub)
+    # ------------------------------------------------------------------
+
+    def _attach_spectator(self, index: int, addr, magic: int,
+                          handles: Optional[List[int]] = None) -> int:
+        """Attach one fan-out endpoint to slot ``index`` (native path; the
+        hub owns the policy and calls this).  Must happen before the match
+        confirms its first frame — the native side refuses later joins."""
+        if not self._finalized:
+            self._finalize()
+        if not self._native_active:
+            raise InvalidRequest(
+                "native spectator fan-out unavailable on this pool"
+            )
+        m = self._mirrors[index]
+        if addr in m.addr_to_spec or addr in m.addr_to_ep:
+            raise InvalidRequest(f"address {addr!r} already attached")
+        sp_idx = self._lib.ggrs_bank_attach_spectator(
+            self._bank, index, magic, self._clock()
+        )
+        if sp_idx < 0:
+            raise InvalidRequest(
+                "spectator attach refused (match already past frame 0?): "
+                f"{_native.BANK_ERR_NAMES.get(sp_idx, sp_idx)}"
+            )
+        m.addr_to_spec[addr] = int(sp_idx)
+        m.spectators.append(_SpectatorMirror(addr, magic, handles or []))
+        self._m_spectators.labels(slot=str(index)).set(len(m.spectators))
+        if self._io_attached[index]:
+            # the native datapath must be able to route this viewer; an
+            # unresolvable address drops the WHOLE slot back to the Python
+            # shuttle (per-slot automatic fallback) rather than silently
+            # never fanning out to one viewer
+            try:
+                ip, port = self._resolve_wire_addr(addr)
+            except (TypeError, ValueError, OSError):
+                self._detach_io(index)
+            else:
+                self._lib.ggrs_bank_map_addr(
+                    self._bank, index, 1, int(sp_idx), ip, port
+                )
+        # the drain plan's per-slot wire map must learn the new viewer
+        # (and a dispatch hub must claim its source address) before the
+        # next tick's one-crossing drain
+        self._refresh_drain()
+        return int(sp_idx)
+
+    def _detach_spectator(self, index: int, addr) -> None:
+        """Detach a viewer: the native endpoint shuts down immediately (no
+        disconnect linger) and stops receiving the stream."""
+        if not self._finalized:
+            self._finalize()
+        m = self._mirrors[index]
+        sp_idx = m.addr_to_spec.get(addr)
+        if sp_idx is None:
+            raise InvalidRequest(f"no spectator at address {addr!r}")
+        if self._native_active and self._slot_state[index] in (
+            SLOT_NATIVE, SLOT_QUARANTINED
+        ):
+            self._lib.ggrs_bank_detach_spectator(self._bank, index, sp_idx)
+        sp = m.spectators[sp_idx]
+        sp.running = False
+        sp.deferred = []
+        self._refresh_drain()
+        if index in self._evicted:
+            ep = self._evicted[index]._player_reg.spectators.get(addr)
+            if ep is not None:
+                ep.disconnect()
+
+    def _disconnect_spectator(self, index: int, sp_idx: int) -> None:
+        """Queue the hub's disconnect decision as next tick's ctrl op (the
+        same one-tick-late policy application as remote disconnects)."""
+        m = self._mirrors[index]
+        m.pending_ctrl.append((3, sp_idx, 0))
+        m.spectators[sp_idx].running = False
+
+    def set_confirmed_stream(self, index: int, sink,
+                             recovery=None) -> None:
+        """Attach a journal sink: the slot's newly-confirmed frames arrive
+        at ``sink.append_frames(start_frame, records)`` FROM THE TICK
+        CROSSING (zero extra crossings; records are ``(blank_flags,
+        joined_inputs)`` pairs).  ``recovery``, when given, is called if
+        eviction's native harvest fails and must return a harvest-shaped
+        dict built from the journal tail (crash recovery)."""
+        if not self._finalized:
+            self._finalize()
+        if sink is None:
+            self._journal_sinks.pop(index, None)
+            self._journal_recovery.pop(index, None)
+            if self._native_active:
+                self._lib.ggrs_bank_set_confirmed_stream(
+                    self._bank, index, 0
+                )
+            return
+        if not self._native_active:
+            raise InvalidRequest(
+                "native confirmed-stream tap unavailable on this pool"
+            )
+        rc = self._lib.ggrs_bank_set_confirmed_stream(self._bank, index, 1)
+        if rc != 0:
+            raise InvalidRequest(
+                "journal tap refused (match already past frame 0?): "
+                f"{_native.BANK_ERR_NAMES.get(rc, rc)}"
+            )
+        self._journal_sinks[index] = sink
+        if recovery is not None:
+            self._journal_recovery[index] = recovery
+
+    def spectator_states(self, index: int) -> List[Dict[str, Any]]:
+        """Hub-facing mirror of one slot's fan-out endpoints: address,
+        liveness, the viewer's ack watermark, and the catchup lag
+        ((next_spectator_frame - 1) - last_acked).  On the Python-session
+        paths (fallback pool, evicted slot) the live endpoints answer."""
+        if not self._finalized:
+            self._finalize()
+        if not self._native_active or index in self._evicted:
+            session = (
+                self._evicted[index] if index in self._evicted
+                else self._sessions[index]
+            )
+            tip = getattr(session, "_next_spectator_frame", 0) - 1
+            out = []
+            for addr, sp in session._player_reg.spectators.items():
+                if not hasattr(sp, "_core"):
+                    continue  # journal taps have no wire state
+                la = getattr(sp._core, "last_acked_frame", None)
+                la = la() if la is not None else NULL_FRAME
+                out.append(dict(
+                    addr=addr, running=sp.is_running(), last_acked=la,
+                    catchup_lag=(
+                        max(0, tip - la) if sp.is_running() else 0
+                    ),
+                ))
+            return out
+        m = self._mirrors[index]
+        tip = m.next_spec_frame - 1
+        return [
+            dict(
+                addr=sp.addr, running=sp.running, last_acked=sp.last_acked,
+                catchup_lag=(
+                    max(0, tip - sp.last_acked) if sp.running else 0
+                ),
+            )
+            for sp in m.spectators
+        ]
+
+    # ------------------------------------------------------------------
+    # batched socket datapath (docs/DESIGN.md §15): observables + seams
+    # ------------------------------------------------------------------
+
+    def _io_delta(self, slot: int, key, value: int) -> int:
+        """Delta of a cumulative native counter since the last scrape (the
+        registry's counters are inc-only; the NetBatch reports totals)."""
+        k = (slot, key)
+        prev = self._io_prev.get(k, 0)
+        if value > prev:
+            self._io_prev[k] = value
+            return value - prev
+        return 0
+
+    def _bump_io_hist(self, fam, slot: int, key: str, buckets, sum_delta):
+        """Fold one slot's cumulative batch-size buckets into the pool
+        histogram (sum approximated by the datagram delta — a batch-size
+        histogram's sum IS its datagram count)."""
+        child = getattr(fam, "_default", None)
+        if child is None or getattr(fam, "kind", "") != "histogram":
+            return
+        total = 0
+        for j, v in enumerate(buckets):
+            d = self._io_delta(slot, (key, j), v)
+            child.counts[j] += d
+            total += d
+        child.count += total
+        child.sum += sum_delta
+
+    def _apply_io_metrics(self, stats: List[Dict[str, Any]]) -> None:
+        """Refresh the io instruments from per-slot NetBatch records (the
+        detach path's final-snapshot flush; the per-scrape walk uses
+        :meth:`_apply_io_metrics_live`, driven by the attached-slot list
+        instead of range(B))."""
+        if not self._obs_on:
+            return
+        for s in stats:
+            io = s.get("io")
+            if io:
+                self._apply_io_record(s["index"], io)
+
+    def _apply_io_metrics_live(self, stats: List[Dict[str, Any]]) -> None:
+        """The per-scrape io-delta walk, incremental: only the slots with
+        a live NetBatch attachment are visited (``self._io_live``) — at
+        B=256 with no native io this is a no-op, not 256 dict probes."""
+        if not self._obs_on or not self._io_live:
+            return
+        for slot in self._io_live:
+            io = stats[slot].get("io")
+            if io:
+                self._apply_io_record(slot, io)
+
+    def _apply_io_record(self, slot: int, io: Dict[str, Any]) -> None:
+        """Fold one slot's cumulative NetBatch counters into the registry
+        instruments (delta-encoded: the native counters are totals)."""
+        recv_d = self._io_delta(slot, "recv_datagrams",
+                                io["recv_datagrams"])
+        send_d = self._io_delta(slot, "send_datagrams",
+                                io["send_datagrams"])
+        self._m_io_recvmmsg.inc(
+            self._io_delta(slot, "recv_calls", io["recv_calls"]))
+        self._m_io_sendmmsg.inc(
+            self._io_delta(slot, "send_calls", io["send_calls"]))
+        self._m_io_dgrams_in.inc(recv_d)
+        self._m_io_dgrams_out.inc(send_d)
+        self._m_io_send_errors.inc(
+            self._io_delta(slot, "send_errors", io["send_errors"]))
+        self._m_io_oversized.inc(
+            self._io_delta(slot, "oversized", io["oversized"]))
+        self._bump_io_hist(self._m_io_recv_batch, slot, "rb",
+                           io["recv_batches"], recv_d)
+        self._bump_io_hist(self._m_io_send_batch, slot, "sb",
+                           io["send_batches"], send_d)
+
+    @property
+    def native_io_active(self) -> bool:
+        """At least one slot's datagrams flow through the kernel-batched
+        native datapath (socket → crossing → socket, zero Python)."""
+        if not self._finalized:
+            self._finalize()
+        return any(self._io_attached)
+
+    def io_state(self, index: int) -> str:
+        """``"native"`` when the slot's socket is attached to the batched
+        datapath, ``"python"`` when it rides the per-datagram shuttle."""
+        if not self._finalized:
+            self._finalize()
+        return "native" if self._io_attached[index] else "python"
+
+    def io_stats(self) -> Dict[str, Any]:
+        """Aggregated NetBatch counters over every attached slot (from
+        the one-crossing stats scrape; all zeros when nothing is
+        attached).  Keys: ``_native.IO_STAT_FIELDS``, plus ``drain`` (the
+        one-crossing inbound drain's totals + ``crossings``), ``gso``
+        (segmented-send totals), ``decode`` (the decode plane's counters)
+        and ``capabilities`` (the per-feature fallback matrix)."""
+        out: Dict[str, Any] = dict.fromkeys(_native.IO_STAT_FIELDS, 0)
+        if not self._finalized:
+            self._finalize()
+        if self._native_active:
+            for s in self._bank_stats():
+                io = s.get("io")
+                # a detached slot's live tail is gone; its retained final
+                # snapshot keeps the totals monotonic
+                if io is None:
+                    io = self._io_final.get(s["index"])
+                if io:
+                    for k in _native.IO_STAT_FIELDS:
+                        out[k] += io[k]
+        out["drain"] = dict(
+            self._drain_totals, crossings=self.drain_crossings
+        )
+        out["gso"] = dict(self._gso_totals)
+        out["decode"] = (
+            dict(self._decode_pool.stats(),
+                 parallel_ticks=self.decode_parallel_ticks)
+            if self._decode_pool is not None
+            else {"backend": "serial", "workers": 1, "jobs": 0,
+                  "batches": 0, "decode_ns": 0, "worker_jobs": {},
+                  "parallel_ticks": 0}
+        )
+        out["capabilities"] = self.io_capabilities()
+        return out
+
+    def _io_set_capture(self, index: int, on: bool = True) -> None:
+        """Test seam: tee every natively-sent datagram of slot ``index``
+        into a drainable buffer (the wire-parity pin's capture side)."""
+        if not self._finalized:
+            self._finalize()
+        if not self._io_attached[index]:
+            raise InvalidRequest(f"slot {index} is not on the native io path")
+        self._lib.ggrs_net_set_capture(
+            self._net_handles[index], 1 if on else 0
+        )
+
+    def _io_drain_capture(self, index: int) -> List[Tuple[Any, bytes]]:
+        """Drain slot ``index``'s capture tee: ``((ip, port), bytes)`` per
+        datagram, in exact send order."""
+        if not self._finalized:
+            self._finalize()
+        if not self._io_attached[index]:
+            raise InvalidRequest(f"slot {index} is not on the native io path")
+        handle = self._net_handles[index]
+        buf = ctypes.create_string_buffer(1 << 16)
+        out_len = ctypes.c_size_t(0)
+        while True:
+            rc = self._lib.ggrs_net_drain_capture(
+                handle, buf, len(buf), ctypes.byref(out_len)
+            )
+            if rc == _native.BANK_ERR_BUFFER_TOO_SMALL:
+                buf = ctypes.create_string_buffer(
+                    max(out_len.value, 2 * len(buf))
+                )
+                continue
+            if rc != 0:
+                raise RuntimeError(f"ggrs_net_drain_capture failed: {rc}")
+            break
+        b = buf.raw[: out_len.value]
+        out: List[Tuple[Any, bytes]] = []
+        pos = 0
+        unpack_from = struct.unpack_from
+        while pos < len(b):
+            ip, port, dlen = unpack_from("<IHI", b, pos)
+            pos += 10
+            addr = (_pysocket.inet_ntoa(ip.to_bytes(4, "little")), port)
+            out.append((addr, b[pos : pos + dlen]))
+            pos += dlen
+        return out
+
+    def inject_socket_errno(self, index: int, err: int,
+                            count: int = 1) -> None:
+        """Chaos hook: the next ``count`` datagrams slot ``index`` stages
+        on the native datapath fail with errno ``err`` before any syscall
+        — transient errnos (ENOBUFS, EAGAIN...) count as packet loss, a
+        fatal errno faults the slot (``BANK_ERR_IO``) exactly like a
+        raising ``sendto`` on the Python path."""
+        if not self._finalized:
+            self._finalize()
+        if not self._io_attached[index]:
+            raise InvalidRequest(f"slot {index} is not on the native io path")
+        self._lib.ggrs_net_inject_send_errno(
+            self._net_handles[index], int(err), int(count)
+        )
 
     # ------------------------------------------------------------------
     # chaos hooks (tests + scripts/chaos.py)
@@ -2881,6 +4574,7 @@ class HostSessionPool:
                 raise RuntimeError(f"ggrs_bank_stats failed: {rc}")
             break
         stats = self._refresh_bank_records(out_len.value)
+        self._apply_io_metrics_live(stats)
         # evicted (and dead-after-eviction) slots: the bank record froze at
         # fault time; the live numbers are the Python session's
         for i, session in self._evicted.items():
@@ -2960,16 +4654,49 @@ class HostSessionPool:
                 (core["emits"], core["emit_bytes"], core["acks"],
                  core["datagrams"], core["new_frames"], core["drops"],
                  core["fallbacks"]) = (c0, c1, c2, c3, c4, c5, c6)
-            # the broadcast section, then the socket-datapath flag byte:
-            # no fan-out endpoint and no attached socket in this pool
-            next_spec, n_specs, has_io = unpack_from("<qBB", buf, pos)
-            pos += 10
-            if n_specs or has_io:
-                raise RuntimeError(
-                    "bank stats carry spectator or socket records this pool "
-                    "never attaches"
-                )
+            next_spec, n_specs = unpack_from("<qB", buf, pos)
+            pos += 9
             rec["next_spectator_frame"] = next_spec
+            specs = rec["spectators"]
+            if len(specs) != n_specs:  # dynamic attach since last build
+                del specs[:]
+                specs.extend(
+                    dict(addr=sp.addr, state=0, last_acked_frame=0,
+                         pending_len=0, ping=0, packets_sent=0,
+                         bytes_sent=0, stats_start=0)
+                    for sp in self._mirrors[i].spectators[:n_specs]
+                )
+            for ss in specs:
+                (ss["state"], ss["last_acked_frame"],
+                 ss["pending_len"], ss["ping"], ss["packets_sent"],
+                 ss["bytes_sent"], ss["stats_start"]) = unpack_from(
+                    "<B6q", buf, pos
+                )
+                pos += 49
+            # the batched-datapath tail (docs/DESIGN.md §15): u8 flag, then
+            # 22 u64 NetBatch counters when this slot has a socket attached.
+            # Refilled in place, like everything else here.
+            (has_io,) = unpack_from("<B", buf, pos)
+            pos += 1
+            if has_io:
+                words = unpack_from(
+                    f"<{_native.IO_STAT_WORDS}Q", buf, pos
+                )
+                pos += 8 * _native.IO_STAT_WORDS
+                nf = len(_native.IO_STAT_FIELDS)
+                nb = len(_native.IO_BATCH_BUCKETS) + 1
+                io = rec["io"]
+                if io is None:
+                    io = rec["io"] = dict.fromkeys(
+                        _native.IO_STAT_FIELDS, 0
+                    ) | {"recv_batches": [0] * nb,
+                         "send_batches": [0] * nb}
+                for k, v in zip(_native.IO_STAT_FIELDS, words):
+                    io[k] = v
+                io["recv_batches"][:] = words[nf:nf + nb]
+                io["send_batches"][:] = words[nf + nb:]
+            else:
+                rec["io"] = None
         if pos != end:
             raise RuntimeError("bank stats buffer layout mismatch")
         # a fresh list (the evicted overrides below must not clobber the
@@ -3338,25 +5065,34 @@ class HostSessionPool:
 
     def __del__(self) -> None:  # pragma: no cover
         try:
+            if self._decode_pool is not None:
+                self._decode_pool.close()
+                self._decode_pool = None
             if self._bank and self._lib is not None:
                 self._lib.ggrs_bank_free(self._bank)
                 self._bank = None
+            if self._lib is not None:
+                for i, handle in enumerate(self._net_handles):
+                    if handle:
+                        self._net_handles[i] = None
+                        self._lib.ggrs_net_free(handle)
         except Exception:
             pass
 
 
 def adopt_resume_bundle(builder, socket, bundle: Dict[str, Any], *,
-                        saved_states=None):
+                        journal=None, saved_states=None):
     """Resume a migrated match on THIS side of the wire: build a fresh
-    ``P2PSession`` from an ``export_resume_state`` bundle, the destination
-    half of match migration.
+    ``P2PSession`` from an ``export_resume_state`` bundle (or a
+    journal-synthesized equivalent), the destination half of match
+    migration.
 
     ``builder`` must describe the SAME match topology as the source slot
-    (player count, config, remote addresses); the adopted wire identities
-    (endpoint magics, send and receive windows, connect mirrors) make the
-    peers see a retransmission hiccup, never a new endpoint.  A bundle with
-    spectators, or a journal tap to resume, waits for the broadcast slice
-    and raises here.
+    (player count, config, remote and spectator addresses); the adopted
+    wire identities (endpoint magics, send and receive windows, connect
+    mirrors) make the peers and viewers see a retransmission hiccup, never
+    a new endpoint.  ``journal``, when given, is tapped so the resumed
+    session keeps journaling its confirmed stream (``JournalTap``).
 
     Returns ``(session, load_request)``: the caller leads the session's
     next request list with ``load_request`` so the game restores the state
@@ -3366,11 +5102,6 @@ def adopt_resume_bundle(builder, socket, bundle: Dict[str, Any], *,
     ``saved_states``: a pre-built ``SavedStates`` ring for callers that
     rebuild the resume state some other way; when given, the bundle's
     ``state_blob`` is ignored and the caller owns filling the resume cell."""
-    if bundle.get("spectators"):
-        raise NotImplementedError(
-            "resume bundles with spectators wait for the broadcast slice "
-            "(ROADMAP queue A)"
-        )
     h = bundle["harvest"]
     resume = bundle["resume_frame"]
     if saved_states is None:
@@ -3406,6 +5137,20 @@ def adopt_resume_bundle(builder, socket, bundle: Dict[str, Any], *,
         pending_events=list(bundle.get("pending_events", ())),
         next_spectator_frame=h.get("next_spectator_frame", 0),
     )
+    if bundle.get("spectators"):
+        from ..broadcast.hub import graft_spectator_endpoints
+
+        spec_states = h.get("spectators") or []
+        graft_spectator_endpoints(session, builder, [
+            dict(sp, state=spec_states[e] if e < len(spec_states) else None)
+            for e, sp in enumerate(bundle["spectators"])
+        ])
+    if journal is not None:
+        from ..broadcast.journal import JournalTap
+
+        session.adopt_spectator_endpoint(
+            JournalTap.ADDR, JournalTap(journal, builder._config)
+        )
     decode = builder._config.input_decode
     for handle, blob in (bundle.get("staged_inputs") or {}).items():
         session.add_local_input(int(handle), decode(blob))

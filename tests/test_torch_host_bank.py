@@ -25,6 +25,7 @@ import pytest
 import ggrs_tpu.core as jcore
 import ggrs_tpu.obs.trace as jtrace
 import ggrs_tpu.net as jnet
+import ggrs_tpu.obs as jobs
 import ggrs_tpu.parallel.host_bank as jbank
 import ggrs_tpu.sessions as jsessions
 from ggrs_tpu.core.config import Config as JConfig
@@ -33,6 +34,7 @@ from ggrs_tpu.net import _native as jnative
 import ggrs_tpu_torch.core as tcore
 import ggrs_tpu_torch.obs.trace as ttrace
 import ggrs_tpu_torch.net as tnet
+import ggrs_tpu_torch.obs as tobs
 import ggrs_tpu_torch.parallel.host_bank as tbank
 import ggrs_tpu_torch.sessions as tsessions
 from ggrs_tpu_torch.core.config import Config as TConfig
@@ -40,9 +42,9 @@ from ggrs_tpu_torch.net import _native as tnative
 
 PKGS = {
     "jax": SimpleNamespace(core=jcore, net=jnet, sessions=jsessions, bank=jbank,
-                           Config=JConfig, native=jnative, trace=jtrace),
+                           Config=JConfig, native=jnative, trace=jtrace, obs=jobs),
     "port": SimpleNamespace(core=tcore, net=tnet, sessions=tsessions, bank=tbank,
-                            Config=TConfig, native=tnative, trace=ttrace),
+                            Config=TConfig, native=tnative, trace=ttrace, obs=tobs),
 }
 LOSSY = dict(seed=77, loss=0.08, duplicate=0.04, reorder=0.15, latency_ticks=1)
 
@@ -363,9 +365,46 @@ def test_empty_pool_and_lazy_observables():
     assert pool.native_active
 
 
-def test_native_io_raises_until_its_slice():
-    with pytest.raises(NotImplementedError, match="native_io"):
-        tbank.HostSessionPool(native_io=True)
+def _c2_run(pkg, **pool_kwargs):
+    """Two slots fault on one tick under the given pool keywords; returns the
+    slot-0 recorder length and the supervision transitions."""
+    p = PKGS[pkg]
+    clock = [0]
+    net = p.net.InMemoryNetwork(latency_ticks=1)
+    pool = p.bank.HostSessionPool(metrics=p.obs.Registry(), **pool_kwargs)
+    for b, s in match_builders(pkg, net, clock, 2):
+        pool.add_session(b, s)
+    assert pool.native_active
+    for i in range(40):
+        clock[0] += 16
+        if i == 20:
+            pool.inject_slot_error(0)
+            pool.inject_slot_error(2)
+        for idx in range(len(pool)):
+            pool.add_local_input(idx, idx % 2, sched(i, idx))
+        for reqs in pool.advance_all():
+            fulfill_saves(reqs)
+        net.tick()
+    return len(pool.flight_recorder(1)), pool.drain_state_transitions()
+
+
+@pytest.mark.parametrize("kwargs", [dict(flight_recorder_size=8), dict(evict_max_per_tick=1), {}],
+                         ids=["flight_recorder_size", "evict_max_per_tick", "defaults"])
+def test_pool_keywords_match_jax(kwargs):
+    """The JAX constructor's ``flight_recorder_size`` (the recorder's
+    capacity) and ``evict_max_per_tick`` (the eviction storm clamp, None =
+    EVICT_MAX_PER_TICK) take the JAX semantics."""
+    port = _c2_run("port", **kwargs)
+    assert port == _c2_run("jax", **kwargs)
+    recorded, transitions = port
+    evicted = {slot: tick for slot, _, new, tick in transitions if new == "evicted"}
+    assert set(evicted) == {0, 2}
+    if kwargs.get("evict_max_per_tick") == 1:
+        assert evicted[0] != evicted[2]
+    else:
+        assert evicted[0] == evicted[2]
+    if "flight_recorder_size" in kwargs:
+        assert recorded == 8
 
 
 def _growth_run(pkg, shrink_at):

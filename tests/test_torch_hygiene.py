@@ -43,7 +43,8 @@ def test_package_imports_with_jax_blocked():
         "import ggrs_tpu_torch.broadcast, ggrs_tpu_torch.broadcast.journal\n"
         "import ggrs_tpu_torch.sessions.replay\n"
         "import ggrs_tpu_torch.predict, ggrs_tpu_torch.predict.batched, ggrs_tpu_torch.net._native\n"
-        "import ggrs_tpu_torch.parallel.host_bank\n"
+        "import ggrs_tpu_torch.parallel.host_bank, ggrs_tpu_torch.parallel.decode_pool\n"
+        "import ggrs_tpu_torch.broadcast.hub, ggrs_tpu_torch.net.sockets\n"
         "from ggrs_tpu_torch.parallel.batch import Mesh, make_mesh, make_mesh2d\n"
         "from ggrs_tpu_torch.parallel.batch import make_distributed_mesh\n"
         "assert ggrs_tpu_torch.net._native.available()\n"
@@ -96,6 +97,60 @@ def test_loopback_p2p_match_with_jax_blocked():
         "a, b = (to_numpy(ex.state) for _, _, ex in peers)\n"
         "assert all(np.array_equal(a[k], b[k]) for k in a)\n"
         "assert all(s._last_sent_checksum_frame > 50 for _, s, _ in peers)\n"
+        "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_loopback_pump_and_hub_viewer_with_jax_blocked():
+    # one bank slot on the kernel-batched pump, its peer and a hub-attached
+    # viewer over loopback UDP, in a process where jax and the JAX package
+    # cannot be imported
+    code = (
+        "import random, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['ggrs_tpu'] = None\n"
+        "from ggrs_tpu_torch import (Config, HostSessionPool, Local, Remote, SessionBuilder,\n"
+        "    UdpNonBlockingSocket)\n"
+        "from ggrs_tpu_torch.broadcast import SpectatorHub\n"
+        "from ggrs_tpu_torch.core.errors import NotSynchronized, PredictionThreshold\n"
+        "cfg, now = Config.for_uint(16), [0]\n"
+        "host, peer_sock, view_sock = (UdpNonBlockingSocket(0) for _ in range(3))\n"
+        "addr = lambda s: ('127.0.0.1', s.local_port())\n"
+        "b = lambda h, other, seed: (SessionBuilder(cfg).with_clock(lambda: now[0])\n"
+        "    .with_rng(random.Random(seed)).add_player(Local(), h).add_player(Remote(other), 1 - h))\n"
+        "pool = HostSessionPool(native_io=True)\n"
+        "hub = SpectatorHub(pool, rng=random.Random(9))\n"
+        "pool.add_session(b(0, addr(peer_sock), 3), host)\n"
+        "peer = b(1, addr(host), 4).start_p2p_session(peer_sock)\n"
+        "viewer = (SessionBuilder(cfg).with_clock(lambda: now[0]).with_rng(random.Random(5))\n"
+        "          .start_spectator_session(addr(host), view_sock))\n"
+        "hub.attach(0, addr(view_sock))\n"
+        "assert pool.native_io_active and pool.io_state(0) == 'native'\n"
+        "save = lambda reqs: [r.cell.save(r.frame, None, None) for r in reqs\n"
+        "                     if type(r).__name__ == 'SaveGameState']\n"
+        "for i in range(80):\n"
+        "    now[0] += 16\n"
+        "    peer.add_local_input(1, i % 16)\n"
+        "    save(peer.advance_frame())\n"
+        "    pool.add_local_input(0, 0, (i // 3) % 16)\n"
+        "    for reqs in pool.advance_all():\n"
+        "        save(reqs)\n"
+        "    try:\n"
+        "        viewer.advance_frame()\n"
+        "    except (NotSynchronized, PredictionThreshold):\n"
+        "        pass\n"
+        "st = pool.io_stats()\n"
+        "assert pool.crossings == 80 and st['recv_datagrams'] > st['recv_calls'] / 2, st\n"
+        "assert pool.current_frame(0) > 60 and viewer.current_frame > 50, viewer.current_frame\n"
+        "assert pool.spectator_states(0)[0]['running']\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
         "print('ok')\n"
     )
