@@ -189,6 +189,32 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    its viewers grafted, its journal still growing, and the other 63 matches
    equal to leg (a).  Syscalls counted a tick, host ms a tick (p50, p99),
    ``run`` ms, kernels, idle share, ``rmem_max``, ``RLIMIT_NOFILE``.
+18. fleet -- ``scripts/chaos.py``'s fleet leg (``verify_fleet_leg`` at its
+   defaults: seed 3, 32 matches a shard, its 96-tick floor) through the
+   port's ``drive_fleet_chaos``: a two-shard ``ShardSupervisor`` serving
+   journaled two-peer ``BoxGame(2)`` matches (``checkpoint_every`` 8,
+   ``journal_tail_window`` 64, ``identity_refresh_every`` 4), one seeded
+   ``InMemoryNetwork`` a match, a fake 16 ms clock, desync detection at
+   interval 1.  Each host match's lists run on its own
+   ``DeviceRequestExecutor`` on the card under the sync debug mode "error";
+   each outside peer's on one on the CPU, so every checksum report compares
+   a card digest with a CPU digest.  Five runs: control; ``s1`` killed at
+   tick 48 (journal failover onto ``s0``); ``s1`` drained from tick 32
+   (retired); the lossy control (5 % loss, 2 % duplication, 5 % reordering,
+   2 viewers on ``m0``, 8 matches a shard); ``m0`` migrated at tick 32
+   under that loss (its bundle pickled with its card tensors).  ``fleet_survivor_violations`` and
+   ``fleet_recovery_violations`` empty, nothing lost, 0 ``DesyncDetected``
+   on any host, peer or viewer, the survivors' live card states and newest
+   saved checksums bitwise the control's, the viewers' streams never
+   regressing, every killed match resumed through a Load of its numpy
+   journal checkpoint, digest launches (counts zeroed just before each run)
+   equal to the request lists' prediction.  ``/metrics`` and ``/healthz`` of
+   the merged registry scraped once over loopback, the exposition valid.
+   Host ms a tick (p50, p99) split into ``advance_all`` and fulfilment,
+   checkpoints and their ms, failover and migration ms, max lag, journal
+   bytes a frame, timeline events a match, the healthz (its SLO verdict
+   printed, not asserted), ``fleet_metrics_digest``, and the digest at 1 and
+   8 rows against its plain version with device us and the bytes bound.
 
 Then the seconds each phase took, one ``{"kernels": [...]}`` line, the
 card's name and power limit as nvidia-smi prints them, and, last,
@@ -260,13 +286,23 @@ from ggrs_tpu_torch import (
 )
 from ggrs_tpu_torch import NotSynchronized, PredictionThreshold, UdpNonBlockingSocket
 from ggrs_tpu_torch.broadcast import SpectatorHub
+from ggrs_tpu_torch.chaos import (
+    drive_fleet_chaos,
+    fleet_recovery_violations,
+    fleet_survivor_violations,
+)
 from ggrs_tpu_torch.net import _native as net_native
 from ggrs_tpu_torch.net import protocol as net_protocol
 from ggrs_tpu_torch.net.messages import InputAck, InputMessage, Message
 from ggrs_tpu_torch.net.sockets import DispatchHub
 from ggrs_tpu_torch.net.wire import WireError
 from ggrs_tpu_torch.net.endpoint import PyEndpointCore
-from ggrs_tpu_torch.obs import FlightRecorder
+from ggrs_tpu_torch.obs import (
+    FlightRecorder,
+    fleet_metrics_digest,
+    start_http_server,
+    validate_exposition,
+)
 from ggrs_tpu_torch.ops.checksum import checksum_device, checksum_device_plain, checksum_to_u128
 from ggrs_tpu_torch.ops.digest import (
     MAX_LEAVES,
@@ -342,6 +378,19 @@ INBOUND_MATCHES, INBOUND_WARMUP, INBOUND_TICKS = 512, 4, 20
 DATAPATH_FAULT_SLOT, DATAPATH_STORM_TICK, DATAPATH_EPERM_TICK, DATAPATH_STORM = 2, 40, 70, 10
 # descriptors: population B's per-slot legs hold 1,024 UDP sockets at once
 FDS_NEEDED = 2 * INBOUND_MATCHES + 512
+# phase 18: the fleet leg of scripts/chaos.py (verify_fleet_leg at its
+# defaults: --fleet-matches 32 a shard, --seed 3, its 96-tick floor)
+FLEET_MATCHES, FLEET_TICKS, FLEET_SEED = 32, 96, 3
+# the lossy pair is cut to 8 matches a shard, as scripts/chaos.py:1837 cuts
+# its smaller legs: at 32 it took phase 18 to 191 s on a slow host
+FLEET_LOSSY_MATCHES = 8
+FLEET_KILL_TICK, FLEET_DRAIN_TICK = FLEET_TICKS // 2, FLEET_TICKS // 3
+FLEET_MIGRATE_TICK = FLEET_TICKS // 3
+FLEET_LOSSY = dict(latency_ticks=1, loss=0.05, duplicate=0.02, reorder=0.05)
+FLEET_VIEWERS = 2
+FLEET_SCENARIOS = ("control", "shard_kill", "shard_drain", "lossy_control", "shard_migrate")
+FLEET_MAX_PREDICTION = 8  # the session builder's default window
+FLEET_DIGEST_ROWS = (1, FLEET_MAX_PREDICTION)  # a lone save; a full rollback burst
 
 
 class SmokeFailure(Exception):
@@ -3026,6 +3075,296 @@ def phase_datapath(cases: dict) -> int:
     return launches
 
 
+# -- phase 18: the in-process fleet ---------------------------------------------
+
+
+class FleetHost:
+    """What fulfils one fleet match's request lists: its own
+    ``DeviceRequestExecutor`` (BoxGame(2), checksums on).  On the card every
+    ``run`` is under the sync debug mode "error"; the host counts the digest
+    launches its lists predict, the Loads of a host tree (a journal
+    checkpoint going up through the executor's upload after a failover) and
+    keeps its newest saved cell."""
+
+    def __init__(self, game: BoxGame, device, programs: ExecutorPrograms) -> None:
+        self.ex = DeviceRequestExecutor(game.advance, game.init_state_np(), executor_inputs,
+                                        programs=programs, device=device)
+        self.card = self.ex.device.type == "cuda"
+        self.predicted = self.host_loads = 0
+        self.last_save = None
+
+    def fulfill(self, requests) -> None:
+        for r in requests:
+            if isinstance(r, LoadGameState):
+                self.host_loads += not isinstance(tree_leaves(r.cell.data())[0], torch.Tensor)
+            elif isinstance(r, SaveGameState):
+                self.last_save = r.cell
+        if self.card:
+            self.predicted += predicted_digest_launches(requests)
+        guarded_run(self.ex.run, requests, self.card)
+
+    @property
+    def state(self):
+        return self.ex.state
+
+
+@contextlib.contextmanager
+def timed_checkpoints():
+    """Time every journal state checkpoint (``MatchJournal.append_checkpoint``:
+    the card read of the checkpointed state, its npz and the append)."""
+    orig = MatchJournal.append_checkpoint
+    ms = []
+
+    def timed(self, frame, state, meta=None):
+        t0 = time.perf_counter()
+        orig(self, frame, state, meta)
+        ms.append((time.perf_counter() - t0) * 1e3)
+
+    MatchJournal.append_checkpoint = timed
+    try:
+        yield ms
+    finally:
+        MatchJournal.append_checkpoint = orig
+
+
+def drive_fleet(scenario: str, device, journal_dir: str, matches: int) -> dict:
+    """One scenario of ``scripts/chaos.py``'s fleet leg through the port's
+    ``drive_fleet_chaos``: each host match fulfilled by a ``FleetHost`` on
+    ``device``, each outside peer by one on the CPU.  The digest launch
+    counts are zeroed just before the drive and read just after it."""
+    game = BoxGame(2)
+    host_programs, peer_programs = ExecutorPrograms(game.advance), ExecutorPrograms(game.advance)
+    hosts = {}
+    timing = {}
+
+    def host(mid):
+        hosts[mid] = FleetHost(game, device, host_programs)
+        return hosts[mid]
+
+    def inject(i, ctx):
+        sup = ctx["sup"]
+        if scenario == "shard_kill" and i == FLEET_KILL_TICK:
+            # the failover runs inside the next advance_all's health check
+            fail = sup._fail_shard
+
+            def timed_fail(*args, **kw):
+                t0 = time.perf_counter()
+                fail(*args, **kw)
+                timing["failover_ms"] = (time.perf_counter() - t0) * 1e3
+
+            sup._fail_shard = timed_fail
+            sup.kill("s1")
+        elif scenario == "shard_drain" and i == FLEET_DRAIN_TICK:
+            sup.drain("s1")
+        elif scenario == "shard_migrate" and i == FLEET_MIGRATE_TICK:
+            t0 = time.perf_counter()
+            sup.migrate("m0")
+            timing["migration_ms"] = (time.perf_counter() - t0) * 1e3
+
+    # the game's device constants and the digest kernel, built before the
+    # drive and its sync-guarded runs: one warmup serves every executor
+    DeviceRequestExecutor(game.advance, game.init_state_np(), executor_inputs,
+                          programs=host_programs, device=device).warmup(
+        np.zeros(2, np.uint8), burst_depths=range(2, FLEET_MAX_PREDICTION + 2))
+    lossy = scenario in ("lossy_control", "shard_migrate")
+    with timed_checkpoints() as ckpt_ms:
+        state_digest.launches = lane_sums_rows.launches = 0
+        ctx = drive_fleet_chaos(
+            FLEET_TICKS, matches_per_shard=matches, seed=FLEET_SEED,
+            inject=inject if scenario in ("shard_kill", "shard_drain", "shard_migrate") else None,
+            fault_cfg=dict(FLEET_LOSSY) if lossy else None,
+            n_spectators=FLEET_VIEWERS if lossy else 0, journal_dir=journal_dir,
+            game_factory=host, peer_game_factory=lambda mid: FleetHost(game, "cpu", peer_programs),
+            state_template=game.init_state_np())
+        launches, around = state_digest.launches, lane_sums_rows.launches
+    if hosts[ctx["match_ids"][0]].card:
+        torch.cuda.synchronize()
+    sup = ctx["sup"]
+    journal_bytes = sum(os.path.getsize(os.path.join(journal_dir, f))
+                        for f in os.listdir(journal_dir))
+    viewer_desyncs = sum(isinstance(e, DesyncDetected)
+                         for v in ctx["viewers"] for e in v.events())
+    adv = [a for a, _ in ctx["host_ms"]]
+    ful = [f for _, f in ctx["host_ms"]]
+    tick = [a + f for a, f in ctx["host_ms"]]
+    run = {
+        "ctx": ctx, "hosts": hosts, "launches": launches, "around": around,
+        "predicted": sum(h.predicted for h in hosts.values()),
+        "states": {mid: to_numpy(h.state) for mid, h in hosts.items()},
+        "last_checksums": {mid: (h.last_save.frame, h.last_save.checksum)
+                           for mid, h in hosts.items()},
+        "host_loads": {mid: h.host_loads for mid, h in hosts.items()},
+        "viewer_desyncs": viewer_desyncs,
+        "host_ms_p50": float(np.percentile(tick, 50)), "host_ms_p99": float(np.percentile(tick, 99)),
+        "advance_all_ms_p50": float(np.percentile(adv, 50)),
+        "advance_all_ms_p99": float(np.percentile(adv, 99)),
+        "fulfil_ms_p50": float(np.percentile(ful, 50)), "fulfil_ms_p99": float(np.percentile(ful, 99)),
+        "checkpoints": len(ckpt_ms),
+        "checkpoint_ms_p50": float(np.percentile(ckpt_ms, 50)) if ckpt_ms else None,
+        "checkpoint_ms_max": max(ckpt_ms) if ckpt_ms else None,
+        "max_lag_frames": max(ctx["peer_frames"][m] - (ctx["frames"][m] or 0)
+                              for m in ctx["match_ids"]),
+        "journal_bytes": journal_bytes,
+        "journal_bytes_per_frame": journal_bytes / max(1, sum(f or 0 for f in ctx["frames"].values())),
+        "timeline_events_per_match": (sum(sup.fleet_obs.timelines.counts().values())
+                                      / len(ctx["match_ids"])),
+        **timing,
+    }
+    if scenario == "shard_kill":
+        run["failover_tick_fulfil_ms"] = ful[FLEET_KILL_TICK]
+    return run
+
+
+FLEET_RUN_KEYS = ("host_ms_p50", "host_ms_p99", "advance_all_ms_p50", "advance_all_ms_p99",
+                  "fulfil_ms_p50", "fulfil_ms_p99", "checkpoints", "checkpoint_ms_p50",
+                  "checkpoint_ms_max", "max_lag_frames", "journal_bytes_per_frame",
+                  "timeline_events_per_match", "failover_ms", "failover_tick_fulfil_ms",
+                  "migration_ms")
+
+
+def fleet_violations(scenario: str, run: dict, control: dict, matches: int) -> list:
+    """``scripts/chaos.py``'s verdicts for one scenario, plus the port's:
+    the survivors' live card states and newest saved checksums bitwise
+    equal to the control's, 0 desyncs anywhere, the digest launches as the
+    request lists predict, the viewers' streams never regressing, and every
+    failed-over match resumed through a host-tree Load."""
+    ctx, base = run["ctx"], control["ctx"]
+    survivors = [f"m{k}" for k in range(matches)]
+    affected = [f"m{k}" for k in range(matches, 2 * matches)]
+    out = []
+    if scenario == "shard_kill":
+        out += fleet_survivor_violations(ctx, base, survivors)
+        out += fleet_recovery_violations(ctx, affected, dead_shards=["s1"])
+        out += [f"{m}: resumed without a host-tree load" for m in affected
+                if run["host_loads"][m] < 1]
+    elif scenario == "shard_drain":
+        out += fleet_survivor_violations(ctx, base, survivors)
+        out += fleet_recovery_violations(ctx, affected)
+        if ctx["sup"].shards["s1"].state != "retired":
+            out.append(f"drained shard is {ctx['sup'].shards['s1'].state}")
+    elif scenario == "shard_migrate":
+        survivors = [m for m in ctx["match_ids"] if m != "m0"]
+        out += fleet_survivor_violations(ctx, base, survivors)
+        out += fleet_recovery_violations(ctx, ["m0"])
+        if ctx["locations"]["m0"] == base["locations"]["m0"]:
+            out.append("m0 never moved")
+    else:
+        survivors = list(ctx["match_ids"])
+        out += fleet_recovery_violations(ctx, survivors)
+    if ctx["lost"]:
+        out.append(f"lost {ctx['lost']}")
+    for m in survivors:
+        if not trees_equal(run["states"][m], control["states"][m]):
+            out.append(f"{m}: live state != control")
+        if run["last_checksums"][m] != control["last_checksums"][m]:
+            out.append(f"{m}: newest saved checksum != control")
+    if run["viewer_desyncs"]:
+        out.append(f"{run['viewer_desyncs']} viewer desyncs")
+    for v, stream in enumerate(ctx["viewer_streams"]):
+        frames = [f for f, _ in stream]
+        if frames != sorted(set(frames)):
+            out.append(f"viewer {v} stream reset or regressed")
+        if not frames or frames[-1] < FLEET_MIGRATE_TICK + 8:
+            out.append(f"viewer {v} stalled at {frames[-1] if frames else None}")
+    card = next(iter(run["hosts"].values())).card
+    if card and run["launches"] != run["predicted"]:
+        out.append(f"{run['launches']} digest launches, predicted {run['predicted']}")
+    if run["around"]:
+        out.append("the digest went around state_digest")
+    return out
+
+
+def fleet_scrape(sup) -> dict:
+    """``/metrics`` and ``/healthz`` of the supervisor's merged registry over
+    loopback HTTP; the exposition must validate."""
+    import urllib.error
+    import urllib.request
+
+    server = start_http_server(sup.merged_registry(), port=0, health=sup.healthz)
+    try:
+        base = f"http://127.0.0.1:{server.port}"
+        with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+            text = r.read().decode()
+        try:
+            with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
+                health_status, health = r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            health_status, health = e.code, json.loads(e.read())
+    finally:
+        server.close()
+    errors = validate_exposition(text)
+    check(not errors, f"fleet: /metrics exposition errors {errors[:5]}")
+    return {"metrics_bytes": len(text), "metrics_lines": text.count("\n"),
+            "exposition_errors": len(errors), "healthz_status": health_status,
+            "healthz_ok": health.get("ok")}
+
+
+def fleet_digest_rows(hosts: dict) -> dict:
+    """The digest at the fleet's shapes (BoxGame(2), 1 and 8 rows of saved
+    states) on the card against its plain version, bitwise, with device us,
+    the plain version's ms and the bytes bound."""
+    states = [h.state for h in hosts.values()][:max(FLEET_DIGEST_ROWS)]
+    out = {}
+    for rows in FLEET_DIGEST_ROWS:
+        st = tree_map(lambda *ls: torch.stack(ls), *states[:rows])
+        got, want = checksum_device(st), checksum_device_plain(st)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"fleet: digest of {rows} rows != plain")
+        row_bytes = sum(math.prod(l.shape[1:]) * l.element_size() for l in tree_leaves(st))
+        out[rows] = {"device_us": graph_us(checksum_device, [st]),
+                     "plain_ms": device_ms(lambda: checksum_device_plain(st), iters=20),
+                     "bound_us": bound_us(row_bytes * rows, rows),
+                     "max_abs_err": u32_err(got, want)}
+    return out
+
+
+def fleet_matches(scenario: str) -> int:
+    """Matches a shard in one scenario's run."""
+    lossy = scenario in ("lossy_control", "shard_migrate")
+    return FLEET_LOSSY_MATCHES if lossy else FLEET_MATCHES
+
+
+def phase_fleet() -> int:
+    """Phase 18: the in-process fleet.  Returns the digest launches of the
+    card's drives."""
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for scenario in FLEET_SCENARIOS:
+            jdir = os.path.join(tmp, scenario)
+            os.mkdir(jdir)
+            runs[scenario] = drive_fleet(scenario, None, jdir, fleet_matches(scenario))
+            if scenario == "control":
+                scrape = fleet_scrape(runs["control"]["ctx"]["sup"])
+        for run in runs.values():
+            run["ctx"]["sup"].close()
+    controls = {"control": "control", "shard_kill": "control", "shard_drain": "control",
+                "lossy_control": "lossy_control", "shard_migrate": "lossy_control"}
+    for scenario, run in runs.items():
+        bad = fleet_violations(scenario, run, runs[controls[scenario]], fleet_matches(scenario))
+        check(not bad, f"fleet {scenario}: {bad[:6]}")
+    digest = fleet_digest_rows(runs["control"]["hosts"])
+    kill = runs["shard_kill"]
+    affected = [f"m{k}" for k in range(FLEET_MATCHES, 2 * FLEET_MATCHES)]
+    emit({"phase": "fleet", "matches_per_shard": FLEET_MATCHES,
+          "lossy_matches_per_shard": FLEET_LOSSY_MATCHES, "shards": 2,
+          "ticks": FLEET_TICKS, "seed": FLEET_SEED, "lossy": FLEET_LOSSY,
+          "viewers_on_m0": FLEET_VIEWERS, "sync_debug_mode": "error",
+          "scenarios": {name: {k: run.get(k) for k in FLEET_RUN_KEYS} | {
+              "digest_launches": run["launches"], "digest_predicted": run["predicted"],
+              "violations": 0, "lost": len(run["ctx"]["lost"]),
+              "healthz": {k: v for k, v in run["ctx"]["healthz"].items() if k != "shards"}}
+              for name, run in runs.items()},
+          "kill_host_tree_loads": sum(kill["host_loads"][m] for m in affected),
+          "drained_shard": runs["shard_drain"]["ctx"]["sup"].shards["s1"].state,
+          "migrated_to": runs["shard_migrate"]["ctx"]["locations"]["m0"],
+          "viewer_tips": [s[-1][0] if s else None
+                          for s in runs["shard_migrate"]["ctx"]["viewer_streams"]],
+          "scrape": scrape,
+          "fleet_metrics_digest": fleet_metrics_digest(runs["control"]["ctx"]["sup"]),
+          "digest_rows": digest})
+    return sum(run["launches"] for run in runs.values())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs the card",
@@ -3061,6 +3400,7 @@ def main() -> int:
     mesh_launches = timed("mesh", phase_mesh)
     bank_launches = timed("bank", phase_bank)
     datapath_launches = timed("datapath", phase_datapath, cases)
+    fleet_launches = timed("fleet", phase_fleet)
     emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
     main_case = cases[MAIN_CASE]
     emit({"kernels": [{
@@ -3072,7 +3412,7 @@ def main() -> int:
         "launches_speculation": spec_launches, "launches_pool": pool_launches,
         "launches_native": native_launches, "launches_plane": plane_launches,
         "launches_mesh": mesh_launches, "launches_bank": bank_launches,
-        "launches_datapath": datapath_launches,
+        "launches_datapath": datapath_launches, "launches_fleet": fleet_launches,
         "max_abs_err": worst,
         "ms": main_case["device_us"] / 1e3, "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_us"] / 1e3, "bound_by": "bytes", "library_ms": None,

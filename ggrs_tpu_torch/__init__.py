@@ -30,6 +30,10 @@ NVIDIA H100:
 - match journals (``broadcast``): a ``JournalTap`` records a live
   ``P2PSession`` into a ``MatchJournal``, and ``ReplaySession`` plays it back
   frame by frame or fast-forwards it on the card (``build_scrub_program``);
+- the in-process fleet (``fleet``): a ``ShardSupervisor`` serving matches
+  on ``PoolShard``s (host session banks) with placement, live migration,
+  drain and crash failover from the match journals, observed through
+  ``obs``'s exporters, timelines and SLO burn rates;
 - the 4-lane state digest as a hand-written CUDA kernel (``csrc/digest.cu``)
   that digests a whole batch of states from their leaves in one launch.
 
@@ -37,7 +41,7 @@ It imports torch and numpy only; entry points take ``device=None``, meaning
 the CUDA card.
 """
 
-from . import broadcast, obs, predict
+from . import broadcast, fleet, obs, predict
 from .convert import from_numpy, to_numpy
 from .core import (
     AdvanceFrame,
@@ -173,6 +177,7 @@ __all__ = [
     "checksum_to_u128",
     "decode_commands",
     "encode_commands",
+    "fleet",
     "from_numpy",
     "lane_sums_rows",
     "make_distributed_mesh",

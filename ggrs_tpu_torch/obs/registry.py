@@ -29,6 +29,7 @@ __all__ = [
     "Counter",
     "Gauge",
     "Histogram",
+    "MultiRegistry",
     "Registry",
     "DEFAULT",
     "default_registry",
@@ -315,6 +316,38 @@ class Registry:
         if fam.kind == "histogram":
             return float(child.count)
         return child.value
+
+
+class MultiRegistry:
+    """A read-only union view over several registries, for the exporters.
+
+    The fleet observability plane keeps harvested runner
+    metrics in a registry of their own — the same family NAME can then
+    carry different label sets locally vs merged (e.g. an unlabeled local
+    ``ggrs_pool_ticks_total`` beside the harvested
+    ``ggrs_pool_ticks_total{shard,backend}``) without tripping the
+    single-registry shape check.  The exporters group families by name,
+    so one ``/metrics`` scrape serves the union; writes still go to the
+    underlying registries (this view has no factories on purpose).
+    """
+
+    __slots__ = ("registries",)
+
+    def __init__(self, *registries) -> None:
+        self.registries = tuple(r for r in registries if r is not None)
+
+    def families(self) -> List[Family]:
+        out: List[Family] = []
+        for reg in self.registries:
+            out.extend(reg.families())
+        return out
+
+    def value(self, name: str, **label_values) -> Optional[float]:
+        for reg in self.registries:
+            v = reg.value(name, **label_values)
+            if v is not None:
+                return v
+        return None
 
 
 # The process-wide registry: cross-cutting layers (protocol, sockets,

@@ -26,7 +26,8 @@ import time
 from collections import deque
 from typing import Any, Deque, Dict, List, Optional, Tuple
 
-__all__ = ["Tracer", "NULL_TRACER", "chrome_trace_events"]
+__all__ = ["Tracer", "NULL_TRACER", "chrome_trace_events",
+           "validate_chrome_trace"]
 
 # event phases on the ring (Chrome trace-event "ph" values)
 _PH_COMPLETE = "X"
@@ -125,6 +126,36 @@ class Tracer:
         by hand."""
         return time.perf_counter_ns()
 
+    def import_spans(self, events: List[Tuple], *, offset_ns: int = 0,
+                     extra_args: Optional[Dict[str, Any]] = None) -> int:
+        """Re-emit raw ring events shipped from ANOTHER process
+        (the fleet's harvest): each event's start time is shifted by
+        ``offset_ns`` (the RTT-estimated clock offset between the two
+        processes' ``perf_counter`` clocks) and recorded on THIS thread's
+        track, so a runner's spans nest inside the supervisor span that
+        covers the RPC which carried them.  ``extra_args`` (e.g.
+        ``{"shard": "s1"}``) is folded into every event's args; the
+        source thread id is preserved as ``src_tid``.  Returns the number
+        of events imported; malformed entries are skipped, never raised.
+        """
+        if not self.enabled or not events:
+            return 0
+        n = 0
+        for ev in events:
+            try:
+                ph, name, cat, start_ns, dur_ns, src_tid, args = ev
+                start_ns = int(start_ns) - offset_ns
+                dur_ns = int(dur_ns)
+            except Exception:
+                continue
+            a: Dict[str, Any] = dict(args) if args else {}
+            if extra_args:
+                a.update(extra_args)
+            a.setdefault("src_tid", src_tid)
+            self._append(ph, str(name), str(cat), start_ns, dur_ns, a)
+            n += 1
+        return n
+
     def _append(self, ph: str, name: str, cat: str, start_ns: int,
                 dur_ns: int, args: Optional[Dict[str, Any]]) -> None:
         self._ring.append(
@@ -214,6 +245,90 @@ def chrome_trace_events(events: List[Tuple]) -> List[Dict[str, Any]]:
             ev["args"] = dict(args)
         out.append(ev)
     return out
+
+
+# The shared disabled tracer: sessions and pools default to this so the
+# hot path pays one attribute load + one no-op call when nobody is tracing.
+NULL_TRACER = Tracer(capacity=1, enabled=False)
+
+
+def validate_chrome_trace(trace: Any, eps_us: float = 0.001) -> List[str]:
+    """Schema validation for a Chrome/Perfetto trace-event export: the
+    checks a load into ui.perfetto.dev would fail on, run in CI instead.  Returns a list of problems (empty = valid):
+
+    - the object is ``{"traceEvents": [...]}`` and JSON-serializable;
+    - every event has a string ``name``, a known ``ph``, numeric
+      finite ``ts >= 0``, and ``pid``/``tid``;
+    - complete ("X") events carry ``dur >= 0``;
+    - per (pid, tid) track, complete events properly nest: sorted by
+      start time, any two spans are either disjoint or one contains the
+      other — partial overlap on one track is how a bad clock offset or
+      a torn import shows up.
+
+    ``eps_us`` is the nesting slack in microseconds: keep the tight
+    default for single-process traces (one clock, exact containment);
+    fleet traces carrying imported cross-process spans should allow the
+    residual clock-offset error (tens of µs).
+    """
+    problems: List[str] = []
+    if not isinstance(trace, dict) or "traceEvents" not in trace:
+        return ["not a {'traceEvents': [...]} object"]
+    events = trace["traceEvents"]
+    if not isinstance(events, list):
+        return ["traceEvents is not a list"]
+    try:
+        json.dumps(trace)
+    except (TypeError, ValueError) as e:
+        problems.append(f"not JSON-serializable: {e}")
+    known_ph = {"X", "i", "I", "B", "E", "M", "b", "e", "n", "s", "t", "f"}
+    tracks: Dict[Tuple, List[Tuple[float, float, str]]] = {}
+    for i, ev in enumerate(events):
+        if not isinstance(ev, dict):
+            problems.append(f"event {i}: not an object")
+            continue
+        name = ev.get("name")
+        if not isinstance(name, str) or not name:
+            problems.append(f"event {i}: missing/empty name")
+            name = "?"
+        ph = ev.get("ph")
+        if ph not in known_ph:
+            problems.append(f"event {i} ({name}): unknown ph {ph!r}")
+            continue
+        ts = ev.get("ts")
+        if not isinstance(ts, (int, float)) or ts != ts or ts < 0 \
+                or ts in (float("inf"), float("-inf")):
+            problems.append(f"event {i} ({name}): bad ts {ts!r}")
+            continue
+        if "pid" not in ev or "tid" not in ev:
+            problems.append(f"event {i} ({name}): missing pid/tid")
+            continue
+        if ph == "X":
+            dur = ev.get("dur")
+            if not isinstance(dur, (int, float)) or dur != dur or dur < 0:
+                problems.append(f"event {i} ({name}): bad dur {dur!r}")
+                continue
+            tracks.setdefault((ev["pid"], ev["tid"]), []).append(
+                (float(ts), float(dur), name)
+            )
+    # nesting per track: the epsilon absorbs ns→µs rounding (default)
+    # or residual cross-process offset error (caller-raised)
+    eps = eps_us
+    for track, spans in tracks.items():
+        spans.sort(key=lambda s: (s[0], -s[1]))
+        stack: List[Tuple[float, str]] = []  # (end_ts, name)
+        for ts, dur, name in spans:
+            end = ts + dur
+            while stack and ts >= stack[-1][0] - eps:
+                stack.pop()
+            if stack and end > stack[-1][0] + eps:
+                problems.append(
+                    f"track {track}: span {name!r} [{ts:.3f}, {end:.3f}] "
+                    f"partially overlaps enclosing {stack[-1][1]!r} "
+                    f"(ends {stack[-1][0]:.3f})"
+                )
+                continue
+            stack.append((end, name))
+    return problems
 
 
 # The shared disabled tracer: sessions and pools default to this so the

@@ -7,7 +7,8 @@ the game state as tensors on the card and fulfils the list there:
 
 - a ``SaveGameState`` stores the state's tensors in the request's cell, with
   no copy, plus a lazy ``DeviceChecksum`` computed by the digest kernel;
-- a ``LoadGameState`` makes the cell's tensors the live state again;
+- a ``LoadGameState`` makes the cell's tensors the live state again (a
+  host tree in the cell, as a journal failover loads one, goes up first);
 - an ``(Advance, Save?)*`` run of two or more advances is one burst: the
   inputs of all its steps are stacked on the host and uploaded in one copy,
   the advances run in order, and the states of the steps that are saved are
@@ -302,10 +303,24 @@ class DeviceRequestExecutor:
         cs = DeviceChecksum(self._programs.checksum(self._state)) if self._with_checksums else None
         req.cell.save(req.frame, self._state, cs)
 
+    def _on_device(self, data: Any) -> Any:
+        """A loaded cell's data as a state on ``self.device``.  Tensors there
+        already pass through untouched (no copy, no read); a host tree (the
+        numpy leaves ``loads_pytree`` gives a journal failover) or tensors on
+        another device go up in one ``from_numpy`` call."""
+        dev = self.device
+        if all(
+            isinstance(leaf, torch.Tensor) and leaf.device.type == dev.type
+            and (dev.index is None or leaf.device.index == dev.index)
+            for leaf in tree_leaves(data)
+        ):
+            return data
+        return from_numpy(data, dev)
+
     def _do_load(self, req: LoadGameState) -> None:
         data = req.cell.data()
         assert data is not None, f"loading frame {req.frame} from an empty cell"
-        self._state = data
+        self._state = self._on_device(data)
 
     def _do_advance(self, req: AdvanceFrame, inputs: Any = None) -> None:
         if inputs is None:
@@ -382,7 +397,7 @@ class DeviceRequestExecutor:
             # one digest launch for the window where any of its steps is saved
             digest = self._with_checksums and any(s is not None for s in saves[:n_resim])
             out = self._spec.fulfill_and_refill(
-                g, arrays[:n_resim], load.cell.data(), digest,
+                g, arrays[:n_resim], self._on_device(load.cell.data()), digest,
                 live_inputs=arrays[-1] if has_live else None,
             )
             steps, sums = out[0], out[1]

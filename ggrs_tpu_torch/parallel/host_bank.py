@@ -140,6 +140,7 @@ from ..obs.recorder import (
     FlightRecorder,
 )
 from ..obs.registry import Registry, default_registry
+from ..obs.timeline import EV_DEMOTE_LOCKSTEP as TL_DEMOTE_LOCKSTEP
 from ..obs.trace import NULL_TRACER, Tracer
 from ..obs.forensics import DesyncReport, build_desync_report
 from ..utils.tracing import trace_span
@@ -151,9 +152,6 @@ from ..sessions.p2p import (
 
 _logger = logging.getLogger(__name__)
 
-# the match-lifecycle timeline's name for a lockstep demotion, handed to
-# ``timeline_sink`` (the JAX package's ``obs.timeline.EV_DEMOTE_LOCKSTEP``)
-TL_DEMOTE_LOCKSTEP = "DEMOTE_LOCKSTEP"
 
 _STATUS = (
     InputStatus.CONFIRMED,

@@ -346,3 +346,64 @@ def test_no_digest_launch_without_saves_or_checksums(card_digest, check_distance
     inputs = np.random.default_rng(9).integers(0, 16, size=(FRAMES, 2)).astype(np.uint8)
     _port_run(BoxGame(2), inputs, check_distance, with_checksums=with_checksums)
     assert card_digest == []
+
+
+# -- a load of a host checkpoint, as journal failover makes one (C3) ---------------
+
+
+def _host_checkpoint_run(pkg, speculate):
+    """Save frame 0, advance 3 live frames, then roll back to frame 0 from a
+    ``dumps_pytree`` -> ``loads_pytree`` tree (numpy leaves, as the fleet's
+    failover loads a journal checkpoint) and replay 3 advances with a save.
+    Returns the live state and the final save's u128 checksum."""
+    from ggrs_tpu.parallel import SpeculativeRollback as JaxSpec
+    from ggrs_tpu.utils.checkpoint import dumps_pytree as jdumps
+    from ggrs_tpu.utils.checkpoint import loads_pytree as jloads
+    from ggrs_tpu_torch.parallel import SpeculativeRollback as PortSpec
+    from ggrs_tpu_torch.utils.checkpoint import dumps_pytree as tdumps
+    from ggrs_tpu_torch.utils.checkpoint import loads_pytree as tloads
+
+    moves = np.random.default_rng(12).integers(0, 16, size=(6, 2)).astype(np.uint8)
+    candidates = np.array([0, 1, 4, 8], np.uint8)
+
+    def branch_inputs(k, frame, local_inputs):
+        out = np.array(np.asarray(local_inputs), np.uint8, copy=True)
+        out[1] = candidates[k]
+        return out
+
+    if pkg == "jax":
+        game, core = JaxBoxGame(2), jcore
+        spec = JaxSpec(game.advance, 4, branch_inputs, max_window=8) if speculate else None
+        ex = JaxExecutor(game.advance, game.init_state(), _jax_inputs, speculation=spec)
+        dumps, loads = jdumps, jloads
+    else:
+        game, core = BoxGame(2), tcore
+        spec = (PortSpec(game.advance, 4, branch_inputs, max_window=8, device="cpu")
+                if speculate else None)
+        ex = DeviceRequestExecutor(game.advance, game.init_state_np(), _port_inputs,
+                                   speculation=spec, device="cpu")
+        dumps, loads = tdumps, tloads
+
+    def adv(m):
+        return core.AdvanceFrame(inputs=[(int(m[0]), C), (int(m[1]), C)])
+
+    first = core.GameStateCell()
+    ex.run([core.SaveGameState(cell=first, frame=0)])
+    ex.run([adv(m) for m in moves[:3]])
+    tree, _ = loads(dumps(first.data(), {"frame": 0}), game.init_state_np())
+    assert all(isinstance(leaf, np.ndarray) for leaf in tree.values())
+    host = core.GameStateCell()
+    host.save(0, tree, None)
+    last = core.GameStateCell()
+    ex.run([core.LoadGameState(cell=host, frame=0)] + [adv(m) for m in moves[3:]]
+           + [core.SaveGameState(cell=last, frame=3)])
+    return ex.state, last.checksum
+
+
+@pytest.mark.parametrize("speculate", [False, True])
+def test_load_host_checkpoint_matches_jax(speculate):
+    port_state, port_cs = _host_checkpoint_run("port", speculate)
+    jax_state, jax_cs = _host_checkpoint_run("jax", speculate)
+    _assert_states_equal(port_state, jax_state)
+    assert port_cs == jax_cs and 0 <= port_cs < 1 << 128
+    assert all(isinstance(leaf, torch.Tensor) for leaf in tree_leaves(port_state))

@@ -45,6 +45,9 @@ def test_package_imports_with_jax_blocked():
         "import ggrs_tpu_torch.predict, ggrs_tpu_torch.predict.batched, ggrs_tpu_torch.net._native\n"
         "import ggrs_tpu_torch.parallel.host_bank, ggrs_tpu_torch.parallel.decode_pool\n"
         "import ggrs_tpu_torch.broadcast.hub, ggrs_tpu_torch.net.sockets\n"
+        "import ggrs_tpu_torch.obs.timeline, ggrs_tpu_torch.obs.slo, ggrs_tpu_torch.obs.exporters\n"
+        "import ggrs_tpu_torch.obs.fleet_obs, ggrs_tpu_torch.fleet, ggrs_tpu_torch.fleet.rpc\n"
+        "import ggrs_tpu_torch.fleet.shard, ggrs_tpu_torch.fleet.supervisor, ggrs_tpu_torch.chaos\n"
         "from ggrs_tpu_torch.parallel.batch import Mesh, make_mesh, make_mesh2d\n"
         "from ggrs_tpu_torch.parallel.batch import make_distributed_mesh\n"
         "assert ggrs_tpu_torch.net._native.available()\n"
@@ -221,6 +224,47 @@ def test_rtscmd_journal_replay_with_jax_blocked(tmp_path):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
         [sys.executable, "-c", code, str(tmp_path / "match.ggjl")], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_fleet_failover_with_executors_and_jax_blocked(tmp_path):
+    # the in-process fleet kills a shard mid-match and fails its match over
+    # from the journal onto the survivor, every match fulfilled by a CPU
+    # executor, in a process where jax and the JAX package cannot be imported
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['ggrs_tpu'] = None\n"
+        "import numpy as np\n"
+        "from ggrs_tpu_torch import BoxGame, DeviceRequestExecutor\n"
+        "from ggrs_tpu_torch.chaos import drive_fleet_chaos, fleet_recovery_violations\n"
+        "game = BoxGame(2)\n"
+        "class Host:\n"
+        "    def __init__(self):\n"
+        "        self.ex = DeviceRequestExecutor(game.advance, game.init_state_np(),\n"
+        "            lambda pairs: np.asarray([v for v, _ in pairs], np.uint8), device='cpu')\n"
+        "    def fulfill(self, reqs):\n"
+        "        self.ex.run(reqs)\n"
+        "    state = property(lambda self: self.ex.state)\n"
+        "def kill(i, ctx):\n"
+        "    if i == 16:\n"
+        "        ctx['sup'].kill('s1')\n"
+        "ctx = drive_fleet_chaos(32, matches_per_shard=1, seed=2, inject=kill,\n"
+        "    journal_dir=sys.argv[1], game_factory=lambda mid: Host(),\n"
+        "    peer_game_factory=lambda mid: Host(), state_template=game.init_state_np())\n"
+        "ctx['sup'].close()\n"
+        "assert ctx['locations'] == {'m0': 's0', 'm1': 's0'}, ctx['locations']\n"
+        "assert fleet_recovery_violations(ctx, ['m1'], dead_shards=['s1']) == []\n"
+        "assert all(f > 24 for f in ctx['frames'].values()), ctx['frames']\n"
+        "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code, str(tmp_path)], cwd=ROOT, env=env,
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
