@@ -215,6 +215,34 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    bytes a frame, timeline events a match, the healthz (its SLO verdict
    printed, not asserted), ``fleet_metrics_digest``, and the digest at 1 and
    8 rows against its plain version with device us and the bytes bound.
+19. proc_fleet -- the process fleet: ``scripts/chaos.py``'s proc and net legs
+   and its placement host kill (``--fleet-matches`` 32, ``--seed`` 3) through
+   the port's ``drive_proc_fleet`` and ``drive_placement_fleet``.  Every host
+   match fulfils on the card through ``chaos.ExecutorGame`` (a
+   ``DeviceRequestExecutor`` under the sync debug mode "error"), in this
+   process for ``s0`` and the placement hosts and in the runner subprocess
+   (``scripts/port_shard_runner.py``, its own CUDA context) for ``s1``; every
+   peer on the CPU, with desync detection at interval 1, so 0
+   ``DesyncDetected`` means the card digest agreed with the plain one on
+   every confirmed frame.  (a) proc control: 32 matches a shard, 64 ticks,
+   ``verify_proc_leg``'s tuning; (b) the runner SIGKILLed at tick 32, every
+   ``s1`` match failed over from its journal onto ``s0`` through a numpy
+   checkpoint load, the survivors bitwise (a), no orphan; (c) the same over
+   the authenticated TCP link at 8 matches a shard for 80 ticks, control
+   and a sever at tick 40 that resumes inside the window with no failover, epoch 1, the
+   severed shard's matches recovered in place and the others bitwise the
+   control (the runner replays the cut tick when its redial lands, a
+   wall-clock moment); (d) the placement world (2 matches a host, 48
+   ticks, 2 viewers on ``m2``), control and ``kill_host("h1")`` at tick 24:
+   ``h1``'s matches fail over across hosts behind unchanged virtual
+   endpoints, ``h0``'s bitwise the control.  Digest launches in this process
+   (counts zeroed before each run) and in each runner (counted from its
+   start, written to a file when it exits at ``sup.close()``) equal the
+   request lists' prediction.  Host ms a tick (p50, p99) split into the
+   ``s1`` tick RPC, ``s0``'s ``advance_all`` and the fulfilment here; the
+   runner's tick ms from its ferried ``runner.tick`` spans; spawn seconds
+   (the ``hello`` round trip); SIGKILL detection, failover and link resume
+   ms.
 
 Then the seconds each phase took, one ``{"kernels": [...]}`` line, the
 card's name and power limit as nvidia-smi prints them, and, last,
@@ -226,12 +254,14 @@ from __future__ import annotations
 
 import contextlib
 import errno
+import functools
 import hashlib
 import json
 import math
 import os
 import random
 import resource
+import signal
 import socket as pysocket
 import struct
 import subprocess
@@ -287,10 +317,16 @@ from ggrs_tpu_torch import (
 from ggrs_tpu_torch import NotSynchronized, PredictionThreshold, UdpNonBlockingSocket
 from ggrs_tpu_torch.broadcast import SpectatorHub
 from ggrs_tpu_torch.chaos import (
+    EXECUTOR_COUNTS,
+    ExecutorGame,
     drive_fleet_chaos,
+    drive_placement_fleet,
+    drive_proc_fleet,
     fleet_recovery_violations,
     fleet_survivor_violations,
+    predicted_digest_launches,
 )
+from ggrs_tpu_torch.fleet import FleetTuning, ProcShard
 from ggrs_tpu_torch.net import _native as net_native
 from ggrs_tpu_torch.net import protocol as net_protocol
 from ggrs_tpu_torch.net.messages import InputAck, InputMessage, Message
@@ -299,6 +335,7 @@ from ggrs_tpu_torch.net.wire import WireError
 from ggrs_tpu_torch.net.endpoint import PyEndpointCore
 from ggrs_tpu_torch.obs import (
     FlightRecorder,
+    Tracer,
     fleet_metrics_digest,
     start_http_server,
     validate_exposition,
@@ -391,6 +428,22 @@ FLEET_VIEWERS = 2
 FLEET_SCENARIOS = ("control", "shard_kill", "shard_drain", "lossy_control", "shard_migrate")
 FLEET_MAX_PREDICTION = 8  # the session builder's default window
 FLEET_DIGEST_ROWS = (1, FLEET_MAX_PREDICTION)  # a lone save; a full rollback burst
+# phase 19: scripts/chaos.py's proc and net legs and its placement host kill
+# (--fleet-matches 32, --seed 3), each fault at half the run as the legs put
+# it.  Cut in ticks from the 240 their default --ticks gives (and below their
+# 120-tick floor): at 120 ticks phase 19 took 136 s of a 636 s whole run on
+# one H100 whose host was among the faster ones, and hosts differ by 1.6x
+PROC_MATCHES, PROC_TICKS, PROC_SEED = 32, 64, 3
+PROC_KILL_TICK = PROC_TICKS // 2
+NET_MATCHES, NET_TICKS = 8, 80  # the net leg caps its matches at 8
+NET_SEVER_TICK = NET_TICKS // 2
+PLACE_MATCHES, PLACE_TICKS, PLACE_VIEWERS = 2, 48, 2  # the placement leg's own size
+PLACE_KILL_TICK = PLACE_TICKS // 2
+PROC_TUNING = dict(heartbeat_interval_s=0.05, heartbeat_deadline_s=0.5, rpc_timeout_s=0.75,
+                   drain_deadline_s=0.4, spawn_timeout_s=120.0, restart_max=0)  # verify_proc_leg's
+NET_TUNING = dict(PROC_TUNING, link_auth_token="chaos-net-token", link_reconnect_window_s=0.6,
+                  link_backoff_s=0.01, link_handshake_timeout_s=0.3)  # verify_net_leg's
+PROC_SCENARIOS = ("proc_control", "proc_sigkill", "net_control", "net_sever")
 
 
 class SmokeFailure(Exception):
@@ -993,25 +1046,6 @@ def p2p_input(handle: int, frame: int, frames: int) -> int:
     every prediction is right at the end."""
     i = min(frame, frames - P2P_DRAIN - 1)
     return (i // 4) % 16 if handle == 0 else (i // 3) % 16
-
-
-def predicted_digest_launches(requests) -> int:
-    """Digest launches a request list makes on the card: one per burst (two
-    or more Advances, each maybe followed by a Save) that saves, and one per
-    Save outside a burst."""
-    launches, i, n = 0, 0, len(requests)
-    while i < n:
-        if not isinstance(requests[i], AdvanceFrame):
-            launches += isinstance(requests[i], SaveGameState)
-            i += 1
-            continue
-        advances = saves = 0
-        while i < n and isinstance(requests[i], AdvanceFrame):
-            advances, i = advances + 1, i + 1
-            if i < n and isinstance(requests[i], SaveGameState):
-                saves, i = saves + 1, i + 1
-        launches += (1 if saves else 0) if advances >= 2 else saves
-    return launches
 
 
 @contextlib.contextmanager
@@ -3078,34 +3112,17 @@ def phase_datapath(cases: dict) -> int:
 # -- phase 18: the in-process fleet ---------------------------------------------
 
 
-class FleetHost:
-    """What fulfils one fleet match's request lists: its own
-    ``DeviceRequestExecutor`` (BoxGame(2), checksums on).  On the card every
-    ``run`` is under the sync debug mode "error"; the host counts the digest
-    launches its lists predict, the Loads of a host tree (a journal
-    checkpoint going up through the executor's upload after a failover) and
-    keeps its newest saved cell."""
-
-    def __init__(self, game: BoxGame, device, programs: ExecutorPrograms) -> None:
-        self.ex = DeviceRequestExecutor(game.advance, game.init_state_np(), executor_inputs,
-                                        programs=programs, device=device)
-        self.card = self.ex.device.type == "cuda"
-        self.predicted = self.host_loads = 0
-        self.last_save = None
-
-    def fulfill(self, requests) -> None:
-        for r in requests:
-            if isinstance(r, LoadGameState):
-                self.host_loads += not isinstance(tree_leaves(r.cell.data())[0], torch.Tensor)
-            elif isinstance(r, SaveGameState):
-                self.last_save = r.cell
-        if self.card:
-            self.predicted += predicted_digest_launches(requests)
-        guarded_run(self.ex.run, requests, self.card)
-
-    @property
-    def state(self):
-        return self.ex.state
+def fleet_games(device, counts_dir=None):
+    """The host and peer game factories of a fleet world: the host's an
+    ``ExecutorGame`` on ``device`` (a partial of a module-level class, so it
+    can be shipped to a runner), the peer's one on the CPU.  One of each is
+    built here first: a process's first ``ExecutorGame`` warms its programs
+    up (BoxGame's device constants, the digest, every burst depth) before
+    any count is zeroed and outside the sync-guarded runs."""
+    host = functools.partial(ExecutorGame, "boxgame", 2, device=device, counts_dir=counts_dir)
+    peer = functools.partial(ExecutorGame, "boxgame", 2, device="cpu")
+    host(), peer()
+    return host, peer
 
 
 @contextlib.contextmanager
@@ -3129,16 +3146,15 @@ def timed_checkpoints():
 
 def drive_fleet(scenario: str, device, journal_dir: str, matches: int) -> dict:
     """One scenario of ``scripts/chaos.py``'s fleet leg through the port's
-    ``drive_fleet_chaos``: each host match fulfilled by a ``FleetHost`` on
-    ``device``, each outside peer by one on the CPU.  The digest launch
+    ``drive_fleet_chaos``: each host match fulfilled by an ``ExecutorGame``
+    on ``device``, each outside peer by one on the CPU.  The digest launch
     counts are zeroed just before the drive and read just after it."""
-    game = BoxGame(2)
-    host_programs, peer_programs = ExecutorPrograms(game.advance), ExecutorPrograms(game.advance)
+    make_host, make_peer = fleet_games(device)
     hosts = {}
     timing = {}
 
     def host(mid):
-        hosts[mid] = FleetHost(game, device, host_programs)
+        hosts[mid] = make_host()
         return hosts[mid]
 
     def inject(i, ctx):
@@ -3161,22 +3177,19 @@ def drive_fleet(scenario: str, device, journal_dir: str, matches: int) -> dict:
             sup.migrate("m0")
             timing["migration_ms"] = (time.perf_counter() - t0) * 1e3
 
-    # the game's device constants and the digest kernel, built before the
-    # drive and its sync-guarded runs: one warmup serves every executor
-    DeviceRequestExecutor(game.advance, game.init_state_np(), executor_inputs,
-                          programs=host_programs, device=device).warmup(
-        np.zeros(2, np.uint8), burst_depths=range(2, FLEET_MAX_PREDICTION + 2))
     lossy = scenario in ("lossy_control", "shard_migrate")
     with timed_checkpoints() as ckpt_ms:
         state_digest.launches = lane_sums_rows.launches = 0
+        EXECUTOR_COUNTS.update(launches=0, predicted=0, host_loads=0)
         ctx = drive_fleet_chaos(
             FLEET_TICKS, matches_per_shard=matches, seed=FLEET_SEED,
             inject=inject if scenario in ("shard_kill", "shard_drain", "shard_migrate") else None,
             fault_cfg=dict(FLEET_LOSSY) if lossy else None,
             n_spectators=FLEET_VIEWERS if lossy else 0, journal_dir=journal_dir,
-            game_factory=host, peer_game_factory=lambda mid: FleetHost(game, "cpu", peer_programs),
-            state_template=game.init_state_np())
+            game_factory=host, peer_game_factory=lambda mid: make_peer(),
+            state_template=BoxGame(2).init_state_np())
         launches, around = state_digest.launches, lane_sums_rows.launches
+        predicted = EXECUTOR_COUNTS["predicted"]
     if hosts[ctx["match_ids"][0]].card:
         torch.cuda.synchronize()
     sup = ctx["sup"]
@@ -3189,7 +3202,7 @@ def drive_fleet(scenario: str, device, journal_dir: str, matches: int) -> dict:
     tick = [a + f for a, f in ctx["host_ms"]]
     run = {
         "ctx": ctx, "hosts": hosts, "launches": launches, "around": around,
-        "predicted": sum(h.predicted for h in hosts.values()),
+        "predicted": predicted,
         "states": {mid: to_numpy(h.state) for mid, h in hosts.items()},
         "last_checksums": {mid: (h.last_save.frame, h.last_save.checksum)
                            for mid, h in hosts.items()},
@@ -3365,6 +3378,314 @@ def phase_fleet() -> int:
     return sum(run["launches"] for run in runs.values())
 
 
+# -- phase 19: the process fleet -------------------------------------------------
+
+
+@contextlib.contextmanager
+def timed_spawns():
+    """Time every runner spawn (``ProcShard._spawn``: the Popen and the
+    ``hello`` round trip, which waits for the child's torch import, its
+    CUDA context and the digest library's load)."""
+    orig = ProcShard._spawn
+    seconds = []
+
+    def timed(self):
+        t0 = time.perf_counter()
+        orig(self)
+        seconds.append(time.perf_counter() - t0)
+
+    ProcShard._spawn = timed
+    try:
+        yield seconds
+    finally:
+        ProcShard._spawn = orig
+
+
+def runner_counts(counts_dir: str, pid: int) -> dict:
+    """What a runner's ``ExecutorGame``s counted, written at its exit."""
+    path = os.path.join(counts_dir, f"executor_game-{pid}.json")
+    check(os.path.exists(path), f"runner {pid} wrote no counts to {counts_dir}")
+    with open(path) as f:
+        return json.load(f)
+
+
+def pct(xs, q: float):
+    return float(np.percentile(xs, q)) if len(xs) else None
+
+
+def drive_proc(scenario: str, device, journal_dir: str, counts_dir: str) -> dict:
+    """One run of ``scripts/chaos.py``'s proc or net leg through the port's
+    ``drive_proc_fleet``: ``s0`` in this process and ``s1`` in a runner
+    subprocess, every host match on an ``ExecutorGame`` on ``device`` (in
+    the runner too), every peer on one on the CPU.  This process's digest
+    counts are zeroed just before the drive and read just after it; the
+    runner's are its own from its start, written when it exits at
+    ``sup.close()``."""
+    net = scenario.startswith("net")
+    matches = NET_MATCHES if net else PROC_MATCHES
+    host, peer = fleet_games(device, counts_dir)
+    timing = {"rpc_ms": [], "spawn_s": []}
+
+    def instrument(sup):
+        shard = sup.shards["s1"]
+        rpc = shard.advance_all
+
+        def timed_rpc():
+            t0 = time.perf_counter()
+            out = rpc()
+            # a dead or severed runner answers {} at once: keep tick RPCs only
+            timing["rpc_ms"].append((time.perf_counter() - t0) * 1e3 if out else 0.0)
+            return out
+
+        shard.advance_all = timed_rpc
+        fail = sup._fail_shard
+
+        def timed_fail(*args, **kw):
+            t0 = time.perf_counter()
+            timing.setdefault("detect_ms", (t0 - timing.get("killed_at", t0)) * 1e3)
+            fail(*args, **kw)
+            timing["failover_ms"] = (time.perf_counter() - t0) * 1e3
+
+        sup._fail_shard = timed_fail
+        drive = shard._drive_link
+
+        def timed_drive(now):
+            drive(now)
+            info = shard.link_info()
+            if ("severed_at" in timing and "resume_ms" not in timing
+                    and info["reconnects"] >= 1 and info["state"] == "up"):
+                timing["resume_ms"] = (time.perf_counter() - timing["severed_at"]) * 1e3
+
+        shard._drive_link = timed_drive
+
+    def inject(i, ctx):
+        sup = ctx["sup"]
+        if i == 0:
+            instrument(sup)
+        if scenario == "proc_sigkill" and i == PROC_KILL_TICK:
+            timing["pid"] = sup.shards["s1"].pid
+            timing["killed_at"] = time.perf_counter()
+            os.kill(timing["pid"], signal.SIGKILL)
+        elif scenario == "net_sever" and i == NET_SEVER_TICK:
+            timing["severed_at"] = time.perf_counter()
+            sup.shards["s1"].chaos_sever_link("rdwr")
+
+    tracer = Tracer(capacity=1 << 16)
+    t_run = time.perf_counter()
+    with timed_spawns() as spawn_s:
+        state_digest.launches = lane_sums_rows.launches = 0
+        EXECUTOR_COUNTS.update(launches=0, predicted=0, host_loads=0)
+        ctx = drive_proc_fleet(
+            NET_TICKS if net else PROC_TICKS, matches_per_shard=matches, seed=PROC_SEED,
+            backend="tcp" if net else "proc", inject=inject,
+            tuning=FleetTuning(**(NET_TUNING if net else PROC_TUNING)), journal_dir=journal_dir,
+            tick_sleep_s=0.005 if scenario == "net_sever" else 0.0, tracer=tracer,
+            game_factory=host, peer_game_factory=peer, state_template=BoxGame(2).init_state_np())
+        launches, around = state_digest.launches, lane_sums_rows.launches
+        counts = dict(EXECUTOR_COUNTS)
+    sup = ctx["sup"]
+    shard = sup.shards["s1"]
+    pid = shard.pid
+    link = shard.link_info()
+    sup.close()
+    if device is None:
+        torch.cuda.synchronize()
+    adv = [a for a, _ in ctx["host_ms"]]
+    ful = [f for _, f in ctx["host_ms"]]
+    tick = [a + f for a, f in ctx["host_ms"]]
+    runner_ticks = [ev[4] / 1e6 for ev in tracer.events() if ev[1] == "runner.tick"]
+    served = [ms for ms in timing["rpc_ms"] if ms]
+    run = {
+        "ctx": ctx, "matches": matches, "launches": launches, "around": around,
+        "predicted": counts["predicted"], "host_loads": counts["host_loads"],
+        "orphans": shard.orphan_count(), "link": link,
+        "failovers": int(ctx["registry"].value("ggrs_fleet_failovers_total") or 0),
+        "runner": None if scenario == "proc_sigkill" else runner_counts(counts_dir, pid),
+        "spawn_s": list(spawn_s),
+        "host_ms_p50": pct(tick, 50), "host_ms_p99": pct(tick, 99),
+        "advance_all_ms_p50": pct(adv, 50), "advance_all_ms_p99": pct(adv, 99),
+        "rpc_ms_p50": pct(served, 50), "rpc_ms_p99": pct(served, 99), "rpc_ticks": len(served),
+        "s0_ms_p50": pct([a - r for a, r in zip(adv, timing["rpc_ms"])], 50),
+        "fulfil_ms_p50": pct(ful, 50), "fulfil_ms_p99": pct(ful, 99),
+        "runner_tick_ms_p50": pct(runner_ticks, 50), "runner_tick_ms_p99": pct(runner_ticks, 99),
+        "runner_ticks_traced": len(runner_ticks), "seconds": time.perf_counter() - t_run,
+        **{k: timing[k] for k in ("detect_ms", "failover_ms", "resume_ms") if k in timing},
+    }
+    return run
+
+
+PROC_RUN_KEYS = ("matches", "spawn_s", "host_ms_p50", "host_ms_p99", "advance_all_ms_p50",
+                 "advance_all_ms_p99", "rpc_ms_p50", "rpc_ms_p99", "rpc_ticks", "s0_ms_p50", "fulfil_ms_p50",
+                 "fulfil_ms_p99", "runner_tick_ms_p50", "runner_tick_ms_p99",
+                 "runner_ticks_traced", "seconds", "detect_ms", "failover_ms", "resume_ms", "failovers",
+                 "orphans", "host_loads", "link", "severed_wire_equal")
+
+
+def proc_violations(scenario: str, run: dict, control: dict, card: bool) -> list:
+    """``scripts/chaos.py``'s proc and net verdicts for one run, plus the
+    port's: 0 desyncs, nothing lost, no orphan, the survivors' peers
+    bitwise the control's, the digest launches in this process and in the
+    runner as the request lists predict."""
+    ctx, base, p = run["ctx"], control["ctx"], run["matches"]
+    survivors = [f"m{k}" for k in range(p)]
+    affected = [f"m{k}" for k in range(p, 2 * p)]
+    out = []
+    if scenario == "proc_sigkill":
+        out += fleet_survivor_violations(ctx, base, survivors)
+        out += fleet_recovery_violations(ctx, affected, dead_shards=["s1"])
+        out += [f"{m}: on {ctx['locations'][m]}" for m in affected if ctx["locations"][m] != "s0"]
+        if run["host_loads"] != p:
+            out.append(f"{run['host_loads']} host-tree loads for {p} failed-over matches")
+    else:
+        out += fleet_recovery_violations(ctx, ctx["match_ids"])
+    if scenario == "net_sever":
+        # the severed runner replays the cut tick when its redial lands, a
+        # wall-clock moment: its matches are held to the recovery verdicts
+        # and to their shard, the others bitwise to the control
+        out += fleet_survivor_violations(ctx, base, survivors)
+        out += [f"{m}: left s1" for m in affected if ctx["locations"][m] != "s1"]
+        link = run["link"]
+        if run["failovers"] or link["reconnects"] != 1 or link["window_expiries"] or link["epoch"] != 1:
+            out.append(f"sever: {run['failovers']} failovers, link {link}")
+    if scenario in ("proc_sigkill", "net_sever"):
+        for m in survivors:
+            if not trees_equal(to_numpy(ctx["peer_states"][m]), to_numpy(base["peer_states"][m])):
+                out.append(f"{m}: peer state != control")
+    if ctx["lost"]:
+        out.append(f"lost {ctx['lost']}")
+    if run["orphans"]:
+        out.append(f"{run['orphans']} orphan runners")
+    if card and run["launches"] != run["predicted"]:
+        out.append(f"{run['launches']} digest launches here, predicted {run['predicted']}")
+    runner = run["runner"]
+    if runner is not None and card and (runner["launches"] != runner["predicted"]
+                                        or runner["launches"] == 0):
+        out.append(f"runner: {runner['launches']} digest launches, predicted "
+                   f"{runner['predicted']}")
+    if run["around"]:
+        out.append("the digest went around state_digest")
+    return out
+
+
+def drive_placement(scenario: str, device, journal_dir: str) -> dict:
+    """``scripts/chaos.py``'s placement host kill through the port's
+    ``drive_placement_fleet``: two hosts behind one ingress, each host
+    match on an ``ExecutorGame`` on ``device``, each peer on the CPU."""
+    host, peer = fleet_games(device)
+    timing = {}
+
+    def inject(i, ctx):
+        if i == PLACE_KILL_TICK:
+            t0 = time.perf_counter()
+            ctx["placement"].kill_host("h1")
+            timing["kill_host_ms"] = (time.perf_counter() - t0) * 1e3
+
+    t_run = time.perf_counter()
+    state_digest.launches = lane_sums_rows.launches = 0
+    EXECUTOR_COUNTS.update(launches=0, predicted=0, host_loads=0)
+    ctx = drive_placement_fleet(
+        PLACE_TICKS, matches_per_host=PLACE_MATCHES, seed=PROC_SEED, n_spectators=PLACE_VIEWERS,
+        spectate_match=f"m{PLACE_MATCHES}", inject=inject if scenario == "host_kill" else None,
+        journal_dir=journal_dir, game_factory=host, peer_game_factory=peer,
+        state_template=BoxGame(2).init_state_np())
+    launches, around = state_digest.launches, lane_sums_rows.launches
+    counts = dict(EXECUTOR_COUNTS)
+    ctx["close"]()
+    if device is None:
+        torch.cuda.synchronize()
+    tick = [a + f for a, f in ctx["host_ms"]]
+    return {"ctx": ctx, "launches": launches, "around": around, "predicted": counts["predicted"],
+            "host_loads": counts["host_loads"], "host_ms_p50": pct(tick, 50),
+            "host_ms_p99": pct(tick, 99), "seconds": time.perf_counter() - t_run, **timing}
+
+
+def placement_violations(run: dict, control: dict, card: bool) -> list:
+    """``scripts/chaos.py``'s placement host-kill verdicts, plus the port's:
+    the survivors' card states bitwise the control's, every failed-over
+    match resumed through a host-tree load, launches as predicted."""
+    ctx, base = run["ctx"], control["ctx"]
+    h0 = [f"m{k}" for k in range(PLACE_MATCHES)]
+    h1 = [f"m{k}" for k in range(PLACE_MATCHES, 2 * PLACE_MATCHES)]
+    out = fleet_survivor_violations(ctx, base, h0) + fleet_recovery_violations(ctx, h1)
+    out += [f"{m}: not failed over cross-host ({ctx['locations'][m]})" for m in h1
+            if not ctx["locations"][m] or ctx["locations"][m][0] != "h0"]
+    out += [f"{m}: state != control" for m in h0
+            if not trees_equal(to_numpy(ctx["states"][m]), to_numpy(base["states"][m]))]
+    if ctx["vports"] != base["vports"]:
+        out.append(f"virtual endpoints changed: {ctx['vports']} vs {base['vports']}")
+    reg = ctx["registry"]
+    if (ctx["healthz"].get("route_epoch") or 0) < 2:
+        out.append(f"route epoch {ctx['healthz'].get('route_epoch')}")
+    if int(reg.value("ggrs_placement_host_failovers_total") or 0) != len(h1) or \
+            int(reg.value("ggrs_ingress_route_flips_total") or 0) < len(h1):
+        out.append("host failovers or route flips short of the affected matches")
+    for v, stream in enumerate(ctx["viewer_streams"]):
+        frames = [f for f, _ in stream]
+        if frames != sorted(set(frames)) or not frames or frames[-1] < PLACE_KILL_TICK + 4:
+            out.append(f"viewer {v} reset or stalled at {frames[-1] if frames else None}")
+    if run["host_loads"] != len(h1):
+        out.append(f"{run['host_loads']} host-tree loads for {len(h1)} failed-over matches")
+    for r in (run, control):
+        if card and r["launches"] != r["predicted"]:
+            out.append(f"{r['launches']} digest launches, predicted {r['predicted']}")
+        if r["around"] or r["ctx"]["lost"]:
+            out.append(f"around {r['around']}, lost {r['ctx']['lost']}")
+    out += fleet_recovery_violations(base, base["match_ids"])
+    return out
+
+
+def phase_proc_fleet(device=None) -> int:
+    """Phase 19: the process fleet.  ``device=None`` is the card; ``"cpu"``
+    rehearses the phase on the CPU (a runner's games are built from the
+    shipped factory, so this argument is the only way to reach them).
+    Returns the digest launches of the card's drives, in this process and
+    in the runners."""
+    card = device is None
+    runs, place = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for scenario in PROC_SCENARIOS:
+            jdir, cdir = os.path.join(tmp, scenario), os.path.join(tmp, scenario + ".counts")
+            os.mkdir(jdir)
+            os.mkdir(cdir)
+            runs[scenario] = drive_proc(scenario, device, jdir, cdir)
+        for scenario in ("control", "host_kill"):
+            jdir = os.path.join(tmp, "placement_" + scenario)
+            os.mkdir(jdir)
+            place[scenario] = drive_placement(scenario, device, jdir)
+    controls = {"proc_control": "proc_control", "proc_sigkill": "proc_control",
+                "net_control": "net_control", "net_sever": "net_control"}
+    for scenario, run in runs.items():
+        bad = proc_violations(scenario, run, runs[controls[scenario]], card)
+        check(not bad, f"proc fleet {scenario}: {bad[:6]}")
+    bad = placement_violations(place["host_kill"], place["control"], card)
+    check(not bad, f"proc fleet placement_host_kill: {bad[:6]}")
+    sever, net_base = runs["net_sever"]["ctx"], runs["net_control"]["ctx"]
+    severed = [f"m{k}" for k in range(NET_MATCHES, 2 * NET_MATCHES)]
+    runs["net_sever"]["severed_wire_equal"] = sum(sever["wire"][m] == net_base["wire"][m]
+                                                  for m in severed)
+    runner_launches = sum(r["runner"]["launches"] for r in runs.values() if r["runner"])
+    here = sum(r["launches"] for r in runs.values()) + sum(r["launches"] for r in place.values())
+    emit({"phase": "proc_fleet", "seed": PROC_SEED, "sync_debug_mode": "error",
+          "proc": {"matches_per_shard": PROC_MATCHES, "ticks": PROC_TICKS,
+                   "kill_tick": PROC_KILL_TICK, "tuning": PROC_TUNING},
+          "net": {"matches_per_shard": NET_MATCHES, "ticks": NET_TICKS,
+                  "sever_tick": NET_SEVER_TICK, "tuning": NET_TUNING},
+          "placement": {"matches_per_host": PLACE_MATCHES, "ticks": PLACE_TICKS,
+                        "kill_tick": PLACE_KILL_TICK, "viewers": PLACE_VIEWERS},
+          "scenarios": {name: {k: run.get(k) for k in PROC_RUN_KEYS} | {
+              "digest_launches": run["launches"], "digest_predicted": run["predicted"],
+              "runner_digest": run["runner"], "violations": 0, "lost": len(run["ctx"]["lost"]),
+              "desyncs": 0} for name, run in runs.items()},
+          "placement_runs": {name: {k: run[k] for k in ("launches", "predicted", "host_loads",
+                                                       "host_ms_p50", "host_ms_p99", "seconds")}
+                             | {"kill_host_ms": run.get("kill_host_ms"),
+                                "route_epoch": run["ctx"]["healthz"].get("route_epoch"),
+                                "locations": run["ctx"]["locations"], "violations": 0}
+                             for name, run in place.items()},
+          "digest_launches_here": here, "digest_launches_runners": runner_launches})
+    return here + runner_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs the card",
@@ -3401,6 +3722,7 @@ def main() -> int:
     bank_launches = timed("bank", phase_bank)
     datapath_launches = timed("datapath", phase_datapath, cases)
     fleet_launches = timed("fleet", phase_fleet)
+    proc_launches = timed("proc_fleet", phase_proc_fleet)
     emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
     main_case = cases[MAIN_CASE]
     emit({"kernels": [{
@@ -3413,6 +3735,7 @@ def main() -> int:
         "launches_native": native_launches, "launches_plane": plane_launches,
         "launches_mesh": mesh_launches, "launches_bank": bank_launches,
         "launches_datapath": datapath_launches, "launches_fleet": fleet_launches,
+        "launches_proc": proc_launches,
         "max_abs_err": worst,
         "ms": main_case["device_us"] / 1e3, "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_us"] / 1e3, "bound_by": "bytes", "library_ms": None,

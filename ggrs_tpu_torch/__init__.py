@@ -38,31 +38,14 @@ NVIDIA H100:
   that digests a whole batch of states from their leaves in one launch.
 
 It imports torch and numpy only; entry points take ``device=None``, meaning
-the CUDA card.
+the CUDA card.  The top level re-exports the core's names, as the JAX
+package's does.
 """
 
 from . import broadcast, fleet, obs, predict
 from .convert import from_numpy, to_numpy
-from .core import (
-    AdvanceFrame,
-    Config,
-    DesyncDetected,
-    DesyncDetection,
-    Disconnected,
-    GameStateCell,
-    GgrsError,
-    InputStatus,
-    InvalidRequest,
-    LoadGameState,
-    Local,
-    MismatchedChecksum,
-    NotSynchronized,
-    PredictionThreshold,
-    Remote,
-    SaveGameState,
-    Spectator,
-    resolve_device,
-)
+from .core import *  # noqa: F401,F403
+from .core import __all__ as _core_all
 from .broadcast import JournalExhausted, JournalTap, MatchJournal, read_journal
 from .games import (
     BoxGame,
@@ -113,8 +96,7 @@ from .sessions import (
     SyncTestSession,
 )
 
-__all__ = [
-    "AdvanceFrame",
+__all__ = list(_core_all) + [
     "BatchedDefault",
     "BatchedRepeatLast",
     "BatchedRequestExecutor",
@@ -122,47 +104,31 @@ __all__ = [
     "BoxGame",
     "CHECKSUM_LANES",
     "ChipVM",
-    "Config",
-    "DesyncDetected",
-    "DesyncDetection",
     "DeviceChecksum",
     "DevicePredictionPlane",
     "DeviceRequestExecutor",
     "DeviceStateRing",
     "DeviceSyncTestSession",
-    "Disconnected",
     "EcsWorld",
     "ExecutorPrograms",
     "FakeSocket",
-    "GameStateCell",
-    "GgrsError",
     "HostSessionPool",
     "HostedPool",
     "InMemoryNetwork",
-    "InputStatus",
-    "InvalidRequest",
     "JournalExhausted",
     "JournalTap",
-    "LoadGameState",
-    "Local",
     "MatchJournal",
     "Mesh",
     "Message",
-    "MismatchedChecksum",
     "NetworkStats",
     "NonBlockingSocket",
-    "NotSynchronized",
     "P2PSession",
-    "PredictionThreshold",
-    "Remote",
     "ReplayPrograms",
     "ReplaySession",
     "RequestPlan",
     "RtsCmd",
     "RtsCmdGame",
-    "SaveGameState",
     "SessionBuilder",
-    "Spectator",
     "SpectatorSession",
     "SpeculativeBranches",
     "SpeculativeRollback",
@@ -187,6 +153,5 @@ __all__ = [
     "predict",
     "pytree_checksum",
     "read_journal",
-    "resolve_device",
     "to_numpy",
 ]

@@ -2,9 +2,9 @@
 driver behind ``scripts/chaos.py`` and ``tests/test_bank_faults.py``
 (DESIGN.md §9).
 
-The port's copy of ``ggrs_tpu/chaos.py``, without the process-fleet
-drivers (``drive_proc_fleet``, ``placement_match_builder`` and
-``drive_placement_fleet``), which wait for the process fleet.
+The port's copy of ``ggrs_tpu/chaos.py``.  Its fleet drivers also take
+game factories, so the port's executors can fulfil the matches on the card:
+:class:`ExecutorGame` is the picklable one a process-fleet runner builds.
 
 The topology under test: ``2 * n_matches`` in-bank slots — each 2-peer
 match on its OWN fault-isolated ``InMemoryNetwork``, so no fault-rng stream
@@ -19,8 +19,14 @@ lists, and events.
 
 from __future__ import annotations
 
+import atexit
+import json
+import os
 import random
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
 
 from .core import Local, Remote
 from .core.config import Config
@@ -31,6 +37,7 @@ from .obs.registry import Registry
 from .obs.trace import Tracer
 from .parallel.host_bank import HostSessionPool, SLOT_NATIVE
 from .sessions import SessionBuilder
+from .utils.tree import tree_leaves
 
 
 class RecordingSocket:
@@ -716,6 +723,126 @@ class CrcGame:
                 self.state = data
 
 
+# per process: (game, players, device) -> (game object, shared ExecutorPrograms),
+# warmed up by the first ExecutorGame built for that key
+_EXECUTOR_PROGRAMS: Dict[Tuple[str, int, str], Tuple[Any, Any]] = {}
+# per process: the card ExecutorGames' digest launches and their prediction,
+# and every ExecutorGame's Loads of a host tree
+EXECUTOR_COUNTS: Dict[str, int] = {"launches": 0, "predicted": 0, "host_loads": 0}
+_COUNTS_DIRS: set = set()
+
+
+def _u8_inputs(pairs) -> np.ndarray:
+    """A request's ``[(input, status), ...]`` as the (P,) u8 buttons array."""
+    return np.asarray([v for v, _status in pairs], np.uint8)
+
+
+def predicted_digest_launches(requests) -> int:
+    """Digest launches a request list makes on the card: one per burst (two
+    or more Advances, each maybe followed by a Save) that saves, and one per
+    Save outside a burst."""
+    from .core.types import AdvanceFrame, SaveGameState
+
+    launches, i, n = 0, 0, len(requests)
+    while i < n:
+        if not isinstance(requests[i], AdvanceFrame):
+            launches += isinstance(requests[i], SaveGameState)
+            i += 1
+            continue
+        advances = saves = 0
+        while i < n and isinstance(requests[i], AdvanceFrame):
+            advances, i = advances + 1, i + 1
+            if i < n and isinstance(requests[i], SaveGameState):
+                saves, i = saves + 1, i + 1
+        launches += (1 if saves else 0) if advances >= 2 else saves
+    return launches
+
+
+def _write_counts(counts_dir: str) -> None:
+    if os.path.isdir(counts_dir):
+        path = os.path.join(counts_dir, f"executor_game-{os.getpid()}.json")
+        with open(path, "w") as f:
+            json.dump(EXECUTOR_COUNTS, f)
+
+
+class ExecutorGame:
+    """A match's request lists fulfilled by a ``DeviceRequestExecutor``
+    (checksums on) for a bundled game, in whatever process builds it: the
+    picklable ``game_factory`` of the process-fleet drivers, passed as
+    ``functools.partial(ExecutorGame, "boxgame", 2, device=...)``.
+
+    Each process keeps one ``ExecutorPrograms`` a game and device, and the
+    first ExecutorGame built for them warms it up (the game's device
+    constants, the digest and every burst depth up to the default
+    prediction window) outside any guard, so later constructions and runs
+    pay neither.  ``device=None`` is the card and raises without CUDA.  On
+    the card every ``run`` is under ``torch.cuda.set_sync_debug_mode(
+    "error")``, and the game adds the digest launches it made and their
+    prediction from the request lists to ``EXECUTOR_COUNTS``.  Loads of a
+    host (numpy) tree, a journal checkpoint after a failover, count in
+    ``host_loads``, the game's and the process's.  With ``counts_dir`` the
+    process writes its counts to ``counts_dir/executor_game-<pid>.json``
+    when it exits (a runner exits at ``sup.close()``).  ``last_save`` is
+    the newest saved cell."""
+
+    MAX_PREDICTION = 8  # the session builder's default window
+
+    def __init__(self, game: str = "boxgame", players: int = 2, device=None,
+                 counts_dir: Optional[str] = None) -> None:
+        from .core.device import resolve_device
+        from .games import BoxGame
+        from .ops.executor import DeviceRequestExecutor, ExecutorPrograms
+
+        if game != "boxgame":
+            raise ValueError(f"ExecutorGame serves 'boxgame', not {game!r}")
+        dev = resolve_device(device)
+        key = (game, players, str(dev))
+        entry = _EXECUTOR_PROGRAMS.get(key)
+        if entry is None:
+            g = BoxGame(players)
+            entry = (g, ExecutorPrograms(g.advance))
+        g, programs = entry
+        self.ex = DeviceRequestExecutor(g.advance, g.init_state_np(), _u8_inputs,
+                                        programs=programs, device=dev)
+        if key not in _EXECUTOR_PROGRAMS:
+            self.ex.warmup(np.zeros(players, np.uint8),
+                           burst_depths=range(2, self.MAX_PREDICTION + 2))
+            _EXECUTOR_PROGRAMS[key] = entry
+        self.card = self.ex.device.type == "cuda"
+        self.host_loads = 0
+        self.last_save = None
+        if counts_dir is not None and counts_dir not in _COUNTS_DIRS:
+            _COUNTS_DIRS.add(counts_dir)
+            atexit.register(_write_counts, counts_dir)
+
+    def fulfill(self, requests) -> None:
+        from .core.types import LoadGameState, SaveGameState
+        from .ops.digest import state_digest
+
+        for r in requests:
+            if isinstance(r, LoadGameState):
+                host_tree = not isinstance(tree_leaves(r.cell.data())[0], torch.Tensor)
+                self.host_loads += host_tree
+                EXECUTOR_COUNTS["host_loads"] += host_tree
+            elif isinstance(r, SaveGameState):
+                self.last_save = r.cell
+        if not self.card:
+            self.ex.run(requests)
+            return
+        EXECUTOR_COUNTS["predicted"] += predicted_digest_launches(requests)
+        before = state_digest.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            self.ex.run(requests)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            EXECUTOR_COUNTS["launches"] += state_digest.launches - before
+
+    @property
+    def state(self):
+        return self.ex.state
+
+
 def drive_fleet_chaos(
     ticks: int,
     matches_per_shard: int = 4,
@@ -901,6 +1028,485 @@ def drive_fleet_chaos(
         states={mid: games[mid].state for mid in match_ids},
         peer_states={mid: g.state for mid, g in peer_games.items()},
         healthz=sup.healthz(),
+        registry=registry,
+        host_ms=host_ms,
+    )
+    return ctx
+
+
+def drive_proc_fleet(
+    ticks: int,
+    matches_per_shard: int = 4,
+    seed: int = 0,
+    backend: str = "proc",
+    inject: Optional[Callable[[int, Dict[str, Any]], Any]] = None,
+    tuning=None,
+    journal_dir=None,
+    checkpoint_every: int = 8,
+    desync_interval: int = 1,
+    capacity: int = 64,
+    tick_sleep_s: float = 0.0,
+    metrics: Optional[Registry] = None,
+    tracer=None,
+    *,
+    game_factory: Optional[Callable[[], Any]] = None,
+    peer_game_factory: Optional[Callable[[], Any]] = None,
+    state_template: Any = 0,
+) -> Dict[str, Any]:
+    """The out-of-process sibling of :func:`drive_fleet_chaos`
+    (DESIGN.md §17): a two-shard ``ShardSupervisor`` where ``s0`` is
+    always in-process and ``s1`` is a real subprocess when
+    ``backend="proc"`` (``"inproc"`` runs the IDENTICAL topology fully
+    in-process — the backend-parity comparison leg; ``"tcp"`` is
+    ``"proc"`` with the supervisor↔runner control plane carried over
+    the §25 authenticated TCP fleet link instead of a socketpair).
+    ``2 *
+    matches_per_shard`` journaled 2-peer matches over REAL loopback UDP,
+    ``m0..`` pinned to ``s0``, the rest to ``s1``; every match is
+    described by picklable factories (``fleet.proc.proc_match_builder``
+    + ``udp_socket_factory`` + :class:`CrcGame`) so it can serve on —
+    and fail over between — either backend.  External Python peers run
+    in THIS process either way; each peer's received datagram bytes are
+    recorded (:class:`RecvRecordingSocket`) as the port-free wire
+    observable two legs are compared on.
+
+    ``inject(i, ctx)`` runs at the top of tick ``i`` with ``ctx``
+    carrying ``sup``/``peers``/``clock``; proc scenarios typically
+    ``os.kill(ctx['sup'].shards['s1'].pid, SIGKILL/SIGSTOP)``.
+    ``tick_sleep_s`` stretches real time per tick so the (wall-clock)
+    watchdog deadlines can elapse while the logical clock stays small
+    enough that no peer hits its disconnect timeout.
+
+    The supervisor is returned live in ``ctx["sup"]`` — callers MUST
+    ``sup.close()`` (the tests/chaos script do it in ``finally``); on an
+    exception mid-run the driver closes it before re-raising.
+
+    ``game_factory()`` and ``peer_game_factory()`` build what fulfils a
+    host's and its peer's request lists (``fulfill(requests)`` and a
+    ``state``), a :class:`CrcGame` by default.  ``game_factory`` is shipped
+    to the runner, so it must be picklable (an :class:`ExecutorGame`
+    partial); this process builds one per match too, for the matches it
+    serves and adopts.  A device game passes its numpy initial state as
+    ``state_template``.  ``ctx['host_ms']`` holds each tick's host
+    milliseconds in ``sup.advance_all()`` and in this process's fulfilment.
+    """
+    import functools
+    import tempfile
+
+    from .core.errors import NotSynchronized, PredictionThreshold
+    from .fleet import ShardSupervisor
+    from .fleet.proc import (
+        proc_match_builder,
+        set_runner_clock,
+        udp_socket_factory,
+    )
+    from .net.sockets import UdpNonBlockingSocket
+
+    if backend not in ("proc", "inproc", "tcp"):
+        raise ValueError(f"backend {backend!r}")
+    if game_factory is None:
+        game_factory = CrcGame
+    if peer_game_factory is None:
+        peer_game_factory = CrcGame
+    base = seed * 1000
+    clock = [0]
+    registry = metrics if metrics is not None else Registry()
+    if journal_dir is None:
+        journal_dir = tempfile.mkdtemp(prefix="ggrs_proc_fleet_")
+    sup = ShardSupervisor(
+        ("s0", "s1"), capacity=capacity, metrics=registry,
+        journal_dir=journal_dir, checkpoint_every=checkpoint_every,
+        journal_tail_window=8 * checkpoint_every,
+        identity_refresh_every=4, seed=base + 1,
+        proc_shards=("s1",) if backend in ("proc", "tcp") else (),
+        tcp_shards=("s1",) if backend == "tcp" else (),
+        proc_clock=lambda: clock[0],
+        tuning=tuning,
+        tracer=tracer,
+    )
+    n = 2 * matches_per_shard
+    match_ids = [f"m{k}" for k in range(n)]
+    peers: Dict[str, Any] = {}
+    peer_socks: Dict[str, RecvRecordingSocket] = {}
+    games: Dict[str, Any] = {}
+    peer_games: Dict[str, Any] = {}
+    import socket as _socket
+
+    def _free_udp_port() -> int:
+        s = _socket.socket(_socket.AF_INET, _socket.SOCK_DGRAM)
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        return port
+
+    try:
+        for k, mid in enumerate(match_ids):
+            pin = "s0" if k < matches_per_shard else "s1"
+            peer_sock = RecvRecordingSocket(UdpNonBlockingSocket(0))
+            peer_socks[mid] = peer_sock
+            bf = functools.partial(
+                proc_match_builder, base + 3 + 7 * k, 0,
+                ("127.0.0.1", peer_sock.local_port()),
+                desync_interval=desync_interval,
+            )
+            # the match's wire address must be STABLE across
+            # incarnations — the peer only knows this port — so the
+            # socket_factory is the match's durable address (the fleet's
+            # migration contract).  Matches pinned to the subprocess shard ship a
+            # picklable rebind-the-port factory (the dying incarnation's
+            # process releases the port before the next one binds);
+            # matches served in THIS process reuse one long-lived socket
+            # object, exactly like the in-memory fleet topologies.
+            if backend in ("proc", "tcp") and pin == "s1":
+                host_port = _free_udp_port()
+                sf = functools.partial(udp_socket_factory, host_port)
+            else:
+                host_sock = UdpNonBlockingSocket(0)
+                host_port = host_sock.local_port()
+                sf = lambda s=host_sock: s  # noqa: E731
+            sup.admit(
+                mid, bf, sf,
+                state_template=state_template, game_factory=game_factory,
+                shard=pin,
+            )
+            assert sup.shards[pin].match_port(mid) == host_port
+            pb = two_peer_builder(
+                clock, base + 4 + 7 * k, 1, ("127.0.0.1", host_port),
+                other_handle=0,
+            )
+            if desync_interval:
+                pb = pb.with_desync_detection_mode(
+                    DesyncDetection.on(desync_interval)
+                )
+            peers[mid] = pb.start_p2p_session(peer_sock)
+            games[mid] = game_factory()
+            peer_games[mid] = peer_game_factory()
+
+        reqs_log: Dict[str, List] = {mid: [] for mid in match_ids}
+        host_events: Dict[str, List] = {mid: [] for mid in match_ids}
+        peer_events: Dict[str, List] = {mid: [] for mid in match_ids}
+        host_ms: List[tuple] = []
+
+        def sched(i, k):
+            return ((i + 2 * k) // (2 + k % 3)) % 16
+
+        ctx: Dict[str, Any] = dict(
+            sup=sup, peers=peers, clock=clock, seed=seed,
+            match_ids=match_ids, journal_dir=journal_dir,
+        )
+        import time as _time
+
+        for i in range(ticks):
+            clock[0] += 16
+            # drive the shared clock cell for every match this process
+            # serves (in-proc shards + failover adoptions); proc shards
+            # get the same value shipped with their tick RPC
+            set_runner_clock(clock[0])
+            if inject is not None:
+                inject(i, ctx)
+            for mid, peer in peers.items():
+                try:
+                    peer.add_local_input(1, (i * 5) % 16)
+                    peer_games[mid].fulfill(peer.advance_frame())
+                except (NotSynchronized, PredictionThreshold):
+                    pass  # host mid-failover: backpressure, not a fault
+                peer_events[mid].extend(peer.events())
+            for k, mid in enumerate(match_ids):
+                sup.add_local_input(mid, 0, sched(i, k))
+            t0 = _time.perf_counter()
+            out = sup.advance_all()
+            t1 = _time.perf_counter()
+            for mid, reqs in out.items():
+                games[mid].fulfill(reqs)
+            host_ms.append(((t1 - t0) * 1e3,
+                            (_time.perf_counter() - t1) * 1e3))
+            for mid, reqs in out.items():
+                reqs_log[mid].append(req_summary(reqs))
+            for mid in match_ids:
+                host_events[mid].extend(sup.events(mid))
+            if tick_sleep_s:
+                _time.sleep(tick_sleep_s)
+    except BaseException:
+        sup.close()
+        raise
+    ctx.update(
+        wire={mid: list(s.received) for mid, s in peer_socks.items()},
+        reqs=reqs_log,
+        host_events=host_events,
+        peer_events=peer_events,
+        locations={mid: sup.match_location(mid) for mid in match_ids},
+        lost=sup.lost_matches(),
+        frames={
+            mid: (sup.current_frame(mid)
+                  if sup.match_location(mid) is not None else None)
+            for mid in match_ids
+        },
+        peer_frames={mid: p.current_frame for mid, p in peers.items()},
+        peer_states={mid: g.state for mid, g in peer_games.items()},
+        healthz=sup.healthz(),
+        registry=registry,
+        host_ms=host_ms,
+    )
+    return ctx
+
+
+def placement_match_builder(seed, me, peer_addr, viewer_addrs=(),
+                            desync_interval: int = 0):
+    """:func:`~ggrs_tpu_torch.fleet.proc.proc_match_builder` plus real UDP
+    spectators — the fully-picklable match description the placement
+    chaos legs admit with (``viewer_addrs`` are the viewers' wire
+    source addresses, known before admission because the driver binds
+    their sockets first).  Picklable by reference like its proc sibling,
+    so the same description survives ``export_transfer`` bytes and
+    journal failover onto another supervisor."""
+    from .core.types import Spectator
+    from .fleet.proc import proc_match_builder
+
+    b = proc_match_builder(
+        seed, me, peer_addr, desync_interval=desync_interval)
+    for v, addr in enumerate(viewer_addrs):
+        b = b.add_player(Spectator(tuple(addr)), 2 + v)
+    return b
+
+
+def drive_placement_fleet(
+    ticks: int,
+    matches_per_host: int = 2,
+    seed: int = 0,
+    inject: Optional[Callable[[int, Dict[str, Any]], Any]] = None,
+    n_spectators: int = 0,
+    spectate_match: str = "m0",
+    tuning=None,
+    journal_dir=None,
+    checkpoint_every: int = 8,
+    desync_interval: int = 1,
+    capacity: int = 64,
+    metrics: Optional[Registry] = None,
+    tracer=None,
+    *,
+    game_factory: Optional[Callable[[], Any]] = None,
+    peer_game_factory: Optional[Callable[[], Any]] = None,
+    state_template: Any = 0,
+) -> Dict[str, Any]:
+    """The cross-host chaos world (DESIGN.md §26): a
+    ``PlacementService`` fronting two single-shard ``ShardSupervisor``
+    "hosts" (``h0``/``h1``, sharing one journal directory — the shared
+    storage a real fleet mounts) behind one in-process ``IngressNode``
+    that owns every public address.  ``2 * matches_per_host`` journaled
+    2-peer matches, ``m0..`` pinned to ``h0`` and the rest to ``h1`` so
+    placement is identical across legs; every external peer (and every
+    ``n_spectators`` viewer of ``spectate_match``) talks ONLY to the
+    match's virtual endpoint — the ingress public address — over real
+    loopback UDP, and records its received bytes
+    (:class:`RecvRecordingSocket`) as the wire observable.
+
+    The tick order makes runs bit-identical for identical arguments
+    (loopback ``sendto`` is synchronous, so each pump sees exactly the
+    datagrams sent since the last one): peers/viewers advance → ingress
+    pump (peer → serving leg) → hosts tick → ingress pump (leg replies →
+    peers).  At ``inject`` time the legs' buffers are therefore EMPTY —
+    an in-tick ``ctx['placement'].migrate(mid)`` or
+    ``.kill_host('h1')`` strands no in-flight datagram, which is what
+    lets the migrated-leg wire compare bit-identical to control.
+
+    Callers MUST run ``ctx['close']()`` (tests do it in ``finally``);
+    on an exception mid-run the driver closes everything before
+    re-raising.
+
+    ``game_factory``, ``peer_game_factory`` and ``state_template`` are
+    :func:`drive_proc_fleet`'s (every game here lives in this process);
+    ``ctx['host_ms']`` holds each tick's ms in ``placement.advance_all()``
+    and in the hosts' fulfilment."""
+    import functools
+    import tempfile
+    import time
+
+    from .core.errors import (
+        NotSynchronized,
+        PredictionThreshold,
+        SpectatorTooFarBehind,
+    )
+    from .fleet import PlacementService, ShardSupervisor
+    from .fleet.ingress import IngressNode
+    from .fleet.proc import set_runner_clock
+    from .net.sockets import UdpNonBlockingSocket
+
+    if game_factory is None:
+        game_factory = CrcGame
+    if peer_game_factory is None:
+        peer_game_factory = CrcGame
+    base = seed * 1000
+    clock = [0]
+    registry = metrics if metrics is not None else Registry()
+    if journal_dir is None:
+        journal_dir = tempfile.mkdtemp(prefix="ggrs_placement_")
+    hosts = {}
+    for hn, (hid, sid) in enumerate((("h0", "a0"), ("h1", "b0"))):
+        hosts[hid] = ShardSupervisor(
+            (sid,), capacity=capacity, metrics=registry,
+            journal_dir=journal_dir, checkpoint_every=checkpoint_every,
+            journal_tail_window=8 * checkpoint_every,
+            identity_refresh_every=4, seed=base + 1 + hn,
+            tuning=tuning, tracer=tracer,
+        )
+    ingress = IngressNode(metrics=registry, tuning=tuning)
+    placement = PlacementService(
+        hosts, ingress=ingress, tuning=tuning, metrics=registry)
+    public = ingress.public_addr()
+
+    n = 2 * matches_per_host
+    match_ids = [f"m{k}" for k in range(n)]
+    peers: Dict[str, Any] = {}
+    peer_socks: Dict[str, RecvRecordingSocket] = {}
+    games: Dict[str, Any] = {}
+    peer_games: Dict[str, Any] = {}
+    viewers: List[Any] = []
+    viewer_socks: List[Any] = []
+
+    def close_all() -> None:
+        placement.close()  # live hosts only; dead ones it left alone
+        for hid in placement._dead:
+            try:
+                hosts[hid].close()
+            except Exception:
+                pass
+        ingress.close()
+        for s in viewer_socks:
+            s.close()
+        for s in peer_socks.values():
+            s.close()
+
+    try:
+        for v in range(n_spectators):
+            vs = RecvRecordingSocket(UdpNonBlockingSocket(0))
+            viewer_socks.append(vs)
+        viewer_addrs = tuple(
+            ("127.0.0.1", vs.local_port()) for vs in viewer_socks)
+        for k, mid in enumerate(match_ids):
+            pin = "h0" if k < matches_per_host else "h1"
+            peer_sock = RecvRecordingSocket(UdpNonBlockingSocket(0))
+            peer_socks[mid] = peer_sock
+            peer_addr = ("127.0.0.1", peer_sock.local_port())
+            vaddrs = viewer_addrs if mid == spectate_match else ()
+            bf = functools.partial(
+                placement_match_builder, base + 3 + 7 * k, 0,
+                peer_addr, vaddrs, desync_interval=desync_interval,
+            )
+            placement.admit(
+                mid, bf, peer_addrs=(peer_addr,) + vaddrs,
+                state_template=state_template, game_factory=game_factory,
+                host=pin,
+            )
+            # the peer's whole world is the virtual endpoint: the
+            # ingress public address, never the serving leg's port
+            pb = two_peer_builder(
+                clock, base + 4 + 7 * k, 1, tuple(public),
+                other_handle=0,
+            )
+            if desync_interval:
+                pb = pb.with_desync_detection_mode(
+                    DesyncDetection.on(desync_interval)
+                )
+            peers[mid] = pb.start_p2p_session(peer_sock)
+            games[mid] = game_factory()
+            peer_games[mid] = peer_game_factory()
+        for v, vs in enumerate(viewer_socks):
+            vb = (
+                SessionBuilder(Config.for_uint(16))
+                .with_clock(lambda: clock[0])
+                .with_rng(random.Random(base + 900 + v))
+            )
+            viewers.append(
+                vb.start_spectator_session(tuple(public), vs))
+
+        reqs_log: Dict[str, List] = {mid: [] for mid in match_ids}
+        host_events: Dict[str, List] = {mid: [] for mid in match_ids}
+        peer_events: Dict[str, List] = {mid: [] for mid in match_ids}
+        viewer_streams: List[List] = [[] for _ in viewers]
+        host_ms: List[tuple] = []
+
+        def sched(i, k):
+            return ((i + 2 * k) // (2 + k % 3)) % 16
+
+        ctx: Dict[str, Any] = dict(
+            placement=placement, ingress=ingress, hosts=hosts,
+            peers=peers, clock=clock, seed=seed, match_ids=match_ids,
+            journal_dir=journal_dir, close=close_all,
+        )
+        for i in range(ticks):
+            clock[0] += 16
+            set_runner_clock(clock[0])
+            if inject is not None:
+                inject(i, ctx)
+            for mid, peer in peers.items():
+                try:
+                    peer.add_local_input(1, (i * 5) % 16)
+                    peer_games[mid].fulfill(peer.advance_frame())
+                except (NotSynchronized, PredictionThreshold):
+                    pass  # host mid-transfer: backpressure, not a fault
+                peer_events[mid].extend(peer.events())
+            for v, viewer in enumerate(viewers):
+                try:
+                    for r in viewer.advance_frame():
+                        viewer_streams[v].append(
+                            (viewer.current_frame, tuple(r.inputs))
+                        )
+                except (NotSynchronized, PredictionThreshold,
+                        SpectatorTooFarBehind):
+                    pass
+            ingress.pump()  # peers/viewers -> serving legs
+            for k, mid in enumerate(match_ids):
+                if mid in placement.lost_matches():
+                    continue
+                placement.add_local_input(mid, 0, sched(i, k))
+            t0 = time.perf_counter()
+            out = placement.advance_all()
+            t1 = time.perf_counter()
+            for hout in out.values():
+                for mid, reqs in hout.items():
+                    games[mid].fulfill(reqs)
+            host_ms.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+            for hout in out.values():
+                for mid, reqs in hout.items():
+                    reqs_log[mid].append(req_summary(reqs))
+            lost_now = placement.lost_matches()
+            for mid in match_ids:
+                if mid not in lost_now:
+                    host_events[mid].extend(placement.events(mid))
+            ingress.pump()  # leg replies -> peers/viewers
+    except BaseException:
+        close_all()
+        raise
+    lost = placement.lost_matches()
+    ctx.update(
+        wire={mid: list(s.received) for mid, s in peer_socks.items()},
+        reqs=reqs_log,
+        host_events=host_events,
+        peer_events=peer_events,
+        viewer_streams=viewer_streams,
+        viewer_wire=[list(s.received) for s in viewer_socks],
+        locations={
+            mid: (
+                None if mid in lost
+                else (placement.match_host(mid),
+                      hosts[placement.match_host(mid)].match_location(mid))
+            )
+            for mid in match_ids
+        },
+        vports={
+            mid: placement.virtual_endpoint(mid)[1] for mid in match_ids
+        },
+        public=tuple(public),
+        lost=lost,
+        frames={
+            mid: (None if mid in lost
+                  else placement.current_frame(mid))
+            for mid in match_ids
+        },
+        peer_frames={mid: p.current_frame for mid, p in peers.items()},
+        states={mid: games[mid].state for mid in match_ids},
+        peer_states={mid: g.state for mid, g in peer_games.items()},
+        healthz=placement.healthz(),
         registry=registry,
         host_ms=host_ms,
     )

@@ -26,7 +26,6 @@ confirmed inputs that follow it).
 
 from __future__ import annotations
 
-import logging
 import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
@@ -52,8 +51,9 @@ from ..parallel.host_bank import (
     SLOT_DEAD,
     adopt_resume_bundle,
 )
+from ..utils.tracing import get_logger
 
-_logger = logging.getLogger(__name__)
+_logger = get_logger("fleet")
 
 # shard lifecycle states (the drain/failover state machine, DESIGN.md §16)
 SHARD_ACTIVE = "active"        # admitting and serving

@@ -41,7 +41,6 @@ retries) rides the same tick.
 from __future__ import annotations
 
 import errno
-import logging
 import os
 import pickle
 import random
@@ -68,6 +67,7 @@ from ..obs.timeline import (
     EV_MIGRATE_COMMIT,
 )
 from ..obs.trace import NULL_TRACER
+from ..utils.tracing import get_logger
 from .placement import HashRing
 from .rpc import PICKLE_PROTOCOL, FrameError, RpcError, RpcTimeout
 from .shard import (
@@ -79,7 +79,7 @@ from .shard import (
 )
 from .tuning import FleetTuning
 
-_logger = logging.getLogger(__name__)
+_logger = get_logger("fleet")
 
 # re-admission retry policy (satellite of DESIGN.md §16): exponential
 # backoff with seeded jitter, bounded attempts.  These module constants
@@ -88,27 +88,6 @@ _logger = logging.getLogger(__name__)
 # defaults to these values — see fleet/tuning.py.
 READMIT_BACKOFF_TICKS = 8
 READMIT_MAX_ATTEMPTS = 6
-
-
-def _discard_stub_journal(journal) -> None:
-    """Remove a journal whose admission/adoption failed before any match
-    data was written: leaving the header-only file would make every
-    retry of the same incarnation path fail the exclusive-create
-    contract (FileExistsError) — one transient failure must not cascade
-    into a permanently unplaceable match.  Only record-free stubs are
-    ever unlinked; a journal with data is a durable artifact."""
-    if journal is None:
-        return
-    if journal.next_frame != 0 or journal.tail:
-        return  # real records: never destroy a durable artifact
-    try:
-        journal._f.close()
-    except Exception:
-        pass
-    try:
-        os.unlink(journal.path)
-    except OSError:
-        pass
 
 
 class FleetError(GgrsError):
@@ -191,7 +170,7 @@ class ShardSupervisor:
         native_io: bool = False,
         retire_dead_matches: bool = False,
         # out-of-process backend (DESIGN.md §17): shard ids listed here
-        # run as real subprocesses (scripts/shard_runner.py) behind the
+        # run as real subprocesses (scripts/port_shard_runner.py) behind the
         # same supervisor interface — mixed fleets are the normal case.
         # proc_clock feeds the runners' session clock (shipped by value
         # with every tick RPC); tuning consolidates every fleet
@@ -231,26 +210,31 @@ class ShardSupervisor:
             raise ValueError(
                 f"tcp_shards must be a subset of proc_shards; "
                 f"{sorted(tcp_set - proc_set)} are not process-backed")
-        if proc_set:
-            # the process fleet (ProcShard runners, the fleet link) is the
-            # next slice of the port; refuse before any shard is built
-            raise FleetError(
-                f"process-backed shards {sorted(proc_set)} are not ported "
-                "yet: the process fleet (fleet/proc.py, transport.py, "
-                "ingress.py, placement_service.py) is ROADMAP queue A "
-                "item 7(a); run these shards in-process"
-            )
         for sid in shard_ids:
             sid = str(sid)
-            self.shards[sid] = PoolShard(
-                sid, capacity=capacity, metrics=self.metrics,
-                tracer=tracer, checkpoint_every=checkpoint_every,
-                p99_budget_ms=p99_budget_ms,
-                stale_after_s=stale_after_s,
-                native_io=native_io,
-                retire_dead_matches=retire_dead_matches,
-                tuning=self.tuning,
-            )
+            if sid in proc_set:
+                from .proc import ProcShard
+
+                self.shards[sid] = ProcShard(
+                    sid, capacity=capacity, metrics=self.metrics,
+                    tuning=self.tuning, clock=proc_clock,
+                    checkpoint_every=checkpoint_every,
+                    p99_budget_ms=p99_budget_ms,
+                    stale_after_s=stale_after_s, native_io=native_io,
+                    retire_dead_matches=retire_dead_matches,
+                    fleet_obs=self.fleet_obs,
+                    tcp=sid in tcp_set,
+                )
+            else:
+                self.shards[sid] = PoolShard(
+                    sid, capacity=capacity, metrics=self.metrics,
+                    tracer=tracer, checkpoint_every=checkpoint_every,
+                    p99_budget_ms=p99_budget_ms,
+                    stale_after_s=stale_after_s,
+                    native_io=native_io,
+                    retire_dead_matches=retire_dead_matches,
+                    tuning=self.tuning,
+                )
             self.ring.add(sid)
         self._records: Dict[str, MatchRecord] = {}
         self._pending: List[_PendingAdmission] = []
@@ -433,6 +417,8 @@ class ShardSupervisor:
                     # unwind the just-registered stub so a retry of the
                     # same incarnation path can exclusive-create again
                     if journal is not None:
+                        from .proc import _discard_stub_journal
+
                         record.journal_paths.pop()
                         _discard_stub_journal(journal)
                     raise

@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import importlib
+import inspect
 import pickle
 import random
 import socket
@@ -36,6 +38,7 @@ import ggrs_tpu.fleet.supervisor as jsup
 import ggrs_tpu.broadcast.journal as jjournal
 import ggrs_tpu.core.errors as jerrors
 import ggrs_tpu.obs as jobs
+import ggrs_tpu_torch
 import ggrs_tpu_torch.chaos as tchaos
 import ggrs_tpu_torch.fleet as tfleet
 import ggrs_tpu_torch.fleet.rpc as trpc
@@ -45,9 +48,7 @@ import ggrs_tpu_torch.obs as tobs
 from ggrs_tpu.games import BoxGame as JaxBoxGame
 from ggrs_tpu.ops import DeviceRequestExecutor as JaxExecutor
 from ggrs_tpu.ops import ExecutorPrograms as JaxPrograms
-from ggrs_tpu_torch import BoxGame, ExecutorPrograms, to_numpy
-
-from chip_smoke import FleetHost
+from ggrs_tpu_torch import to_numpy
 
 PKGS = {
     "jax": dict(chaos=jchaos, fleet=jfleet, rpc=jrpc, journal=jjournal, obs=jobs, errors=jerrors),
@@ -365,9 +366,9 @@ class _JaxHost:
         return self.ex.state
 
 
-class _PortHost(FleetHost):
-    def __init__(self, game, programs):
-        super().__init__(game, "cpu", programs)
+class _PortHost(tchaos.ExecutorGame):
+    def __init__(self):
+        super().__init__("boxgame", 2, device="cpu")
         self.saved = []
 
     def fulfill(self, requests):
@@ -389,20 +390,18 @@ def test_kill_with_executors_matches_jax(tmp_path, monkeypatch):
     jax_hosts = dict(zip(jax_ctx["match_ids"], _JaxHost.made[0::2]))
     jax_peers = dict(zip(jax_ctx["match_ids"], _JaxHost.made[1::2]))
 
-    game = BoxGame(2)
-    programs = ExecutorPrograms(game.advance)
     port_hosts, peer_hosts = {}, {}
 
     def host(mid):
-        port_hosts[mid] = _PortHost(game, programs)
+        port_hosts[mid] = _PortHost()
         return port_hosts[mid]
 
     def peer(mid):
-        peer_hosts[mid] = _PortHost(game, programs)
+        peer_hosts[mid] = _PortHost()
         return peer_hosts[mid]
 
     port = _fleet("port", "kill", tmp_path, game_factory=host, peer_game_factory=peer,
-                  state_template=game.init_state_np())
+                  state_template=template)
     for field in ("wire", "reqs", "host_events", "peer_events", "locations", "lost", "frames"):
         assert neutral(port[field]) == neutral(jax_ctx[field]), field
     affected = [f"m{k}" for k in range(PER_SHARD, 2 * PER_SHARD)]
@@ -426,7 +425,55 @@ def test_kill_with_executors_matches_jax(tmp_path, monkeypatch):
 
 
 def test_process_backed_shard_is_refused_naming_the_next_slice():
-    with pytest.raises(tfleet.FleetError, match=r"queue A item 7\(a\)"):
-        tfleet.ShardSupervisor(("s0", "s1"), proc_shards=("s1",))
+    """Once the stub that refused ``proc_shards`` until the process fleet
+    was ported; now a ``proc_shards`` supervisor spawns the port's runner
+    and closes with no orphan, and ``tcp_shards`` must still be a subset of
+    ``proc_shards`` (the twin of ``tests/test_fleet_link.py``'s check)."""
+    sup = tfleet.ShardSupervisor(("s0", "s1"), proc_shards=("s1",), metrics=tobs.Registry())
+    shard = sup.shards["s1"]
+    try:
+        assert isinstance(shard, tfleet.ProcShard) and shard.backend == "proc"
+        assert shard.pid and shard._proc.poll() is None
+        with open(f"/proc/{shard.pid}/cmdline", "rb") as f:
+            assert b"port_shard_runner.py" in f.read()
+    finally:
+        sup.close()
+    assert shard.orphan_count() == 0 and shard.last_exit == "exit code 0"
     with pytest.raises(ValueError, match="subset of proc_shards"):
         tfleet.ShardSupervisor(("s0",), tcp_shards=("s0",))
+
+
+# -- the package's public names (C4) -------------------------------------------------
+
+# names the port leaves out on purpose: the Pallas kernel's (its port is
+# ``csrc/digest.cu`` behind ``state_digest``) and ``analysis/``, not ported yet
+EXCLUDED = {"ops": {"leaf_digest_pallas", "use_pallas_checksums"}}
+SUBPACKAGES = ("", "broadcast", "core", "fleet", "games", "net", "obs", "ops", "parallel",
+               "predict", "sessions", "utils")
+
+
+def _kind(obj):
+    if inspect.ismodule(obj):
+        return "module"
+    if inspect.isclass(obj):
+        return "class"
+    return "callable" if callable(obj) else "value"
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES, ids=lambda s: s or "top")
+def test_public_names_cover_jax(sub):
+    jax_mod = importlib.import_module("ggrs_tpu" + (f".{sub}" if sub else ""))
+    port_mod = importlib.import_module("ggrs_tpu_torch" + (f".{sub}" if sub else ""))
+    want = set(jax_mod.__all__) - EXCLUDED.get(sub, set())
+    assert want <= set(port_mod.__all__), sorted(want - set(port_mod.__all__))
+    for name in sorted(want):
+        assert hasattr(port_mod, name), name
+        assert _kind(getattr(port_mod, name)) == _kind(getattr(jax_mod, name)), name
+
+
+def test_top_level_reexports_the_core():
+    from ggrs_tpu_torch import NULL_FRAME, SyncLayer, TimeSync  # noqa: F401
+    import ggrs_tpu_torch.core as tcore
+
+    for name in tcore.__all__:
+        assert getattr(ggrs_tpu_torch, name) is getattr(tcore, name), name

@@ -22,10 +22,12 @@ from ggrs_tpu_torch import (
     RtsCmd,
     build_scrub_program,
 )
+from ggrs_tpu_torch.chaos import ExecutorGame
 from ggrs_tpu_torch.core.device import resolve_device
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "ggrs_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "ggrs_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "port_shard_runner.py"]
 
 
 def test_package_imports_with_jax_blocked():
@@ -48,6 +50,8 @@ def test_package_imports_with_jax_blocked():
         "import ggrs_tpu_torch.obs.timeline, ggrs_tpu_torch.obs.slo, ggrs_tpu_torch.obs.exporters\n"
         "import ggrs_tpu_torch.obs.fleet_obs, ggrs_tpu_torch.fleet, ggrs_tpu_torch.fleet.rpc\n"
         "import ggrs_tpu_torch.fleet.shard, ggrs_tpu_torch.fleet.supervisor, ggrs_tpu_torch.chaos\n"
+        "import ggrs_tpu_torch.fleet.transport, ggrs_tpu_torch.fleet.proc\n"
+        "import ggrs_tpu_torch.fleet.ingress, ggrs_tpu_torch.fleet.placement_service\n"
         "from ggrs_tpu_torch.parallel.batch import Mesh, make_mesh, make_mesh2d\n"
         "from ggrs_tpu_torch.parallel.batch import make_distributed_mesh\n"
         "assert ggrs_tpu_torch.net._native.available()\n"
@@ -271,6 +275,48 @@ def test_fleet_failover_with_executors_and_jax_blocked(tmp_path):
     assert out.stdout.strip() == "ok"
 
 
+def test_proc_fleet_runner_child_with_jax_blocked(tmp_path):
+    # a process fleet whose runner subprocess fulfils its match through an
+    # ExecutorGame on the CPU; PYTHONPATH leads with packages named jax and
+    # ggrs_tpu that refuse to import, so the spawned runner, which inherits
+    # the environment, proves it imports neither
+    blocker = tmp_path / "blocked"
+    for name in ("jax", "ggrs_tpu"):
+        (blocker / name).mkdir(parents=True)
+        (blocker / name / "__init__.py").write_text(
+            f"raise ImportError('{name} is blocked in this process')\n")
+    code = (
+        "import functools, sys\n"
+        "from ggrs_tpu_torch import BoxGame\n"
+        "from ggrs_tpu_torch.chaos import ExecutorGame, drive_proc_fleet, fleet_recovery_violations\n"
+        "from ggrs_tpu_torch.fleet import FleetTuning\n"
+        "game = functools.partial(ExecutorGame, 'boxgame', 2, device='cpu')\n"
+        "tuning = FleetTuning(heartbeat_interval_s=0.05, heartbeat_deadline_s=1.0,\n"
+        "    rpc_timeout_s=5.0, spawn_timeout_s=120.0, drain_deadline_s=0.5, restart_max=0)\n"
+        "ctx = drive_proc_fleet(16, matches_per_shard=1, seed=4, backend='proc', tuning=tuning,\n"
+        "    journal_dir=sys.argv[1], game_factory=game, peer_game_factory=game,\n"
+        "    state_template=BoxGame(2).init_state_np())\n"
+        "shard = ctx['sup'].shards['s1']\n"
+        "pid = shard.pid\n"
+        "ctx['sup'].close()\n"
+        "assert shard.backend == 'proc' and shard.last_exit == 'exit code 0', shard.last_exit\n"
+        "assert shard.orphan_count() == 0\n"
+        "assert ctx['frames'] == {'m0': 16, 'm1': 16}, ctx['frames']\n"
+        "assert fleet_recovery_violations(ctx, ctx['match_ids']) == []\n"
+        "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
+        "print('ok', pid)\n"
+    )
+    env = dict({k: v for k, v in os.environ.items() if k != "PYTHONPATH"},
+               PYTHONPATH=str(blocker))
+    out = subprocess.run(
+        [sys.executable, "-c", code, str(tmp_path)], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[0] == "ok"
+    assert "is blocked" not in out.stderr
+
+
 def _imported_modules(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -305,6 +351,8 @@ def test_default_device_is_cuda_and_raises_without_it():
         DeviceRequestExecutor(game.advance, game.init_state_np(), lambda pairs: None)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_scrub_program(game.advance)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ExecutorGame()
     for other in (EcsWorld(2, 4), RtsCmd(2), BoxGame(2, "float")):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             other.init_state()
