@@ -243,8 +243,26 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    runner's tick ms from its ferried ``runner.tick`` spans; spawn seconds
    (the ``hello`` round trip); SIGKILL detection, failover and link resume
    ms.
+20. verify -- ``scripts/port_verify.py --model --json`` in a subprocess, with
+   both libraries of phase 1 on disk: exit 0, verdict PASS, no new finding,
+   the five gates and the model leg counted, both runtime probes run (the
+   host library's header and record strides, the digest library's
+   ``ggrs_digest_limits`` against ``csrc/digest.cu``), 18 models.  Its
+   seconds, the legacy findings, the models' states.
+21. sanitized -- g++ builds the ASan+UBSan host library
+   (``GGRS_NATIVE_SANITIZE=1``), then phase 16's fault leg cut to 60 ticks
+   (64 sessions on phase 7's faults, the slot fault at tick 30, fulfilled on
+   the card through ``HostedPool``) runs here on the production library and
+   in a subprocess that loads the sanitized one with the ASan runtime
+   preloaded (``ASAN_OPTIONS`` ``detect_leaks=0:abort_on_error=1:
+   protect_shadow_gap=0``).  Request lists, events, wire bytes, checksums,
+   frames, slot states and transitions and the live states bitwise equal;
+   digest launches in both as predicted; exit 0 and no sanitizer report.
+   Build and leg seconds.
 
-Then the seconds each phase took, one ``{"kernels": [...]}`` line, the
+Then the seconds each phase took, one ``{"kernels": [...]}`` line (phase
+21's launches as ``launches_sanitized_production`` and
+``launches_sanitized``), the
 card's name and power limit as nvidia-smi prints them, and, last,
 ``{"ok": true, "device": {...}}``.
 Exits non-zero with no result when CUDA is not available.
@@ -349,6 +367,7 @@ from ggrs_tpu_torch.ops.digest import (
 )
 from ggrs_tpu_torch.utils.tree import tree_leaves, tree_map
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 L2_BYTES = 50e6
 D = 8
@@ -444,6 +463,18 @@ PROC_TUNING = dict(heartbeat_interval_s=0.05, heartbeat_deadline_s=0.5, rpc_time
 NET_TUNING = dict(PROC_TUNING, link_auth_token="chaos-net-token", link_reconnect_window_s=0.6,
                   link_backoff_s=0.01, link_handshake_timeout_s=0.3)  # verify_net_leg's
 PROC_SCENARIOS = ("proc_control", "proc_sigkill", "net_control", "net_sever")
+# phase 20: scripts/port_verify.py's gates and its time limit here
+VERIFY_GATES = ("layout", "determinism", "ownership", "transitions", "hygiene")
+VERIFY_TIMEOUT_S = 120
+# phase 21: phase 16's fault leg cut from 180 ticks to 60, the fault moved
+# from tick 60 to 30; ASan's options: no leak report (CPython's interned
+# objects at exit are noise), abort on the first report, and the shadow gap
+# left unprotected, since the CUDA driver maps memory into it
+SAN_TICKS, SAN_FAULT_TICK = 60, 30
+SAN_ASAN_OPTIONS = "detect_leaks=0:abort_on_error=1:protect_shadow_gap=0"
+SAN_TIMEOUT_S = 400
+SAN_KEYS = ("summaries", "events", "sent", "last_checksums", "frames", "confirmed",
+            "slot_states", "crossings", "harvests", "launches", "predicted", "around")
 
 
 class SmokeFailure(Exception):
@@ -2278,7 +2309,8 @@ def bank_raw_inputs(blobs: np.ndarray, statuses: np.ndarray) -> np.ndarray:
 
 
 def drive_bank(n_matches: int, ticks: int, device, leg: str, fault: bool = False,
-               profiled_ticks: int = 0) -> dict:
+               profiled_ticks: int = 0, fault_tick: int = BANK_FAULT_TICK,
+               record_events: bool = False) -> dict:
     """``bench.py``'s match population (``_match_population``: two-peer
     BoxGame matches, rng seeds 3 + 5m + me, its input schedule, no desync
     detection) over phase 7's seeded faults (one network per match) on a
@@ -2291,7 +2323,8 @@ def drive_bank(n_matches: int, ticks: int, device, leg: str, fault: bool = False
     card the whole tick runs under the sync debug mode "error"; the last
     ``profiled_ticks`` ticks' fulfilment runs alone under the profiler and
     is left out of the host times.  ``fault`` injects a slot error into
-    ``BANK_FAULT_SLOT`` at ``BANK_FAULT_TICK``."""
+    ``BANK_FAULT_SLOT`` at ``fault_tick``.  ``record_events`` folds every
+    session's events of every tick into a digest too."""
     clock = [0]
     socks, builders, nets = [], [], []
     for m in range(n_matches):
@@ -2334,6 +2367,7 @@ def drive_bank(n_matches: int, ticks: int, device, leg: str, fault: bool = False
         check(native == (leg in ("bank", "nofastpath")), f"bank {leg}: native_active {native}")
         hosted = HostedPool(host, ex)
     summaries = [hashlib.sha256() for _ in range(B)]
+    events = [hashlib.sha256() for _ in range(B)]
     rows = {"quiet": 0, "resim": 0, "save_only": 0, "eager": 0}
     host_s = {"stage": 0.0, "advance": 0.0, "run": 0.0}
     counting = [True]
@@ -2366,7 +2400,7 @@ def drive_bank(n_matches: int, ticks: int, device, leg: str, fault: bool = False
     for i in range(ticks):
         clock[0] += 16
         items = [(b, b % 2, pool_sched(b // 2, b % 2, i)) for b in range(B)]
-        if fault and i == BANK_FAULT_TICK:
+        if fault and i == fault_tick:
             host.inject_slot_error(BANK_FAULT_SLOT)
         counting[0] = i < timed
         with no_device_reads(card):
@@ -2396,6 +2430,9 @@ def drive_bank(n_matches: int, ticks: int, device, leg: str, fault: bool = False
                 evicted_lead = request_summary(reqs[BANK_FAULT_SLOT])[:1]
         for b in range(B):
             summaries[b].update(repr(request_summary(reqs[b])).encode())
+            if record_events:
+                evs = sessions[b].events() if host is None else host.events(b)
+                events[b].update(repr([repr(e) for e in evs]).encode())
         for net in nets:
             net.tick()
     ex.block_until_ready()
@@ -2417,6 +2454,7 @@ def drive_bank(n_matches: int, ticks: int, device, leg: str, fault: bool = False
         "predicted": predicted, "states": states, "frames": frames, "confirmed": confirmed,
         "last_checksums": [ex.ring_checksum(b, f) for b, f in enumerate(last)],
         "summaries": [h.hexdigest() for h in summaries],
+        "events": [h.hexdigest() for h in events] if record_events else None,
         "sent": [s.digest.hexdigest() for s in socks], "rows": rows,
         "crossings": None if host is None else host.crossings,
         "harvests": None if host is None else host.harvests,
@@ -3686,6 +3724,150 @@ def phase_proc_fleet(device=None) -> int:
     return here + runner_launches
 
 
+# -- phase 20: the static-analysis plane ---------------------------------------
+
+
+def phase_verify() -> dict:
+    """Phase 20: ``scripts/port_verify.py --model --json`` in a subprocess,
+    after phase 1 built both libraries, so its runtime probes read them."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "verify.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "scripts", "port_verify.py"), "--model",
+             "--json", out],
+            cwd=ROOT, capture_output=True, text=True, timeout=VERIFY_TIMEOUT_S,
+        )
+        seconds = time.perf_counter() - t0
+        check(proc.returncode == 0, f"verify: port_verify.py exited {proc.returncode}\n"
+              f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        with open(out) as f:
+            verdict = json.load(f)
+    check(verdict["verdict"] == "PASS" and verdict["new"] == [],
+          f"verify: {verdict['verdict']}, new {verdict['new'][:6]}")
+    check(set(verdict["counts"]) == set(VERIFY_GATES) | {"model"},
+          f"verify: gates {sorted(verdict['counts'])}")
+    probes = verdict.get("probes") or {}
+    want = {"host": os.path.relpath(_build.host_library_path(""), ROOT),
+            "digest": os.path.relpath(_build.library_path("digest"), ROOT)}
+    check(probes == want, f"verify: runtime probes read {probes}, want {want}")
+    models = verdict["models"]
+    check(len(models) == 18 and verdict["counts"]["model"] == 0,
+          f"verify: {len(models)} models, {verdict['counts']['model']} model findings")
+    rec = {"phase": "verify", "seconds": seconds, "verdict": verdict["verdict"],
+           "counts": verdict["counts"], "legacy": len(verdict["legacy"]), "probes": probes,
+           "models": len(models), "model_states": sum(m["states"] for m in models),
+           "model_seconds": sum(m["elapsed_s"] for m in models),
+           "fixtures_with_counterexample": sum(m["expect"] == "counterexample" for m in models)}
+    emit(rec)
+    return rec
+
+
+# -- phase 21: the bank on the sanitized host library --------------------------
+
+
+def state_digests(ex, sessions: int) -> list:
+    """sha256 of each session's live state, leaf bytes in tree order."""
+    out = []
+    for b in range(sessions):
+        h = hashlib.sha256()
+        for leaf in tree_leaves(ex.live_state(b)):
+            h.update(np.ascontiguousarray(to_numpy(leaf)).tobytes())
+        out.append(h.hexdigest())
+    return out
+
+
+def sanitized_leg(device) -> dict:
+    """Phase 21's leg: phase 16's fault leg (64 sessions on phase 7's faults,
+    the slot fault) cut to ``SAN_TICKS`` ticks, on whichever host library
+    this process loads; a JSON-able record of what it produced."""
+    run = drive_bank(POOL_MATCHES, SAN_TICKS, device, "bank", fault=True,
+                     fault_tick=SAN_FAULT_TICK, record_events=True)
+    ex = run["executor"]
+    rec = {k: run[k] for k in SAN_KEYS}
+    rec["transitions"] = [[slot, old, new] for slot, old, new, _ in run["transitions"]]
+    rec["states"] = state_digests(ex, 2 * POOL_MATCHES)
+    rec["library"] = os.path.relpath(net_native.bank_lib()._name, ROOT)
+    rec["device"] = str(ex.device)
+    return rec
+
+
+def sanitized_child(device=None) -> None:
+    """Entry of phase 21's subprocess (``GGRS_NATIVE_SANITIZE=1`` and the
+    ASan runtime preloaded): the leg on the card (``device=None``), one JSON
+    line."""
+    state_digest.launches = lane_sums_rows.launches = 0
+    rec = sanitized_leg(device)
+    print(json.dumps(rec), flush=True)
+
+
+def asan_runtime() -> str:
+    gxx = subprocess.run(["g++", "-print-file-name=libasan.so"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    check(os.path.isabs(gxx) and os.path.exists(gxx), f"sanitized: no ASan runtime ({gxx!r})")
+    return gxx
+
+
+def phase_sanitized() -> dict:
+    """Phase 21: the ASan+UBSan host library, and phase 16's fault leg cut to
+    ``SAN_TICKS`` ticks in a subprocess that loads it (ASan preloaded),
+    fulfilled on the card through ``HostedPool``; bitwise equal to the same
+    leg here on the production library, digest launches as predicted, no
+    sanitizer report.  Returns the record, with both runs' launches."""
+    t0 = time.perf_counter()
+    build_s = _build.build_host("1")
+    runtime = asan_runtime()
+    state_digest.launches = lane_sums_rows.launches = 0
+    t1 = time.perf_counter()
+    prod = sanitized_leg(None)
+    prod_s = time.perf_counter() - t1
+    env = dict(os.environ, LD_PRELOAD=runtime, ASAN_OPTIONS=SAN_ASAN_OPTIONS,
+               GGRS_NATIVE_SANITIZE="1")
+    t1 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.sanitized_child()"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=SAN_TIMEOUT_S,
+    )
+    child_s = time.perf_counter() - t1
+    reports = [line for line in proc.stderr.splitlines()
+               if "AddressSanitizer" in line or "runtime error:" in line
+               or "LeakSanitizer" in line]
+    check(proc.returncode == 0 and not reports,
+          f"sanitized: the ASan leg exited {proc.returncode}, reports {reports[:4]}\n"
+          f"{proc.stderr[-4000:]}")
+    san = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(prod["library"] == os.path.relpath(_build.host_library_path(""), ROOT),
+          f"sanitized: the production leg loaded {prod['library']}")
+    check(san["library"] == os.path.relpath(_build.host_library_path("1"), ROOT),
+          f"sanitized: the ASan leg loaded {san['library']}")
+    check(san["device"] == prod["device"] == "cuda",
+          f"sanitized: devices {san['device']} / {prod['device']}")
+    bad = [k for k in SAN_KEYS + ("transitions", "states") if san[k] != prod[k]]
+    check(not bad, f"sanitized: the ASan leg differs from the production leg on {bad}")
+    for name, run in (("production", prod), ("asan", san)):
+        check(run["launches"] == run["predicted"] and run["around"] == 0,
+              f"sanitized {name}: {run['launches']} digest launches, predicted "
+              f"{run['predicted']}, {run['around']} around state_digest")
+    moves = [(o, n) for s, o, n in prod["transitions"] if s == BANK_FAULT_SLOT]
+    check(moves == [("native", "quarantined"), ("quarantined", "evicted")],
+          f"sanitized: fault transitions {moves}")
+    check(prod["crossings"] == SAN_TICKS and prod["harvests"] == 1,
+          f"sanitized: {prod['crossings']} crossings, {prod['harvests']} harvests")
+    rec = {"phase": "sanitized", "sanitizer": "address,undefined",
+           "flags": list(_build.host_flags("1")), "asan_options": SAN_ASAN_OPTIONS,
+           "library": san["library"], "build_seconds": build_s,
+           "game": "BoxGame(2)", "sessions": 2 * POOL_MATCHES, "ticks": SAN_TICKS,
+           "network": P2P_NET, "fault": "inject_slot_error", "slot": BANK_FAULT_SLOT,
+           "fault_tick": SAN_FAULT_TICK, "device": san["device"],
+           "bitwise_equal": list(SAN_KEYS) + ["transitions", "states"],
+           "digest_launches": prod["launches"], "digest_launches_sanitized": san["launches"],
+           "digest_launches_predicted": prod["predicted"], "sanitizer_reports": 0,
+           "production_seconds": prod_s, "sanitized_seconds": child_s,
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs the card",
@@ -3723,6 +3905,8 @@ def main() -> int:
     datapath_launches = timed("datapath", phase_datapath, cases)
     fleet_launches = timed("fleet", phase_fleet)
     proc_launches = timed("proc_fleet", phase_proc_fleet)
+    timed("verify", phase_verify)
+    san = timed("sanitized", phase_sanitized)
     emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
     main_case = cases[MAIN_CASE]
     emit({"kernels": [{
@@ -3735,7 +3919,8 @@ def main() -> int:
         "launches_native": native_launches, "launches_plane": plane_launches,
         "launches_mesh": mesh_launches, "launches_bank": bank_launches,
         "launches_datapath": datapath_launches, "launches_fleet": fleet_launches,
-        "launches_proc": proc_launches,
+        "launches_proc": proc_launches, "launches_sanitized_production": san["digest_launches"],
+        "launches_sanitized": san["digest_launches_sanitized"],
         "max_abs_err": worst,
         "ms": main_case["device_us"] / 1e3, "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_us"] / 1e3, "bound_by": "bytes", "library_ms": None,

@@ -16,6 +16,15 @@ flags, so an edited source is rebuilt and never mixed up with an old
 library.  A library is written to a temporary file and moved into place, so
 processes that build at the same time never load a torn file.  A failed
 build raises with the compiler's output.
+
+``GGRS_NATIVE_SANITIZE`` selects an instrumented host library, as it does
+for the JAX package's loader: ``1`` (or ``address``, or any other non-empty
+value) builds ASan+UBSan, ``thread`` builds TSan.  The variant's file name
+says which (``libggrs_host_san-<hash>.so``, ``libggrs_host_tsan-<hash>.so``)
+and its hash covers the flags, so it never stands in for the production
+library.  A process that loads a sanitized library must have the
+sanitizer's runtime preloaded (``LD_PRELOAD``), or it aborts;
+``scripts/port_build_sanitized.sh`` runs the port's tests that way.
 """
 
 from __future__ import annotations
@@ -54,6 +63,13 @@ HOST_SOURCES = tuple(
 HOST_HEADERS = (NATIVE_DIR / "wire_common.h",)
 HOST_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 HOST = "host"
+# the instrumented variants: file-name suffix and the flags in place of -O2
+# (the JAX package's net/_native.py flags)
+SANITIZE: Dict[str, tuple] = {
+    "address": ("_san", ("-O1", "-g", "-fsanitize=address,undefined",
+                         "-fno-sanitize-recover=all")),
+    "thread": ("_tsan", ("-O1", "-g", "-fsanitize=thread")),
+}
 _GXX_TIMEOUT_S = 300
 
 # name -> loaded library; name -> the compiler's output of the build
@@ -121,18 +137,40 @@ def build(names: Optional[Iterable[str]] = None) -> float:
     return time.perf_counter() - t0
 
 
-def host_library_path() -> Path:
+def sanitize_mode(sanitize: Optional[str] = None) -> Optional[str]:
+    """The host library variant: ``"address"``, ``"thread"`` or None (the
+    production library).  ``sanitize`` None reads ``GGRS_NATIVE_SANITIZE``;
+    an empty string asks for the production library whatever it says."""
+    value = os.environ.get("GGRS_NATIVE_SANITIZE") if sanitize is None else sanitize
+    if not value:
+        return None
+    return "thread" if value == "thread" else "address"
+
+
+def host_flags(sanitize: Optional[str] = None) -> tuple:
+    """The ``g++`` flags of the host library variant (see ``sanitize_mode``)."""
+    mode = sanitize_mode(sanitize)
+    if mode is None:
+        return HOST_FLAGS
+    return (*SANITIZE[mode][1], *HOST_FLAGS[1:])
+
+
+def host_library_path(sanitize: Optional[str] = None) -> Path:
+    flags = host_flags(sanitize)
     h = hashlib.sha256()
     for src in HOST_SOURCES + HOST_HEADERS:
         h.update(src.name.encode() + b"\0" + src.read_bytes())
-    h.update(" ".join(HOST_FLAGS).encode())
-    return BUILD_DIR / f"libggrs_host-{h.hexdigest()[:12]}.so"
+    h.update(" ".join(flags).encode())
+    mode = sanitize_mode(sanitize)
+    suffix = SANITIZE[mode][0] if mode else ""
+    return BUILD_DIR / f"libggrs_host{suffix}-{h.hexdigest()[:12]}.so"
 
 
-def build_host() -> float:
-    """Compile the host library with ``g++`` unless it is built already.
-    Returns the wall seconds spent (0.0 when nothing was built)."""
-    path = host_library_path()
+def build_host(sanitize: Optional[str] = None) -> float:
+    """Compile the host library variant (see ``sanitize_mode``) with ``g++``
+    unless it is built already.  Returns the wall seconds spent (0.0 when
+    nothing was built)."""
+    path = host_library_path(sanitize)
     if path.exists():
         return 0.0
     gxx = shutil.which("g++")
@@ -145,7 +183,7 @@ def build_host() -> float:
     t0 = time.perf_counter()
     fd, tmp = tempfile.mkstemp(prefix="libggrs_host-", suffix=".so.tmp", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [gxx, *HOST_FLAGS, "-o", tmp, *map(str, HOST_SOURCES)]
+    cmd = [gxx, *host_flags(sanitize), "-o", tmp, *map(str, HOST_SOURCES)]
     try:
         proc = subprocess.run(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
@@ -164,13 +202,15 @@ def build_host() -> float:
     return time.perf_counter() - t0
 
 
-def load_host() -> ctypes.CDLL:
-    """The loaded host library, building it first if needed."""
-    lib = _loaded.get(HOST)
+def load_host(sanitize: Optional[str] = None) -> ctypes.CDLL:
+    """The loaded host library variant (see ``sanitize_mode``), building it
+    first if needed."""
+    key = f"{HOST}:{sanitize_mode(sanitize) or ''}"
+    lib = _loaded.get(key)
     if lib is None:
-        build_host()
-        lib = ctypes.CDLL(str(host_library_path()))
-        _loaded[HOST] = lib
+        build_host(sanitize)
+        lib = ctypes.CDLL(str(host_library_path(sanitize)))
+        _loaded[key] = lib
     return lib
 
 

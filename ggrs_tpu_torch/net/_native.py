@@ -18,6 +18,10 @@ instead.  ``GGRS_TPU_NO_NATIVE=1``, read as the JAX package reads it (before
 the library is loaded, and by the sync core's eligibility gate at each
 ``SyncLayer``), is the caller asking for the Python implementations; the
 Python codec, message framing and cores remain the semantic reference.
+``GGRS_NATIVE_SANITIZE`` (``1``/``address`` for ASan+UBSan, ``thread`` for
+TSan), read when the library is first loaded, binds the sanitizer-built
+variant of the host library instead (``_build.sanitize_mode``); the process
+must have the sanitizer's runtime preloaded.
 
 ``encode``, ``decode``, ``msg_encode`` and ``msg_decode`` return None where
 the caller must take the Python path: the library is switched off, or a
@@ -420,9 +424,10 @@ def _check_layouts(lib: ctypes.CDLL) -> None:
 
 
 def _load() -> Optional[ctypes.CDLL]:
-    """The host library, built and bound at first use; None when
-    ``GGRS_TPU_NO_NATIVE`` is set before it was loaded.  A failed build
-    raises ``_build.KernelBuildError``."""
+    """The host library (the ``GGRS_NATIVE_SANITIZE`` variant when that is
+    set), built and bound at first use; None when ``GGRS_TPU_NO_NATIVE`` is
+    set before it was loaded.  A failed build raises
+    ``_build.KernelBuildError``."""
     global _lib
     if _lib is not None:
         return _lib

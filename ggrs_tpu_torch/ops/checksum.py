@@ -188,7 +188,8 @@ class DeviceChecksum:
         return self.materialize() == other
 
     def __hash__(self) -> int:
-        return hash(self.materialize())
+        # materialize() is an int: hash(int) is value-based, unsalted
+        return hash(self.materialize())  # ggrs-verify: allow(det/hash-order)
 
     def __repr__(self) -> str:  # pragma: no cover
         return f"DeviceChecksum({self._value if self._value is not None else '<unread>'})"

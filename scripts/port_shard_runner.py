@@ -18,9 +18,13 @@ serves, so the first ``admit`` or ``tick`` call pays neither (the library
 is built at first use; in a fleet the parent builds it before spawning).
 
 Exit code 0 = drained (signal or supervisor-requested shutdown);
-1 = the supervisor vanished or the control stream was poisoned.
+1 = the supervisor vanished or the control stream was poisoned.  After
+either, the exit hooks run and the process leaves without the interpreter's
+teardown (see the end of this file).
 """
 
+import atexit
+import os
 import sys
 from pathlib import Path
 
@@ -44,4 +48,13 @@ def warm_card() -> None:
 
 if __name__ == "__main__":
     warm_card()
-    sys.exit(runner_main())
+    code = runner_main()
+    # runner_main returns after the drain (journals flushed, fsynced and
+    # closed, goodbye sent) or a fatal link error: run the exit hooks, flush,
+    # and leave without the interpreter's teardown, which with torch loaded
+    # takes about 0.6 s, longer than a supervisor's drain deadline may allow
+    # before it escalates to SIGKILL
+    atexit._run_exitfuncs()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)

@@ -446,10 +446,10 @@ def test_process_backed_shard_is_refused_naming_the_next_slice():
 # -- the package's public names (C4) -------------------------------------------------
 
 # names the port leaves out on purpose: the Pallas kernel's (its port is
-# ``csrc/digest.cu`` behind ``state_digest``) and ``analysis/``, not ported yet
+# ``csrc/digest.cu`` behind ``state_digest``)
 EXCLUDED = {"ops": {"leaf_digest_pallas", "use_pallas_checksums"}}
-SUBPACKAGES = ("", "broadcast", "core", "fleet", "games", "net", "obs", "ops", "parallel",
-               "predict", "sessions", "utils")
+SUBPACKAGES = ("", "analysis", "broadcast", "core", "fleet", "games", "net", "obs", "ops",
+               "parallel", "predict", "sessions", "utils")
 
 
 def _kind(obj):

@@ -27,7 +27,8 @@ from ggrs_tpu_torch.core.device import resolve_device
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "ggrs_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "scripts" / "port_shard_runner.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "port_shard_runner.py",
+    ROOT / "scripts" / "port_verify.py"]
 
 
 def test_package_imports_with_jax_blocked():
