@@ -259,10 +259,36 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    frames, slot states and transitions and the live states bitwise equal;
    digest launches in both as predicted; exit 0 and no sanitizer report.
    Build and leg seconds.
+22. examples -- the port's five examples (``examples/port_ex_game*.py``) on
+   the card, in process through their factored functions: the host
+   ``SyncTestSession`` with its ``Game`` executor at d = 7 for 600 frames,
+   ``--device-session`` for 600 frames, the server's 8 matches x 240 frames
+   in one ``BatchedRequestExecutor``, ``--both`` for 600 frames on two
+   threads, and a host, peer and spectator trio on three threads for 240
+   frames (the spectator to 200), every UDP port chosen here.  The
+   synctest's live state, the device session's carry and every one of the
+   server's 16 live states bitwise their CPU reruns; the P2P peers and the
+   spectator at their full frame counts with 0 ``DesyncDetected``; digest
+   launches equal to the prediction (each game's warmup, each request list
+   by ``predicted_digest_launches``, each pooled tick from its descriptor,
+   two a device-session tick).  Then each example once through its command
+   line on the card, all seven processes side by side: exit 0 and its marker
+   lines.  Frames/s past the build, host ms of ``run`` a frame, the server's
+   session-ticks/s, each command's seconds.
+23. scripts -- the port's operator scripts: ``port_floor_probe.main`` cut to
+   64 ticks x 2 dispatches x 2 repeats (its four rows, digest launches as
+   the formula predicts, ``desync gate green``), ``port_profile_tick.py
+   --matches 64 --ticks 50`` in a subprocess (the native bank's phases
+   named), ``port_fleet_top.render`` over phase 18's control healthz,
+   merged registry and timelines, and ``port_match_timeline``'s ``--list``
+   and ``-m ... --perfetto`` over phase 19's SIGKILL timelines (a trace
+   that ``validate_chrome_trace`` accepts).  µs per advance step of each
+   probe variant.
 
 Then the seconds each phase took, one ``{"kernels": [...]}`` line (phase
 21's launches as ``launches_sanitized_production`` and
-``launches_sanitized``), the
+``launches_sanitized``, phases 22–23's as ``launches_examples`` and
+``launches_floor_probe``), the
 card's name and power limit as nvidia-smi prints them, and, last,
 ``{"ok": true, "device": {...}}``.
 Exits non-zero with no result when CUDA is not available.
@@ -274,11 +300,14 @@ import contextlib
 import errno
 import functools
 import hashlib
+import importlib
+import io
 import json
 import math
 import os
 import random
 import resource
+import select
 import signal
 import socket as pysocket
 import struct
@@ -355,7 +384,9 @@ from ggrs_tpu_torch.obs import (
     FlightRecorder,
     Tracer,
     fleet_metrics_digest,
+    json_snapshot,
     start_http_server,
+    validate_chrome_trace,
     validate_exposition,
 )
 from ggrs_tpu_torch.ops.checksum import checksum_device, checksum_device_plain, checksum_to_u128
@@ -475,6 +506,22 @@ SAN_ASAN_OPTIONS = "detect_leaks=0:abort_on_error=1:protect_shadow_gap=0"
 SAN_TIMEOUT_S = 400
 SAN_KEYS = ("summaries", "events", "sent", "last_checksums", "frames", "confirmed",
             "slot_states", "crossings", "harvests", "launches", "predicted", "around")
+# phase 22: the examples at their own defaults (the synctest's d = 7 and 600
+# frames, the server's 8 matches x 240 frames, --both's 600 frames); the
+# threaded trio's host and peer at 240 frames as tests/test_examples.py runs
+# it, its spectator to 200; each CLI once, cut to EX_CLI_FRAMES
+EX_D, EX_SYNCTEST_FRAMES = 7, 600
+EX_SERVER_MATCHES, EX_SERVER_FRAMES = 8, 240
+EX_BOTH_FRAMES, EX_TRIO_FRAMES, EX_SPECTATOR_FRAMES = 600, 240, 200
+EX_CLI_FRAMES, EX_CLI_SPECTATOR_FRAMES, EX_CLI_TIMEOUT_S = 120, 60, 240
+EX_MODULES = ("port_ex_game", "port_ex_game_synctest", "port_ex_game_server",
+              "port_ex_game_p2p", "port_ex_game_spectator")
+# phase 23: the floor probe cut from 1,024 ticks x 8 dispatches x 3 repeats
+# (73,728 eager advances a pass, minutes a variant) to 64 x 2 x 2; the bank
+# profile at B = 64 for 50 ticks
+PROBE_CUT = dict(ticks_per_dispatch=64, dispatches=2, repeats=2)
+PROFILE_ARGS = ("--matches", "64", "--ticks", "50")
+SCRIPT_MODULES = ("port_floor_probe", "port_fleet_top", "port_match_timeline")
 
 
 class SmokeFailure(Exception):
@@ -775,10 +822,18 @@ def one_kernel_per_digest(state) -> dict:
 
     checksum_device(state)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        checksum_device(state)
-        torch.cuda.synchronize()
-    device_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # a capture that recorded nothing at all on the device (seen once on the
+    # card: the process's first profiled window came back empty) is taken
+    # again, twice at most; the first capture that recorded the device is
+    # the one judged
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            checksum_device(state)
+            torch.cuda.synchronize()
+        device_events = [e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA]
+        if device_events:
+            break
     names = [e.name for e in device_events]
     check(len(device_events) == 1 and "state_digest" in names[0],
           f"a CUDA checksum_device ran {names} on the device, not one state_digest kernel")
@@ -3375,9 +3430,10 @@ def fleet_matches(scenario: str) -> int:
     return FLEET_LOSSY_MATCHES if lossy else FLEET_MATCHES
 
 
-def phase_fleet() -> int:
+def phase_fleet():
     """Phase 18: the in-process fleet.  Returns the digest launches of the
-    card's drives."""
+    card's drives, and the control run's healthz, merged registry (its JSON
+    snapshot) and timelines for phase 23."""
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
         for scenario in FLEET_SCENARIOS:
@@ -3385,7 +3441,10 @@ def phase_fleet() -> int:
             os.mkdir(jdir)
             runs[scenario] = drive_fleet(scenario, None, jdir, fleet_matches(scenario))
             if scenario == "control":
-                scrape = fleet_scrape(runs["control"]["ctx"]["sup"])
+                sup = runs["control"]["ctx"]["sup"]
+                scrape = fleet_scrape(sup)
+                docs = {"healthz": sup.healthz(), "metrics": json_snapshot(sup.merged_registry()),
+                        "timelines": sup.fleet_obs.timelines.to_dict()}
         for run in runs.values():
             run["ctx"]["sup"].close()
     controls = {"control": "control", "shard_kill": "control", "shard_drain": "control",
@@ -3413,7 +3472,7 @@ def phase_fleet() -> int:
           "scrape": scrape,
           "fleet_metrics_digest": fleet_metrics_digest(runs["control"]["ctx"]["sup"]),
           "digest_rows": digest})
-    return sum(run["launches"] for run in runs.values())
+    return sum(run["launches"] for run in runs.values()), docs
 
 
 # -- phase 19: the process fleet -------------------------------------------------
@@ -3672,12 +3731,12 @@ def placement_violations(run: dict, control: dict, card: bool) -> list:
     return out
 
 
-def phase_proc_fleet(device=None) -> int:
+def phase_proc_fleet(device=None):
     """Phase 19: the process fleet.  ``device=None`` is the card; ``"cpu"``
     rehearses the phase on the CPU (a runner's games are built from the
     shipped factory, so this argument is the only way to reach them).
     Returns the digest launches of the card's drives, in this process and
-    in the runners."""
+    in the runners, and the SIGKILL run's merged timelines for phase 23."""
     card = device is None
     runs, place = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -3721,7 +3780,7 @@ def phase_proc_fleet(device=None) -> int:
                                 "locations": run["ctx"]["locations"], "violations": 0}
                              for name, run in place.items()},
           "digest_launches_here": here, "digest_launches_runners": runner_launches})
-    return here + runner_launches
+    return here + runner_launches, runs["proc_sigkill"]["ctx"]["sup"].fleet_obs.timelines.to_dict()
 
 
 # -- phase 20: the static-analysis plane ---------------------------------------
@@ -3868,6 +3927,374 @@ def phase_sanitized() -> dict:
     return rec
 
 
+# -- phase 22: the examples ------------------------------------------------------
+
+
+def repo_modules(names, folder: str) -> dict:
+    """The port's examples or operator scripts, imported from ``folder`` of
+    the checkout (appended to the path: their ``port_`` names shadow
+    nothing)."""
+    path = os.path.join(ROOT, folder)
+    if path not in sys.path:
+        sys.path.append(path)
+    return {name: importlib.import_module(name) for name in names}
+
+
+def free_udp_ports(n: int) -> list:
+    """``n`` distinct loopback UDP ports that were free a moment ago."""
+    socks = [pysocket.socket(pysocket.AF_INET, pysocket.SOCK_DGRAM) for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+@contextlib.contextmanager
+def recorded_examples(ex_game):
+    """While open, every ``Game`` of ``port_ex_game`` and every
+    ``BatchedRequestExecutor`` adds the digest launches it makes on the card
+    to ``rec["predicted"]``: a game's warmup (one digest and one per burst
+    depth), each request list it fulfils (``predicted_digest_launches``), a
+    pool's warmup (one) and each pooled tick (``pool_predicted``).  Each game
+    keeps its build seconds and the host seconds of its ``run`` calls."""
+    rec = {"predicted": 0}
+    lock = threading.Lock()
+    Game = ex_game.Game
+    game_init, handle = Game.__init__, Game.handle_requests
+    pool_warmup, pool_tick = BatchedRequestExecutor.warmup, BatchedRequestExecutor._tick
+
+    def add(n):
+        with lock:
+            rec["predicted"] += n
+
+    def init(self, num_players, render=False, rollbacks=True,
+             max_prediction=ex_game.MAX_PREDICTION, device=None):
+        t0 = time.perf_counter()
+        game_init(self, num_players, render, rollbacks, max_prediction, device)
+        self.init_s, self.run_s = time.perf_counter() - t0, 0.0
+        add(1 + (max_prediction if rollbacks else 0))
+
+    def handle_requests(self, requests):
+        t0 = time.perf_counter()
+        handle(self, requests)
+        self.run_s += time.perf_counter() - t0
+        add(predicted_digest_launches(requests))
+
+    def warmup(self, example_inputs):
+        add(1)
+        return pool_warmup(self, example_inputs)
+
+    def tick(self, desc):
+        add(pool_predicted(desc))
+        return pool_tick(self, desc)
+
+    Game.__init__, Game.handle_requests = init, handle_requests
+    BatchedRequestExecutor.warmup, BatchedRequestExecutor._tick = warmup, tick
+    try:
+        yield rec
+    finally:
+        Game.__init__, Game.handle_requests = game_init, handle
+        BatchedRequestExecutor.warmup, BatchedRequestExecutor._tick = pool_warmup, pool_tick
+
+
+def game_times(games, wall: float, frames: int) -> dict:
+    """Frames/s of a run past its games' builds, and host ms a frame in
+    ``run`` (each game's own frames)."""
+    build = max(g.init_s for g in games)
+    return {"wall_s": wall, "build_s": build, "frames_per_s": frames / (wall - build),
+            "run_ms_per_frame": [g.run_s / max(g.frames_run, 1) * 1e3 for g in games]}
+
+
+def in_threads(legs: dict, timeout: float = 300.0) -> dict:
+    """Run each ``name: (fn, args, kwargs)`` on its own thread; their results
+    by name once all ended (the first error re-raised here)."""
+    results, errors = {}, []
+
+    def run(name, fn, args, kwargs):
+        try:
+            results[name] = fn(*args, **kwargs)
+        except BaseException as e:  # re-raised on this thread below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(name, *leg)) for name, leg in legs.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout)
+    check(not any(t.is_alive() for t in threads), "examples: a thread outlived its time limit")
+    if errors:
+        raise errors[0]
+    return results
+
+
+def p2p_desyncs(events) -> int:
+    return sum(isinstance(e, DesyncDetected) for e in events)
+
+
+def drive_trio(p2p, spectator, frames: int, spectator_frames: int, device=None) -> dict:
+    """A spectator, then a host listing it and the host's peer, each on its
+    own thread and port, as tests/test_examples.py runs the three processes
+    (the host only once the spectator listens: it streams from frame 0)."""
+    host, peer, spec = free_udp_ports(3)
+    listening = threading.Event()
+    box = {}
+
+    def follow():
+        try:
+            box["spectator"] = spectator.run_spectator(
+                spec, f"127.0.0.1:{host}", 2, spectator_frames, device=device,
+                ready=listening.set)
+        finally:
+            listening.set()
+
+    follower = threading.Thread(target=follow)
+    follower.start()
+    check(listening.wait(120), "examples: the spectator never listened")
+    out = in_threads({
+        "host": (p2p.run_session, (host, ["local", f"127.0.0.1:{peer}"], [f"127.0.0.1:{spec}"],
+                                   frames, False, device), {}),
+        "peer": (p2p.run_session, (peer, [f"127.0.0.1:{host}", "local"], [], frames, False,
+                                   device), {}),
+    })
+    follower.join(120)
+    check(not follower.is_alive() and "spectator" in box, "examples: the spectator failed")
+    return {**out, "spectator": box["spectator"]}
+
+
+def start_example(script: str, *args) -> subprocess.Popen:
+    return subprocess.Popen([sys.executable, os.path.join(ROOT, "examples", script),
+                             *map(str, args)],
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def wait_for_line(proc, needle: str, timeout: float) -> bool:
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline and proc.poll() is None:
+        ready, _, _ = select.select([proc.stdout], [], [], 0.5)
+        if ready and needle in proc.stdout.readline():
+            return True
+    return False
+
+
+def example_clis() -> dict:
+    """Each example once through its command line, on the card, all at once
+    (a spectator first, then its host and peer): exit 0 and its marker lines.
+    The seconds each took, from its start."""
+    host, peer, spec = free_udp_ports(3)
+    n, sn = EX_CLI_FRAMES, EX_CLI_SPECTATOR_FRAMES
+    runs = {
+        "synctest": (["port_ex_game_synctest.py", "--frames", n],
+                     [f"synctest: {n} frames, no desyncs"]),
+        "synctest_device_session": (["port_ex_game_synctest.py", "--frames", n,
+                                     "--device-session"],
+                                    [f"device synctest: {n} frames, no desyncs"]),
+        "server": (["port_ex_game_server.py", "--frames", n], ["SERVER-EXAMPLE-OK"]),
+        "p2p_both": (["port_ex_game_p2p.py", "--both", "--frames", n],
+                     [f"[:7777] done: {n} frames", f"[:8888] done: {n} frames"]),
+        "spectator": (["port_ex_game_spectator.py", "--local-port", spec, "--host",
+                       f"127.0.0.1:{host}", "--frames", sn], ["[spectator] done"]),
+        "p2p_host": (["port_ex_game_p2p.py", "--local-port", host, "--players", "local",
+                      f"127.0.0.1:{peer}", "--spectators", f"127.0.0.1:{spec}", "--frames", n],
+                     [f"done: {n} frames"]),
+        "p2p_peer": (["port_ex_game_p2p.py", "--local-port", peer, "--players",
+                      f"127.0.0.1:{host}", "local", "--frames", n], [f"done: {n} frames"]),
+    }
+    procs, started, seconds = {}, {}, {}
+    try:
+        for name in ("synctest", "synctest_device_session", "server", "p2p_both", "spectator"):
+            started[name], procs[name] = time.perf_counter(), start_example(*runs[name][0])
+        check(wait_for_line(procs["spectator"], "[spectator] listening", EX_CLI_TIMEOUT_S),
+              "examples: the spectator's command never listened")
+        for name in ("p2p_host", "p2p_peer"):
+            started[name], procs[name] = time.perf_counter(), start_example(*runs[name][0])
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=EX_CLI_TIMEOUT_S)
+            seconds[name] = time.perf_counter() - started[name]
+            check(proc.returncode == 0, f"examples: {name} exited {proc.returncode}\n"
+                  f"{out[-2000:]}{err[-3000:]}")
+            missing = [m for m in runs[name][1] if m not in out]
+            check(not missing and "DesyncDetected" not in out,
+                  f"examples: {name} printed no {missing}\n{out[-2000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return seconds
+
+
+def phase_examples() -> int:
+    """Phase 22: the port's five examples on the card, in process through
+    their factored functions, then each through its command line.  Returns
+    the digest launches of the in-process drives."""
+    m = repo_modules(EX_MODULES, "examples")
+    synctest, server = m["port_ex_game_synctest"], m["port_ex_game_server"]
+    p2p, spectator = m["port_ex_game_p2p"], m["port_ex_game_spectator"]
+    out, runs = io.StringIO(), {}
+    state_digest.launches = lane_sums_rows.launches = 0
+    with recorded_examples(m["port_ex_game"]) as rec, contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
+        game, sess = synctest.run_synctest(2, EX_D, 0, EX_SYNCTEST_FRAMES)
+        torch.cuda.synchronize()
+        runs["synctest"] = game_times([game], time.perf_counter() - t0, EX_SYNCTEST_FRAMES)
+        t0 = time.perf_counter()
+        dgame, dsess = synctest.run_synctest(2, EX_D, 0, EX_SYNCTEST_FRAMES, device_session=True)
+        dsess.block_until_ready()
+        wall = time.perf_counter() - t0
+        runs["device_session"] = {"wall_s": wall, "build_s": dgame.init_s,
+                                  "ticks_per_s": EX_SYNCTEST_FRAMES / (wall - dgame.init_s)}
+        t0 = time.perf_counter()
+        pool, sessions, desyncs, rate = server.run_server(EX_SERVER_MATCHES, EX_SERVER_FRAMES)
+        runs["server"] = {"wall_s": time.perf_counter() - t0, "session_ticks_per_s": rate,
+                          "sessions": len(sessions), "desynced_matches": desyncs}
+        t0 = time.perf_counter()
+        both = p2p.run_both(EX_BOTH_FRAMES, ports=free_udp_ports(2))
+        runs["p2p_both"] = game_times([r[0] for r in both], time.perf_counter() - t0,
+                                      EX_BOTH_FRAMES)
+        t0 = time.perf_counter()
+        trio = drive_trio(p2p, spectator, EX_TRIO_FRAMES, EX_SPECTATOR_FRAMES)
+        runs["trio"] = game_times([r[0] for r in trio.values()], time.perf_counter() - t0,
+                                  EX_TRIO_FRAMES)
+    launches, around = state_digest.launches, lane_sums_rows.launches
+    predicted = rec["predicted"] + 2 * EX_SYNCTEST_FRAMES  # the device session: 2 a tick
+    check(launches == predicted and around == 0,
+          f"examples: {launches} digest launches, predicted {predicted}, {around} around")
+    check(desyncs == 0, f"examples: the server desynced {desyncs} matches")
+    for name, results, want in (("p2p_both", both, [EX_BOTH_FRAMES] * 2),
+                                ("trio", [trio["host"], trio["peer"]], [EX_TRIO_FRAMES] * 2)):
+        check([r[2] for r in results] == want and not sum(p2p_desyncs(r[3]) for r in results),
+              f"examples: {name} frames {[r[2] for r in results]}, events "
+              f"{[r[3] for r in results]}")
+    spec_frames = trio["spectator"][2]
+    check(spec_frames >= EX_SPECTATOR_FRAMES and not p2p_desyncs(trio["spectator"][3]),
+          f"examples: the spectator reached frame {spec_frames}: {trio['spectator'][3]}")
+    check("DesyncDetected" not in out.getvalue(), "examples: a DesyncDetected was printed")
+
+    # the deterministic examples again on the CPU: bitwise the card's
+    cpu_game, _ = synctest.run_synctest(2, EX_D, 0, EX_SYNCTEST_FRAMES, device="cpu")
+    check(trees_equal(to_numpy(game.executor.state), to_numpy(cpu_game.executor.state)),
+          "examples: the synctest's card state != the CPU's")
+    _, cpu_sess = synctest.run_synctest(2, EX_D, 0, EX_SYNCTEST_FRAMES, device_session=True,
+                                        device="cpu")
+    check(trees_equal(to_numpy(dsess.carry), to_numpy(cpu_sess.carry)),
+          "examples: the device session's card carry != the CPU's")
+    cpu_pool, _, cpu_desyncs, _ = server.run_server(EX_SERVER_MATCHES, EX_SERVER_FRAMES,
+                                                    device="cpu")
+    unequal = [b for b in range(len(sessions))
+               if not trees_equal(pool.live_state(b), cpu_pool.live_state(b))]
+    check(not unequal and cpu_desyncs == 0,
+          f"examples: the server's sessions {unequal[:8]} differ from the CPU's")
+    clis = example_clis()
+    emit({"phase": "examples", "game": "BoxGame(2)", "synctest_check_distance": EX_D,
+          "synctest_frames": EX_SYNCTEST_FRAMES, "server_matches": EX_SERVER_MATCHES,
+          "server_frames": EX_SERVER_FRAMES, "both_frames": EX_BOTH_FRAMES,
+          "trio_frames": EX_TRIO_FRAMES, "spectator_frames": spec_frames,
+          "bitwise_cpu": ["synctest live state", "device session carry",
+                          f"server live states ({len(sessions)})"],
+          "desyncs": 0, "digest_launches": launches, "digest_predicted": predicted,
+          "runs": runs, "cli_frames": EX_CLI_FRAMES, "cli_seconds": clis})
+    return launches
+
+
+# -- phase 23: the operator scripts ------------------------------------------------
+
+
+def run_script_main(mod, argv: list):
+    """``mod.main()`` as its command line ``argv`` would run it: exit code
+    and what it printed."""
+    saved, out = sys.argv, io.StringIO()
+    sys.argv = [mod.__file__, *argv]
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = mod.main()
+    finally:
+        sys.argv = saved
+    return rc, out.getvalue()
+
+
+def floor_probe_predicted(ticks_per_dispatch: int, dispatches: int, repeats: int) -> int:
+    """Digest launches of ``port_floor_probe.main``: one a step in the digest
+    and ring variants and two a flagship tick, over the warmup pass (two for
+    the flagship) and the timed passes."""
+    passes = repeats * dispatches
+    steps = (D + 1) * ticks_per_dispatch
+    return 2 * (1 + passes) * steps + 2 * ticks_per_dispatch * (2 + passes)
+
+
+def phase_scripts(fleet_docs: dict, proc_timelines: dict) -> int:
+    """Phase 23: the port's operator scripts.  Returns the floor probe's
+    digest launches."""
+    m = repo_modules(SCRIPT_MODULES, "scripts")
+    probe = m["port_floor_probe"]
+    out = io.StringIO()
+    state_digest.launches = lane_sums_rows.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        best = probe.main(**PROBE_CUT)
+    probe_s = time.perf_counter() - t0
+    launches, around = state_digest.launches, lane_sums_rows.launches
+    predicted = floor_probe_predicted(**PROBE_CUT)
+    check(launches == predicted and around == 0,
+          f"scripts: floor probe {launches} digest launches, predicted {predicted}, "
+          f"{around} around")
+    lines = out.getvalue().splitlines()
+    check([line.split()[0] for line in lines[1:5]] == list(probe.VARIANTS)
+          and lines[-1] == "desync gate green", f"scripts: floor probe printed {lines}")
+    steps = PROBE_CUT["dispatches"] * (D + 1) * PROBE_CUT["ticks_per_dispatch"]
+
+    t0 = time.perf_counter()
+    prof = subprocess.run([sys.executable, os.path.join(ROOT, "scripts", "port_profile_tick.py"),
+                           *PROFILE_ARGS], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    profile_s = time.perf_counter() - t0
+    check(prof.returncode == 0, f"scripts: port_profile_tick.py exited {prof.returncode}\n"
+          f"{prof.stdout[-2000:]}{prof.stderr[-3000:]}")
+    phases = [line.split()[0] for line in prof.stdout.splitlines()
+              if line.lstrip().startswith(("pool.", "bank."))]
+    check({"pool.tick", "bank.crossing", "pool.slot"} <= set(phases)
+          and sum(p.startswith("bank.") for p in phases) >= 9,
+          f"scripts: the bank profile names {phases}")
+
+    frame = m["port_fleet_top"].render(fleet_docs["healthz"], fleet_docs["metrics"],
+                                       timelines=fleet_docs["timelines"])
+    check(frame.startswith(f"ggrs fleet_top — tick {FLEET_TICKS}")
+          and all(f"\n{s} " in frame for s in ("s0", "s1"))
+          and f"admissions={2 * FLEET_MATCHES}" in frame
+          and "match timelines (latest events):" in frame,
+          f"scripts: fleet_top rendered\n{frame}")
+
+    timeline = m["port_match_timeline"]
+    failed_over = sorted(mid for mid, evs in proc_timelines.items()
+                         if any(e.get("ev") == "FAILOVER" for e in evs))
+    check(failed_over, "scripts: phase 19's timelines hold no FAILOVER")
+    with tempfile.TemporaryDirectory() as tmp:
+        artifact, trace = os.path.join(tmp, "proc_sigkill.json"), os.path.join(tmp, "m.json")
+        with open(artifact, "w") as f:
+            json.dump({"proc_sigkill": {"timelines": proc_timelines}}, f)
+        rc_list, listing = run_script_main(timeline, ["--artifact", artifact, "--list"])
+        rc, shown = run_script_main(timeline, ["--artifact", artifact, "-m", failed_over[0],
+                                               "--perfetto", trace])
+        with open(trace) as f:
+            problems = validate_chrome_trace(json.load(f))
+    check(rc_list == rc == 0 and not problems and len(listing.splitlines()) == len(proc_timelines)
+          and "FAILOVER" in shown and "perfetto trace written" in shown,
+          f"scripts: match_timeline exited {rc_list} / {rc}, problems {problems}\n{shown}")
+    emit({"phase": "scripts",
+          "floor_probe": {**PROBE_CUT, "check_distance": D, "rows": lines[1:5],
+                          "us_per_advance_step": {k: v / steps * 1e6 for k, v in best.items()},
+                          "seconds": probe_s, "digest_launches": launches,
+                          "digest_predicted": predicted, "gate": lines[-1]},
+          "profile_tick": {"args": list(PROFILE_ARGS), "seconds": profile_s,
+                           "phases": phases, "head": prof.stdout.splitlines()[:4]},
+          "fleet_top": {"lines": frame.count("\n") + 1, "head": frame.splitlines()[0]},
+          "match_timeline": {"matches": len(proc_timelines), "rendered": failed_over[0],
+                             "events": len(shown.splitlines()) - 2,
+                             "perfetto_problems": len(problems)}})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs the card",
@@ -3903,10 +4330,12 @@ def main() -> int:
     mesh_launches = timed("mesh", phase_mesh)
     bank_launches = timed("bank", phase_bank)
     datapath_launches = timed("datapath", phase_datapath, cases)
-    fleet_launches = timed("fleet", phase_fleet)
-    proc_launches = timed("proc_fleet", phase_proc_fleet)
+    fleet_launches, fleet_docs = timed("fleet", phase_fleet)
+    proc_launches, proc_timelines = timed("proc_fleet", phase_proc_fleet)
     timed("verify", phase_verify)
     san = timed("sanitized", phase_sanitized)
+    example_launches = timed("examples", phase_examples)
+    probe_launches = timed("scripts", phase_scripts, fleet_docs, proc_timelines)
     emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
     main_case = cases[MAIN_CASE]
     emit({"kernels": [{
@@ -3921,6 +4350,7 @@ def main() -> int:
         "launches_datapath": datapath_launches, "launches_fleet": fleet_launches,
         "launches_proc": proc_launches, "launches_sanitized_production": san["digest_launches"],
         "launches_sanitized": san["digest_launches_sanitized"],
+        "launches_examples": example_launches, "launches_floor_probe": probe_launches,
         "max_abs_err": worst,
         "ms": main_case["device_us"] / 1e3, "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_us"] / 1e3, "bound_by": "bytes", "library_ms": None,

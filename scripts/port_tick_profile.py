@@ -24,6 +24,10 @@ only: so the packing ops of an older digest count too.  (The profiler does
 not tie a kernel launched through ctypes to the range around it, hence the
 name.)  If the profiler records no device time, the device numbers print as
 "not measured".
+
+The host bank's own tick (the native crossing and its phases) is profiled by
+``scripts/port_profile_tick.py``, the twin of ``scripts/profile_tick.py``;
+the two scripts share no code.
 """
 
 from __future__ import annotations

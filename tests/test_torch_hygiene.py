@@ -26,9 +26,12 @@ from ggrs_tpu_torch.chaos import ExecutorGame
 from ggrs_tpu_torch.core.device import resolve_device
 
 ROOT = Path(__file__).resolve().parents[1]
+EXAMPLES = sorted((ROOT / "examples").glob("port_ex_game*.py"))
+SCRIPTS = [ROOT / "scripts" / f"port_{name}.py"
+           for name in ("fleet_top", "match_timeline", "floor_probe", "profile_tick")]
 PORT_FILES = sorted((ROOT / "ggrs_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "port_shard_runner.py",
-    ROOT / "scripts" / "port_verify.py"]
+    ROOT / "scripts" / "port_verify.py"] + EXAMPLES + SCRIPTS
 
 
 def test_package_imports_with_jax_blocked():
@@ -59,6 +62,9 @@ def test_package_imports_with_jax_blocked():
         "assert make_mesh(2, device='cpu').size == make_mesh2d(1, 2, device='cpu').size == 2\n"
         "assert make_distributed_mesh(device='cpu').devices.shape == (1, 1)\n"
         "import chip_smoke\n"
+        "sys.modules['bench'] = None\n"
+        "sys.path[:0] = ['examples', 'scripts']\n"
+        f"import {', '.join(p.stem for p in EXAMPLES + SCRIPTS)}\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
         "print('ok')\n"
     )
@@ -331,7 +337,31 @@ def _imported_modules(path):
 def test_no_jax_or_reference_package_import(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "ggrs_tpu"), f"{path.name} imports {mod}"
+        assert top not in ("jax", "jaxlib", "ggrs_tpu", "bench"), f"{path.name} imports {mod}"
+
+
+@pytest.mark.parametrize("argv", [
+    pytest.param(["port_ex_game_synctest.py", "--frames", "1"], id="synctest"),
+    pytest.param(["port_ex_game_synctest.py", "--frames", "1", "--device-session"],
+                 id="synctest-device-session"),
+    pytest.param(["port_ex_game_server.py", "--matches", "1", "--frames", "1"], id="server"),
+    pytest.param(["port_ex_game_p2p.py", "--local-port", "0", "--frames", "1"], id="p2p"),
+    pytest.param(["port_ex_game_p2p.py", "--both", "--frames", "1"], id="p2p-both"),
+    pytest.param(["port_ex_game_spectator.py", "--local-port", "0", "--frames", "1"],
+                 id="spectator"),
+])
+def test_examples_need_cuda_unless_told_cpu(argv, monkeypatch):
+    # without --device the examples mean the card; with no card they raise
+    # before they bind a socket or print a result
+    if torch.cuda.is_available():
+        return
+    monkeypatch.syspath_prepend(str(ROOT / "examples"))
+    monkeypatch.setattr(sys, "argv", argv)
+    import importlib
+
+    mod = importlib.import_module(argv[0][:-3])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main()
 
 
 def test_default_device_is_cuda_and_raises_without_it():
