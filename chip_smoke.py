@@ -30,10 +30,22 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
 3. flagship -- BoxGame(2) in a DeviceSyncTestSession at check_distance=8 on
    the card for 2048 ticks, 0 mismatches, bitwise equal to the same run on
    the CPU and to the NumPy oracle, exactly 2 digest launches per tick.
+   Every steady tick is one input copy and one replay of its phase's CUDA
+   graph (``ops.replay.TickGraphs``), under the sync debug mode "error"
+   from the first steady tick (captures included).  The same drive through
+   the eager ``steady_tick`` loop on the card (``eager_drive``, the graphs'
+   plain version): carries and digest counts bitwise equal.  One line
+   (``graph_vs_eager``) gives ms per tick of both paths over the same timed
+   ticks, graph captures (= R) and replays (= steady ticks), the pool's
+   bytes, and from the profiler over the last 16 ticks the host's launch
+   calls a tick inside the replay's span (one ``cudaGraphLaunch`` and at
+   most one copy), kernels, busy ms and the idle share.
 4. batched (the main path at real scale) -- ChipVM(2), B = 16,384 sessions,
-   d = 8, 64 ticks: 0 mismatches; sessions 0-7 rerun on the CPU bitwise
-   equal; exactly 2 digest launches per tick.  Kernel launch counts are
-   zeroed just before this drive and read just after it.
+   d = 8, 64 ticks, on the graphs and eager as phase 3 (18 untimed ticks:
+   the warmup and every capture; 4 profiled): 0 mismatches; sessions 0-7
+   rerun on the CPU bitwise equal; exactly 2 digest launches per tick,
+   counted per replay.  Kernel launch counts are zeroed just before the
+   graph drive and read just after it.
 5. executor (the request-list path) -- ``SessionBuilder`` -> host
    ``SyncTestSession`` (check_distance 7, max_prediction 8) ->
    ``DeviceRequestExecutor`` on the card, for BoxGame(2) over 2,000 frames
@@ -46,9 +58,11 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    rows the executor digests, with both held bitwise against the plain
    version.
 6. checkpoint -- the ChipVM B = 16,384, d = 8 batch saved after 32 ticks,
-   loaded into a fresh ``BatchedSessions`` and run 32 more ticks: its carry
-   (16,384 x 2,964 bytes) is bitwise the uninterrupted run's.  File size,
-   save and load seconds.
+   loaded into another ``BatchedSessions`` that has run 32 ticks of its own
+   (all 9 phase graphs captured), and run 32 more ticks under the sync
+   debug mode "error": the load keeps every carry buffer, the resumed run
+   replays the same 9 graphs, and its carry (16,384 x 2,964 bytes) is
+   bitwise the uninterrupted run's.  File size, save and load seconds.
 7. p2p (the P2P rollback path) -- two ``P2PSession`` peers in one process,
    built by ``SessionBuilder.add_player(...).start_p2p_session``, each with
    its own ``DeviceRequestExecutor`` on the card, linked by a seeded
@@ -72,14 +86,16 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    CPU and to the NumPy oracle, exactly 2 digest launches per tick.  Then
    B = 4,096 worlds in ``BatchedSessions`` at d = 16 for 64 ticks, started
    from a world in melee (units in contact): 0 mismatches, sessions 0-7
-   rerun on the CPU bitwise equal, 2 digest launches per tick.  ms per tick,
+   rerun on the CPU bitwise equal, 2 digest launches per tick.  Both on the
+   graphs (17 a carry) and eager as phase 3, with its line.  ms per tick,
    resim frames/s, kernels per advance and per tick, the digest's share of
    device time.
 9. float -- ``BoxGame(2, "float")`` in a ``DeviceSyncTestSession`` at d = 8
    for 1,024 ticks: 0 mismatches on the card (its resimulations repeat
-   bitwise), 2 digest launches per tick, and the max abs error per leaf
-   against the same run on the CPU within ``FLOAT_ATOL`` (positions and
-   angles measured on their torus).
+   bitwise), 2 digest launches per tick, on the graphs bitwise its eager
+   card run (phase 3's line), and the max abs error per leaf against the
+   same run on the CPU within ``FLOAT_ATOL`` (positions and angles measured
+   on their torus).
 10. journal -- two ``P2PSession`` peers play ``RtsCmd(2, 4, 4)`` (command
    streams in varrec envelopes) over phase 7's seeded network, each with an
    executor on the card reading the raw envelopes; peer A carries a
@@ -88,11 +104,13 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    as the request lists predict, the journal and final states equal to the
    CPU run and to ``RtsCmdGame``.  The closed journal is replayed by
    ``ReplaySession``: fast-forwarded on the card by ``build_scrub_program``
-   in 64-frame windows, and its first 64 frames played through
+   in 64-frame windows (one CUDA graph replay a window, under the sync
+   debug mode "error", each window bitwise the eager scrub's), and its
+   first 64 frames played through
    ``advance_frame`` and an executor; both equal the oracle at every window
    edge, and the end state equals peer A's live state at the frame the
-   journal ends.  Journal bytes and host ms per frame, scrub ms per window,
-   kernels per RtsCmd advance.
+   journal ends.  Journal bytes and host ms per frame, scrub ms per window
+   for the graphs and the eager scrub, kernels per RtsCmd advance.
 11. speculation (BASELINE config 3) -- four ``BoxGame(4)`` P2P peers over an
    in-memory network, max_prediction 8, desync detection at interval 1, for
    400 ticks (the last 20 with inputs held); peer 0's executor carries
@@ -136,12 +154,15 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
 15. mesh (BASELINE config 5's shape) -- ChipVM(2) at d = 8 over
    ``make_mesh(1)``, ``make_mesh2d(1, 1)`` and ``make_distributed_mesh()`` in
    a world-size-1 NCCL group (a ``file://`` store in a temporary directory,
-   destroyed at the end): 256 sessions for 20 ticks and 16,384 for 12, each
-   carry bitwise equal to the unsharded batch, 2 digest launches per tick
-   per shard; a corrupted session found through the group's all-reduce; a
-   checkpoint saved from the mesh resumed unsharded, equal to the
-   uninterrupted run.  ms per tick of each leg.  Phase 2 holds the digest
-   at the 256-session shard's shapes too.
+   destroyed at the end): 256 sessions and 16,384 for 24 ticks each, every
+   leg on the graphs under the sync debug mode "error" (18 untimed ticks,
+   2 profiled), the unsharded batch bitwise its eager twin, each mesh's
+   carry bitwise the unsharded batch, 2 digest launches per tick per shard;
+   a corrupted session found through the group's all-reduce; a checkpoint
+   saved from the mesh resumed unsharded (its first capture after an eager
+   rehearsal of the tick), equal to the uninterrupted run.  ms per tick,
+   captures, replays and host launches of each leg, the eager twin's ms.
+   Phase 2 holds the digest at the 256-session shard's shapes too.
 16. bank -- the host session bank: ``bench.py``'s match population
    (two-peer BoxGame matches, no desync detection) over phase 7's seeded
    faults, one network per match, on a fake 16 ms clock, fulfilled by one
@@ -347,6 +368,7 @@ from ggrs_tpu_torch import (
     SpeculativeRollback,
     _build,
     boxgame_config,
+    build_replay_programs,
     build_scrub_program,
     to_numpy,
 )
@@ -405,8 +427,10 @@ D = 8
 # the flagship is cut from 4,096 ticks to 2,048, and phase 7's drives from
 # 1,500 BoxGame and 150 ChipVM frames to 750 and 80, to keep the whole run
 # well under 7 minutes on a slow host now that phases 8-10 run too
-FLAGSHIP_TICKS, FLAGSHIP_CHUNK = 2048, 512
-BATCH, BATCH_TICKS, BATCH_UNTIMED = 16384, 64, 16
+FLAGSHIP_TICKS, FLAGSHIP_CHUNK, FLAGSHIP_PROFILED = 2048, 512, 16
+# the untimed ticks cover the warmup and one ring period of steady ticks,
+# so that every phase graph is captured before the timed ones
+BATCH, BATCH_TICKS, BATCH_UNTIMED, BATCH_PROFILED = 16384, 64, 2 * (D + 1), 4
 CHIPVM_WORDS = 66  # 256 mem bytes + 4 regs + 1 pc byte -> 64 + 1 + 1 words
 KERNEL_SHAPES = [  # (rows, width, offset)
     (1, 1, 0), (1, 100, 0), (1, 128, 0), (1, 32768, 0), (1, 32769, 0),
@@ -429,9 +453,9 @@ ECS_PLAYERS, ECS_EPP, ECS_D = 4, 32, 16  # BASELINE config 4
 ECS_WORDS = 776  # 128 x (2 pos + 2 vel + health + owner) + 4 x 2 rally, int32
 ECS_CONVERGE = (10, 5, 6, 9)  # each player's input steering its rally to the center
 ECS_TICKS, ECS_CHUNK, ECS_PROFILED = 768, 256, 8  # bench.py's tick count off the TPU
-ECS_BATCH, ECS_BATCH_TICKS, ECS_BATCH_UNTIMED, ECS_BATCH_PROFILED = 4096, 64, 24, 4
+ECS_BATCH, ECS_BATCH_TICKS, ECS_BATCH_UNTIMED, ECS_BATCH_PROFILED = 4096, 64, 2 * (ECS_D + 1), 4
 ECS_MELEE_FRAMES = 200
-FLOAT_D, FLOAT_TICKS, FLOAT_CHUNK = 8, 1024, 256
+FLOAT_D, FLOAT_TICKS, FLOAT_CHUNK, FLOAT_PROFILED = 8, 1024, 256, 16
 FLOAT_ATOL = 1e-3  # per leaf, card against CPU; cos/sin may differ in the last bit
 RTS_FRAMES, RTS_DRAIN, RTS_SETTLE, RTS_WINDOW = 600, 20, 200, 64
 SPEC_PLAYERS, SPEC_K, SPEC_W, SPEC_MAX_PREDICTION = 4, 8, 8, 8  # BASELINE config 3
@@ -447,8 +471,13 @@ PYTHON_CORES = {("InputQueue", "PyEndpointCore")}
 PLANE_PREDICTORS = (("BatchedRepeatLast", BatchedRepeatLast), ("BatchedDefault", BatchedDefault))
 PLANE_PROFILED = 4
 # BASELINE config 5 (256 SyncTest sessions over a mesh), and phase 4's
-# 16,384 sessions for a shortened run
-MESH_SIZES = ((256, 20), (BATCH, 12))
+# 16,384 sessions for a shortened run: 24 ticks, the first 18 untimed (the
+# warmup and every graph's capture), the last 2 profiled
+MESH_SIZES = ((256, 24), (BATCH, 24))
+MESH_UNTIMED, MESH_PROFILED = 2 * (D + 1), 2
+# the host's CUDA calls the profiler names that launch work on the card
+LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cuGraphLaunch", "cudaMemcpy",
+                "cuMemcpy", "cudaMemset", "cuMemset")
 MESH_CORRUPT_SESSION = 200
 # phase 16: the host bank legs (see drive_bank), phase 12's sizes
 BANK_LEGS = ("bank", "nofastpath", "fallback", "sessions")
@@ -883,26 +912,180 @@ def phase_state_digest(rng) -> dict:
     return records
 
 
+# -- the replay's CUDA graphs (phases 3, 4, 6, 8, 9, 15) ------------------------
+
+
+def graph_stats(programs) -> dict:
+    """The steady tick's graphs of every carry ``programs`` ran on the card:
+    carries, captures, replays, and the bytes of their shared pools (the
+    allocator's segments of each pool)."""
+    sets = programs.tick_graphs
+    pools = {tuple(g.pool) for g in sets if g.pool is not None}
+    pool_bytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                     if tuple(seg.get("segment_pool_id", ())) in pools)
+    return {"carries": len(sets), "captures": sum(g.captures for g in sets),
+            "replays": sum(g.replays for g in sets), "pool_bytes": pool_bytes}
+
+
+def profile_ticks(fn, ticks: int) -> dict:
+    """One call of ``fn`` (``ticks`` steady ticks) under the profiler: the
+    device kernels and busy ms a tick, and the host's CUDA calls that launch
+    work (``LAUNCH_CALLS``) inside the replay's ``ggrs:replay_steady`` spans,
+    a tick, by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cpu = torch.autograd.DeviceType.CPU
+    events = prof.events()
+    spans = [e.time_range for e in events if e.name == "ggrs:replay_steady" and e.device_type == cpu]
+    host = {}
+    for e in events:
+        start = e.time_range.start
+        if (e.device_type == cpu and e.name.startswith(LAUNCH_CALLS)
+                and any(r.start <= start <= r.end for r in spans)):
+            host[e.name] = host.get(e.name, 0) + 1
+    dev = device_summary(prof, ticks)
+    return {"kernels_per_tick": dev["kernels"], "busy_ms_per_tick": dev["busy_us"] / 1e3,
+            "digest_share_of_busy": dev["digest_share"], "digest_us_per_tick": dev["digest_us"],
+            "host_launches_per_tick": {k: v / ticks for k, v in sorted(host.items())}}
+
+
+def graph_drive(sess, chunks: list, axis: int) -> dict:
+    """``sess`` (a ``DeviceSyncTestSession`` or ``BatchedSessions`` on the
+    card) through ``chunks`` (ticks on ``axis``): the first chunk untimed, the
+    last one profiled, those between timed.  The warmup ticks run outside
+    the sync debug mode (their first advance builds the game's device
+    constants with a synchronizing copy); every steady tick, the graphs'
+    captures and replays, runs under "error".  Digest counts are zeroed
+    just before the drive and read just after."""
+    w = sess.programs.warmup_ticks
+    state_digest.launches = lane_sums_rows.launches = 0
+    sess.run_ticks(chunks[0].narrow(axis, 0, w), check=False)
+    sess.block_until_ready()
+    t0 = time.perf_counter()
+    with no_device_reads(True):
+        sess.run_ticks(chunks[0].narrow(axis, w, chunks[0].shape[axis] - w), check=False)
+    sess.block_until_ready()
+    captures_s = time.perf_counter() - t0  # every capture, and a replay after each
+    t0 = time.perf_counter()
+    with no_device_reads(True):
+        for c in chunks[1:-1]:
+            sess.run_ticks(c, check=False)
+    sess.block_until_ready()
+    elapsed = time.perf_counter() - t0
+    timed = sum(c.shape[axis] for c in chunks[1:-1])
+
+    def last():
+        with no_device_reads(True):
+            sess.run_ticks(chunks[-1], check=False)
+
+    prof = profile_ticks(last, chunks[-1].shape[axis])
+    launches, around = state_digest.launches, lane_sums_rows.launches
+    ms = elapsed / timed * 1e3
+    return {"ms_per_tick": ms, "timed_ticks": timed, "captures_s": captures_s,
+            "digest_launches": launches,
+            "around": around, "idle_share": 1 - prof["busy_ms_per_tick"] / ms, **prof}
+
+
+def eager_drive(programs, init, template, batch: int, chunks: list, axis: int):
+    """The same drive through the eager ``steady_tick`` loop on the card, the
+    graphs' plain version: a carry of ``batch`` sessions from a fresh
+    program over ``programs``' advance, ring and depth, ``run_warmup`` for
+    the warmup ticks and ``steady_tick`` from Python for every other, timed
+    over the same chunks.  Digest counts are zeroed just before.  Returns
+    (carry, ms per timed tick, digest launches)."""
+    progs = build_replay_programs(programs.advance, programs.ring.length,
+                                  programs.check_distance, programs.checksum)
+    carry = progs.init_carry(init, template, batch_size=batch)
+    ticks_run = 0
+
+    def run(c):
+        nonlocal ticks_run
+        c = c if axis == 1 else c.unsqueeze(0)
+        n = c.shape[1]
+        w = progs.split_at_warmup(ticks_run, n)
+        if w:
+            progs.run_warmup(carry, c[:, :w], ticks_run)
+        for t in range(w, n):
+            progs.steady_tick(carry, c[:, t], ticks_run + t)
+        ticks_run += n
+
+    state_digest.launches = lane_sums_rows.launches = 0
+    run(chunks[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c in chunks[1:-1]:
+        run(c)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    run(chunks[-1])
+    torch.cuda.synchronize()
+    timed = sum(c.shape[axis] for c in chunks[1:-1])
+    return carry, elapsed / timed * 1e3, state_digest.launches
+
+
+def cards_equal(a, b) -> bool:
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def graph_vs_eager(name: str, sess, init, template, chunks: list, axis: int) -> dict:
+    """``graph_drive`` of ``sess``, then ``eager_drive`` of the same ticks:
+    carries (mismatches and first_bad included) and digest launches bitwise
+    equal, 2 launches a tick on each path, one capture a phase (= R), one
+    replay a steady tick, and in the profiled ticks one graph launch and at
+    most one other launch (the input copy) a tick.  Emits the phase's
+    graphs line and returns it."""
+    programs = sess.programs
+    ticks = sum(c.shape[axis] for c in chunks)
+    steady = ticks - programs.warmup_ticks
+    g = graph_drive(sess, chunks, axis)
+    stats = graph_stats(programs)
+    batch = 1 if axis == 0 else chunks[0].shape[0]
+    carry, eager_ms, eager_launches = eager_drive(programs, init, template, batch, chunks, axis)
+    graph_carry = sess.carry if axis == 1 else tree_map(lambda l: l.unsqueeze(0), sess.carry)
+    check(g["around"] == 0, f"{name}: the digest went around state_digest")
+    check(g["digest_launches"] == eager_launches == 2 * ticks,
+          f"{name}: {g['digest_launches']} digest launches on the graphs, {eager_launches} eager, "
+          f"not 2 x {ticks} ticks")
+    check(stats["captures"] == stats["carries"] * programs.ring.length
+          and stats["replays"] == stats["carries"] * steady,
+          f"{name}: {stats} for {steady} steady ticks of ring {programs.ring.length}")
+    host = g["host_launches_per_tick"]
+    graph_launches = sum(v for k, v in host.items() if "GraphLaunch" in k)
+    check(graph_launches == 1 and sum(host.values()) <= 2,
+          f"{name}: host launches a tick {host}, not one graph launch and one copy")
+    check(cards_equal(graph_carry, carry), f"{name}: the graphs' carry != the eager carry")
+    line = {"phase": name, "graphs": True, "ring": programs.ring.length, "ticks": ticks,
+            "steady_ticks": steady, "timed_ticks": g["timed_ticks"],
+            "graph_ms_per_tick": g["ms_per_tick"], "eager_ms_per_tick": eager_ms,
+            "speedup": eager_ms / g["ms_per_tick"], **stats,
+            "untimed_steady_s": g["captures_s"],
+            "host_launches_per_tick": host, "kernels_per_tick": g["kernels_per_tick"],
+            "device_busy_ms_per_tick": g["busy_ms_per_tick"], "idle_share": g["idle_share"],
+            "digest_share_of_busy": g["digest_share_of_busy"],
+            "digest_us_per_launch_in_graph": g["digest_us_per_tick"] / 2,
+            "digest_launches": g["digest_launches"], "digest_launches_eager": eager_launches,
+            "graph_equal_to_eager": True, "sync_debug_mode": "error"}
+    emit(line)
+    return line
+
+
 def phase_flagship() -> None:
     game = BoxGame(2)
     inputs = np.random.default_rng(7).integers(0, 16, size=(FLAGSHIP_TICKS, 2)).astype(np.uint8)
-    chunks = torch.from_numpy(inputs).cuda().split(FLAGSHIP_CHUNK)
+    card = torch.from_numpy(inputs).cuda()
+    p = FLAGSHIP_TICKS - FLAGSHIP_PROFILED
+    chunks = [card[:FLAGSHIP_CHUNK], card[FLAGSHIP_CHUNK:p], card[p:]]
     sess = DeviceSyncTestSession(
         game.advance, game.init_state_np(), np.zeros(2, np.uint8), check_distance=D
     )
-    state_digest.launches = lane_sums_rows.launches = 0
-    sess.run_ticks(chunks[0], check=False)
-    sess.block_until_ready()
-    t0 = time.perf_counter()
-    for c in chunks[1:]:
-        sess.run_ticks(c, check=False)
-    sess.block_until_ready()
-    elapsed = time.perf_counter() - t0
-    launches = state_digest.launches
-    check(lane_sums_rows.launches == 0, "flagship: the digest went around state_digest")
+    g = graph_vs_eager("flagship", sess, game.init_state_np(), np.zeros(2, np.uint8), chunks, 0)
     sess.verify()  # raises MismatchedChecksum on any desync
-    check(launches == 2 * FLAGSHIP_TICKS,
-          f"flagship: {launches} digest launches, not 2 x {FLAGSHIP_TICKS} ticks")
 
     cpu = DeviceSyncTestSession(
         game.advance, game.init_state_np(), np.zeros(2, np.uint8), check_distance=D, device="cpu"
@@ -916,14 +1099,13 @@ def phase_flagship() -> None:
     for i in range(FLAGSHIP_TICKS):
         ref = game.advance_np(ref, inputs[i])
     check(trees_equal(sess.live_state(), ref), "flagship: live state != NumPy oracle")
-    timed_ticks = FLAGSHIP_TICKS - FLAGSHIP_CHUNK
     emit({"phase": "flagship", "game": "BoxGame(2)", "check_distance": D,
           "ticks": FLAGSHIP_TICKS, "mismatches": 0, "equal_to_cpu": True,
-          "equal_to_oracle": True, "timed_ticks": timed_ticks,
-          "ms_per_tick": elapsed / timed_ticks * 1e3,
-          "resim_frames_per_s": timed_ticks * D / elapsed,
-          "digest_launches": launches,
-          "digest_launches_per_tick": launches / FLAGSHIP_TICKS})
+          "equal_to_oracle": True, "equal_to_eager": True, "timed_ticks": g["timed_ticks"],
+          "ms_per_tick": g["graph_ms_per_tick"],
+          "resim_frames_per_s": D * 1e3 / g["graph_ms_per_tick"],
+          "digest_launches": g["digest_launches"],
+          "digest_launches_per_tick": g["digest_launches"] / FLAGSHIP_TICKS})
 
 
 def phase_batched() -> int:
@@ -935,19 +1117,12 @@ def phase_batched() -> int:
         check_distance=D, max_prediction=D,
     )
     torch.cuda.synchronize()
-    state_digest.launches = lane_sums_rows.launches = 0
-    batch.run_ticks(dev_inputs[:, :BATCH_UNTIMED], check=False)
-    batch.block_until_ready()
-    t0 = time.perf_counter()
-    batch.run_ticks(dev_inputs[:, BATCH_UNTIMED:], check=False)
-    batch.block_until_ready()
-    elapsed = time.perf_counter() - t0
-    launches = state_digest.launches
-    check(lane_sums_rows.launches == 0, "batched: the digest went around state_digest")
+    p = BATCH_TICKS - BATCH_PROFILED
+    chunks = [dev_inputs[:, :BATCH_UNTIMED], dev_inputs[:, BATCH_UNTIMED:p], dev_inputs[:, p:]]
+    g = graph_vs_eager("batched", batch, vm.init_state_np(), np.zeros(2, np.uint8), chunks, 1)
+    launches = g["digest_launches"]  # the main path's drive, counted from 0 just before it
     stats = batch.verify()
     check(stats["mismatches"] == 0, f"batched: {stats['mismatches']} mismatches")
-    check(launches == 2 * BATCH_TICKS,
-          f"batched: {launches} digest launches, not 2 x {BATCH_TICKS} ticks")
 
     n_cpu = 8
     cpu = BatchedSessions(
@@ -957,18 +1132,19 @@ def phase_batched() -> int:
     check(cpu.run_ticks(inputs[:n_cpu])["mismatches"] == 0, "batched: CPU rerun mismatched")
     head = to_numpy(tree_map(lambda t: t[:n_cpu], batch.carry))
     check(trees_equal(head, to_numpy(cpu.carry)), "batched: sessions 0-7 != CPU rerun")
-    timed = BATCH_TICKS - BATCH_UNTIMED
     live = batch.live_states()
     check(all(np.isfinite(l).all() and l.shape[0] == BATCH for l in tree_leaves(live)),
           "batched: live states malformed")
     emit({"phase": "batched", "game": "ChipVM(2)", "sessions": BATCH,
           "check_distance": D, "ring": D + 1, "ticks": BATCH_TICKS, "mismatches": 0,
-          "sessions_equal_to_cpu": n_cpu, "timed_ticks": timed,
-          "ms_per_tick": elapsed / timed * 1e3,
-          "resim_frames_per_s": BATCH * timed * D / elapsed,
+          "sessions_equal_to_cpu": n_cpu, "equal_to_eager": True,
+          "timed_ticks": g["timed_ticks"], "ms_per_tick": g["graph_ms_per_tick"],
+          "resim_frames_per_s": BATCH * D * 1e3 / g["graph_ms_per_tick"],
           "digest_launches": launches,
           "digest_launches_per_tick": launches / BATCH_TICKS,
           "kernels": ["digest"]})
+    del batch, dev_inputs
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1099,6 +1275,13 @@ def phase_checkpoint() -> None:
     per_session = ring * (CHIPVM_STATE_BYTES + 16 + 4 + 2 + 16) + CHIPVM_STATE_BYTES + 12
     check(carry_bytes == BATCH * per_session,
           f"checkpoint: carry holds {carry_bytes} bytes, the layout counts {BATCH * per_session}")
+    # b runs other ticks first, so that every phase graph of its carry is
+    # captured before the checkpoint loads into that carry
+    b = fresh()
+    b.run_ticks(inputs[:, CKPT_TICKS:], check=False)
+    captured = graph_stats(b.programs)
+    buffers = [(x.data_ptr(), x.stride()) for x in tree_leaves(b.carry)]
+    check(captured["captures"] == ring, f"checkpoint: {captured} before the load")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "batch.npz")
         a.block_until_ready()
@@ -1107,23 +1290,30 @@ def phase_checkpoint() -> None:
         save_s = time.perf_counter() - t0
         size = os.path.getsize(path)
         a.run_ticks(inputs[:, CKPT_TICKS:], check=False)
-        b = fresh()
         b.block_until_ready()
         t0 = time.perf_counter()
         b.load_checkpoint(path)
         b.block_until_ready()
         load_s = time.perf_counter() - t0
     check(b.current_frame == CKPT_TICKS, f"checkpoint: resumed at frame {b.current_frame}")
-    b.run_ticks(inputs[:, CKPT_TICKS:], check=False)
+    check([(x.data_ptr(), x.stride()) for x in tree_leaves(b.carry)] == buffers,
+          "checkpoint: the load moved the carry out of its captured buffers")
+    with no_device_reads(True):
+        b.run_ticks(inputs[:, CKPT_TICKS:], check=False)
+    resumed = graph_stats(b.programs)
+    check(resumed["captures"] == ring and resumed["carries"] == 1
+          and resumed["replays"] == captured["replays"] + CKPT_TICKS,
+          f"checkpoint: {resumed} after the resumed run, {captured} before it")
     stats = a.verify()
     check(stats["mismatches"] == 0, f"checkpoint: {stats['mismatches']} mismatches")
     check(b.verify() == stats, "checkpoint: resumed batch's stats differ")
-    check(all(torch.equal(x, y) for x, y in zip(tree_leaves(a.carry), tree_leaves(b.carry))),
-          "checkpoint: resumed carry != uninterrupted carry")
+    check(cards_equal(a.carry, b.carry), "checkpoint: resumed carry != uninterrupted carry")
     emit({"phase": "checkpoint", "game": "ChipVM(2)", "sessions": BATCH, "check_distance": D,
           "ticks_before": CKPT_TICKS, "ticks_after": CKPT_TICKS, "carry_bytes": carry_bytes,
           "bytes_per_session": per_session, "file_bytes": size, "save_s": save_s,
-          "load_s": load_s, "resumed_bitwise_equal": True, "mismatches": 0})
+          "load_s": load_s, "resumed_bitwise_equal": True, "mismatches": 0,
+          "loaded_into_captured_graphs": True, "graph_captures": resumed["captures"],
+          "graph_replays_after_load": resumed["replays"] - captured["replays"]})
 
 
 def p2p_input(handle: int, frame: int, frames: int) -> int:
@@ -1332,6 +1522,12 @@ def profile_device(fn, calls: int) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+    return device_summary(prof, calls)
+
+
+def device_summary(prof, calls: int) -> dict:
+    """Device kernels, busy us and the digest's share a call, from a
+    profile of ``calls`` calls."""
     ops = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA
            and (getattr(e, "self_device_time_total", 0) or 0) > 0]
@@ -1399,27 +1595,17 @@ def phase_ecs() -> int:
     blank = np.zeros(ECS_PLAYERS, np.uint8)
     # -- one session, from the initial world ----------------------------------
     inputs = ecs_inputs(ECS_TICKS, 4, converge=128)
-    chunks = [inputs[:ECS_CHUNK], inputs[ECS_CHUNK:ECS_TICKS - ECS_PROFILED],
-              inputs[ECS_TICKS - ECS_PROFILED:]]
-    card_chunks = [torch.from_numpy(c).cuda() for c in chunks]
+    card = torch.from_numpy(inputs).cuda()
+    p = ECS_TICKS - ECS_PROFILED
     sess = DeviceSyncTestSession(world.advance, world.init_state_np(), blank,
                                  check_distance=ECS_D, max_prediction=ECS_D)
-    state_digest.launches = lane_sums_rows.launches = 0
-    sess.run_ticks(card_chunks[0], check=False)
-    sess.block_until_ready()
-    t0 = time.perf_counter()
-    sess.run_ticks(card_chunks[1], check=False)
-    sess.block_until_ready()
-    elapsed = time.perf_counter() - t0
-    prof = profile_device(lambda: sess.run_ticks(card_chunks[2], check=False), 1)
-    single_launches = state_digest.launches
-    check(lane_sums_rows.launches == 0, "ecs: the digest went around state_digest")
+    g = graph_vs_eager("ecs", sess, world.init_state_np(), blank,
+                       [card[:ECS_CHUNK], card[ECS_CHUNK:p], card[p:]], 0)
+    single_launches = g["digest_launches"]
     sess.verify()
-    check(single_launches == 2 * ECS_TICKS,
-          f"ecs: {single_launches} digest launches, not 2 x {ECS_TICKS} ticks")
     cpu = DeviceSyncTestSession(world.advance, world.init_state_np(), blank,
                                 check_distance=ECS_D, max_prediction=ECS_D, device="cpu")
-    for c in chunks:
+    for c in (inputs[:ECS_CHUNK], inputs[ECS_CHUNK:p], inputs[p:]):
         cpu.run_ticks(c, check=False)
     cpu.verify()
     check(trees_equal(to_numpy(sess.carry), to_numpy(cpu.carry)), "ecs: card carry != CPU carry")
@@ -1429,19 +1615,17 @@ def phase_ecs() -> int:
     check(trees_equal(sess.live_state(), ref), "ecs: live state != NumPy oracle")
     one = {k: v.unsqueeze(0) for k, v in world.init_state().items()}
     adv1 = kernels_per_advance(world.advance, one, torch.from_numpy(inputs[:1]).cuda())
-    timed = len(chunks[1])
     emit({"phase": "ecs", "game": "EcsWorld(4, 32)", "sessions": 1, "check_distance": ECS_D,
           "ticks": ECS_TICKS, "mismatches": 0, "equal_to_cpu": True, "equal_to_oracle": True,
-          "units_hurt_at_end": int((ref["health"] < 100).sum()),
-          "timed_ticks": timed, "ms_per_tick": elapsed / timed * 1e3,
-          "resim_frames_per_s": timed * ECS_D / elapsed,
+          "equal_to_eager": True, "units_hurt_at_end": int((ref["health"] < 100).sum()),
+          "timed_ticks": g["timed_ticks"], "ms_per_tick": g["graph_ms_per_tick"],
+          "resim_frames_per_s": ECS_D * 1e3 / g["graph_ms_per_tick"],
           "digest_launches": single_launches,
           "digest_launches_per_tick": single_launches / ECS_TICKS,
           "kernels_per_advance": adv1["kernels"], "advance_busy_us": adv1["busy_us"],
-          "profiled_ticks": ECS_PROFILED, "kernels_per_tick": prof["kernels"] / ECS_PROFILED,
-          "device_busy_ms_per_tick": prof["busy_us"] / ECS_PROFILED / 1e3,
-          "idle_share": 1 - prof["busy_us"] / ECS_PROFILED / (elapsed / timed * 1e6),
-          "digest_share_of_busy": prof["digest_share"]})
+          "profiled_ticks": ECS_PROFILED, "kernels_per_tick": g["kernels_per_tick"],
+          "device_busy_ms_per_tick": g["device_busy_ms_per_tick"],
+          "idle_share": g["idle_share"], "digest_share_of_busy": g["digest_share_of_busy"]})
 
     # -- B = 4,096 worlds, from a world in melee -----------------------------
     melee = ecs_melee(world)
@@ -1453,20 +1637,11 @@ def phase_ecs() -> int:
                             check_distance=ECS_D, max_prediction=ECS_D)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    state_digest.launches = lane_sums_rows.launches = 0
-    batch.run_ticks(dev_in[:, :u], check=False)
-    batch.block_until_ready()
-    t0 = time.perf_counter()
-    batch.run_ticks(dev_in[:, u:p], check=False)
-    batch.block_until_ready()
-    elapsed = time.perf_counter() - t0
-    prof = profile_device(lambda: batch.run_ticks(dev_in[:, p:], check=False), 1)
-    batch_launches = state_digest.launches
-    check(lane_sums_rows.launches == 0, "ecs batch: the digest went around state_digest")
+    g = graph_vs_eager("ecs_batch", batch, melee, blank,
+                       [dev_in[:, :u], dev_in[:, u:p], dev_in[:, p:]], 1)
+    batch_launches = g["digest_launches"]
     stats = batch.verify()
     check(stats["mismatches"] == 0, f"ecs batch: {stats['mismatches']} mismatches")
-    check(batch_launches == 2 * ECS_BATCH_TICKS,
-          f"ecs batch: {batch_launches} digest launches, not 2 x {ECS_BATCH_TICKS} ticks")
     n_cpu = 8
     cpu = BatchedSessions(world.advance, melee, blank, batch_size=n_cpu,
                           check_distance=ECS_D, max_prediction=ECS_D, device="cpu")
@@ -1478,23 +1653,20 @@ def phase_ecs() -> int:
     carry_bytes = sum(l.numel() * l.element_size() for l in tree_leaves(batch.carry))
     many = tree_map(lambda t: t[:, 0].contiguous(), batch.carry["ring"]["states"])
     adv_b = kernels_per_advance(world.advance, many, dev_in[:, 0])
-    timed = p - u
     emit({"phase": "ecs", "game": "EcsWorld(4, 32)", "sessions": ECS_BATCH,
           "start": f"melee after {ECS_MELEE_FRAMES} converging frames",
           "check_distance": ECS_D, "ring": ECS_D + 1, "ticks": ECS_BATCH_TICKS, "mismatches": 0,
-          "sessions_equal_to_cpu": n_cpu, "state_bytes": ECS_WORDS * 4,
+          "sessions_equal_to_cpu": n_cpu, "equal_to_eager": True, "state_bytes": ECS_WORDS * 4,
           "carry_bytes": carry_bytes, "peak_device_bytes": torch.cuda.max_memory_allocated(),
           "units_hurt_at_end": int((live["health"] < 100).sum()),
-          "timed_ticks": timed, "ms_per_tick": elapsed / timed * 1e3,
-          "resim_frames_per_s": ECS_BATCH * timed * ECS_D / elapsed,
+          "timed_ticks": g["timed_ticks"], "ms_per_tick": g["graph_ms_per_tick"],
+          "resim_frames_per_s": ECS_BATCH * ECS_D * 1e3 / g["graph_ms_per_tick"],
           "digest_launches": batch_launches,
           "digest_launches_per_tick": batch_launches / ECS_BATCH_TICKS,
           "kernels_per_advance": adv_b["kernels"], "advance_busy_us": adv_b["busy_us"],
-          "profiled_ticks": ECS_BATCH_PROFILED,
-          "kernels_per_tick": prof["kernels"] / ECS_BATCH_PROFILED,
-          "device_busy_ms_per_tick": prof["busy_us"] / ECS_BATCH_PROFILED / 1e3,
-          "idle_share": 1 - prof["busy_us"] / ECS_BATCH_PROFILED / (elapsed / timed * 1e6),
-          "digest_share_of_busy": prof["digest_share"]})
+          "profiled_ticks": ECS_BATCH_PROFILED, "kernels_per_tick": g["kernels_per_tick"],
+          "device_busy_ms_per_tick": g["device_busy_ms_per_tick"],
+          "idle_share": g["idle_share"], "digest_share_of_busy": g["digest_share_of_busy"]})
     del batch, dev_in, many
     torch.cuda.empty_cache()
     return single_launches + batch_launches
@@ -1511,21 +1683,15 @@ def phase_float() -> int:
     """The float BoxGame in a SyncTest on the card; returns its launches."""
     game = BoxGame(2, "float")
     inputs = np.random.default_rng(19).integers(0, 16, size=(FLOAT_TICKS, 2)).astype(np.uint8)
-    chunks = torch.from_numpy(inputs).cuda().split(FLOAT_CHUNK)
+    card = torch.from_numpy(inputs).cuda()
+    p = FLOAT_TICKS - FLOAT_PROFILED
     sess = DeviceSyncTestSession(game.advance, game.init_state_np(), np.zeros(2, np.uint8),
                                  check_distance=FLOAT_D)
-    state_digest.launches = lane_sums_rows.launches = 0
-    sess.run_ticks(chunks[0], check=False)
-    sess.block_until_ready()
-    t0 = time.perf_counter()
-    for c in chunks[1:]:
-        sess.run_ticks(c, check=False)
-    sess.block_until_ready()
-    elapsed = time.perf_counter() - t0
-    launches = state_digest.launches
-    check(lane_sums_rows.launches == 0, "float: the digest went around state_digest")
+    # the graphs bitwise the eager card run: the same kernels on the same card
+    g = graph_vs_eager("float", sess, game.init_state_np(), np.zeros(2, np.uint8),
+                       [card[:FLOAT_CHUNK], card[FLOAT_CHUNK:p], card[p:]], 0)
+    launches = g["digest_launches"]
     sess.verify()  # its resimulations repeated every first-seen digest
-    check(launches == 2 * FLOAT_TICKS, f"float: {launches} digest launches, not 2 x {FLOAT_TICKS}")
     cpu = DeviceSyncTestSession(game.advance, game.init_state_np(), np.zeros(2, np.uint8),
                                 check_distance=FLOAT_D, device="cpu")
     for c in np.split(inputs, FLOAT_TICKS // FLOAT_CHUNK):
@@ -1537,12 +1703,12 @@ def phase_float() -> int:
     check(all(np.isfinite(card[k]).all() and card[k].dtype == np.float32 for k in card),
           "float: live state malformed")
     check(all(e <= FLOAT_ATOL for e in err.values()), f"float: card vs CPU error {err}")
-    timed = FLOAT_TICKS - FLOAT_CHUNK
     emit({"phase": "float", "game": "BoxGame(2, float)", "check_distance": FLOAT_D,
           "ticks": FLOAT_TICKS, "mismatches": 0, "atol": FLOAT_ATOL,
           "max_abs_err_vs_cpu": err, "bitwise_equal_to_cpu": all(e == 0 for e in err.values()),
-          "timed_ticks": timed, "ms_per_tick": elapsed / timed * 1e3,
-          "resim_frames_per_s": timed * FLOAT_D / elapsed,
+          "bitwise_equal_to_eager": True,
+          "timed_ticks": g["timed_ticks"], "ms_per_tick": g["graph_ms_per_tick"],
+          "resim_frames_per_s": FLOAT_D * 1e3 / g["graph_ms_per_tick"],
           "digest_launches": launches, "digest_launches_per_tick": launches / FLOAT_TICKS})
     return launches
 
@@ -1675,10 +1841,13 @@ def phase_journal() -> int:
         check(rs.closed and not rs.truncated and not rs.gaps and rs.first_frame == 0,
               "journal: the closed journal does not read back whole")
         check(rs.last_frame + 1 == run["end"], "journal: ReplaySession's last frame")
+        # every window is one replay of its length's graph, under the sync
+        # debug mode "error", held bitwise against the eager scrub's window
         scrub = build_scrub_program(rts.advance)
-        state, ref = rts.init_state_np(), rts.init_state_np()
-        windows, scrub_s = 0, 0.0
-        scrub(state, np.stack([rts.envelopes_np([(), ()])] * RTS_WINDOW))  # first call
+        state, eager, ref = rts.init_state_np(), rts.init_state_np(), rts.init_state_np()
+        windows, scrub_s, eager_s, calls = 0, 0.0, 0.0, 0
+        with no_device_reads(True):  # first call: the 64-frame graph's capture
+            scrub(state, np.stack([rts.envelopes_np([(), ()])] * RTS_WINDOW))
         while rs.frames_remaining():
             inputs, statuses = rs.stacked_inputs(min(RTS_WINDOW, rs.frames_remaining()))
             check(all(s is InputStatus.CONFIRMED for row in statuses for s in row),
@@ -1686,17 +1855,28 @@ def phase_journal() -> int:
             envs = np.stack([rts.envelopes_np(row) for row in inputs])
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            state = scrub(state, envs)
+            with no_device_reads(True):
+                state = scrub(state, envs)
             torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            eager = scrub.eager(eager, envs)
+            torch.cuda.synchronize()
+            calls += 1
             if len(inputs) == RTS_WINDOW:
-                scrub_s += time.perf_counter() - t0
+                scrub_s += t1 - t0
+                eager_s += time.perf_counter() - t1
                 windows += 1
+            check(cards_equal(state, eager),
+                  f"journal: the graphed scrub != the eager scrub at frame {rs.current_frame}")
             for row in inputs:
                 ref = rts.advance_np(ref, row)
             check(trees_equal(to_numpy(state), ref),
                   f"journal: the scrub != the oracle at frame {rs.current_frame}")
         check(trees_equal(to_numpy(state), run["live_at_end"]),
               "journal: the scrubbed end state != peer A's live state")
+        check(scrub.replays == calls + 1 and scrub.captures == len({RTS_WINDOW, len(inputs)}),
+              f"journal: {scrub.captures} scrub graphs and {scrub.replays} replays for "
+              f"{calls + 1} windows")
         rs.seek(0)
         ex = DeviceRequestExecutor(rts.advance, rts.init_state_np(),
                                    lambda pairs: rts.envelopes_np([v for v, _ in pairs]))
@@ -1723,6 +1903,9 @@ def phase_journal() -> int:
               "host_ms_per_peer_frame": run["host_ms_per_peer_frame"],
               "scrub_windows_timed": windows, "scrub_ms_per_window": scrub_s / windows * 1e3,
               "scrub_frames_per_s": windows * RTS_WINDOW / scrub_s,
+              "scrub_eager_ms_per_window": eager_s / windows * 1e3,
+              "scrub_graphs": scrub.captures, "scrub_replays": scrub.replays,
+              "scrub_equal_to_eager": True,
               "kernels_per_advance": adv["kernels"], "advance_busy_us": adv["busy_us"]})
     return launches
 
@@ -2193,32 +2376,45 @@ def phase_plane() -> int:
     return total
 
 
-def mesh_leg(mesh, sessions: int, inputs: torch.Tensor, untimed: int):
-    """ChipVM(2) at d = 8 over ``mesh`` (None: unsharded); the digest counts
-    are zeroed just before the drive.  Returns (batch, ms per tick of the
-    timed ticks, digest launches)."""
+def mesh_chunks(inputs: torch.Tensor) -> list:
+    p = inputs.shape[1] - MESH_PROFILED
+    return [inputs[:, :MESH_UNTIMED], inputs[:, MESH_UNTIMED:p], inputs[:, p:]]
+
+
+def mesh_leg(mesh, sessions: int, inputs: torch.Tensor):
+    """ChipVM(2) at d = 8 over ``mesh`` (None: unsharded) through
+    ``graph_drive``; one capture a phase and one replay a steady tick on
+    every shard's carry, one graph launch and at most one copy a tick.
+    Returns (batch, the drive's record with the graphs' stats)."""
     vm = ChipVM(2)
     batch = BatchedSessions(vm.advance, vm.init_state_np(), np.zeros(2, np.uint8),
                             batch_size=sessions, check_distance=D, max_prediction=D, mesh=mesh)
     torch.cuda.synchronize()
-    state_digest.launches = lane_sums_rows.launches = 0
-    batch.run_ticks(inputs[:, :untimed], check=False)
-    batch.block_until_ready()
-    t0 = time.perf_counter()
-    batch.run_ticks(inputs[:, untimed:], check=False)
-    batch.block_until_ready()
-    elapsed = time.perf_counter() - t0
-    check(lane_sums_rows.launches == 0, "mesh: the digest went around state_digest")
-    return batch, elapsed / (inputs.shape[1] - untimed) * 1e3, state_digest.launches
+    g = graph_drive(batch, mesh_chunks(inputs), 1)
+    stats = graph_stats(batch.programs)
+    steady = inputs.shape[1] - batch.programs.warmup_ticks
+    host = g["host_launches_per_tick"]
+    check(g["around"] == 0, "mesh: the digest went around state_digest")
+    check(stats["captures"] == stats["carries"] * (D + 1)
+          and stats["replays"] == stats["carries"] * steady,
+          f"mesh: {stats} for {steady} steady ticks")
+    check(sum(v for k, v in host.items() if "GraphLaunch" in k) == stats["carries"]
+          and sum(host.values()) <= 2 * stats["carries"],
+          f"mesh: host launches a tick {host} over {stats['carries']} carries")
+    return batch, {"ms_per_tick": g["ms_per_tick"], "untimed_steady_s": g["captures_s"],
+                   "digest_launches": g["digest_launches"],
+                   "host_launches_per_tick": host, "kernels_per_tick": g["kernels_per_tick"],
+                   "device_busy_ms_per_tick": g["busy_ms_per_tick"],
+                   "idle_share": g["idle_share"], **stats}
 
 
 def phase_mesh() -> int:
     """BASELINE config 5's shape: ChipVM(2) sessions at d = 8 over
     ``make_mesh(1)``, ``make_mesh2d(1, 1)`` and ``make_distributed_mesh()``
     under a world-size-1 NCCL group, each bitwise equal to the unsharded
-    batch; a corrupted session found through the group's all-reduce; a
-    checkpoint saved from the mesh resumed unsharded.  Returns the digest
-    launches of the mesh legs."""
+    batch, itself bitwise its eager twin; a corrupted session found through
+    the group's all-reduce; a checkpoint saved from the mesh resumed
+    unsharded.  Returns the digest launches of the mesh legs."""
     import torch.distributed as dist
 
     torch.cuda.set_device(0)
@@ -2233,24 +2429,36 @@ def phase_mesh() -> int:
             for sessions, ticks in MESH_SIZES:
                 inputs = torch.from_numpy(np.random.default_rng(29).integers(
                     0, 256, size=(sessions, ticks, 2)).astype(np.uint8)).cuda()
-                untimed = D + 1
-                flat, flat_ms, flat_launches = mesh_leg(None, sessions, inputs, untimed)
+                flat, flat_rec = mesh_leg(None, sessions, inputs)
+                vm = ChipVM(2)
+                carry, eager_ms, eager_launches = eager_drive(
+                    flat.programs, vm.init_state_np(), np.zeros(2, np.uint8), sessions,
+                    mesh_chunks(inputs), 1)
+                check(cards_equal(flat.carry, carry) and eager_launches == 2 * ticks,
+                      f"mesh at {sessions}: the unsharded graphs' carry != the eager carry")
+                del carry
                 want = to_numpy(flat.carry)
                 legs = {}
                 for name, mesh in meshes.items():
-                    batch, ms, launches = mesh_leg(mesh, sessions, inputs, untimed)
+                    batch, rec = mesh_leg(mesh, sessions, inputs)
+                    launches = rec["digest_launches"]
                     check(batch.verify()["mismatches"] == 0, f"mesh {name}: mismatches")
                     check(launches == 2 * ticks * mesh.size,
                           f"mesh {name}: {launches} digest launches, not 2 per tick per shard")
                     check(trees_equal(to_numpy(batch.carry), want),
                           f"mesh {name} at {sessions}: carry != the unsharded batch")
-                    legs[name] = {"ms_per_tick": ms, "digest_launches": launches}
+                    legs[name] = rec
                     total += launches
                 emit({"phase": "mesh", "game": "ChipVM(2)", "sessions": sessions,
-                      "check_distance": D, "ticks": ticks, "timed_ticks": ticks - untimed,
+                      "check_distance": D, "ticks": ticks,
+                      "timed_ticks": ticks - MESH_UNTIMED - MESH_PROFILED,
                       "mismatches": 0, "carry_equal_to_unsharded": True,
-                      "unsharded": {"ms_per_tick": flat_ms, "digest_launches": flat_launches},
+                      "unsharded_equal_to_eager": True, "sync_debug_mode": "error",
+                      "unsharded": flat_rec,
+                      "eager": {"ms_per_tick": eager_ms, "digest_launches": eager_launches},
                       "meshes": legs})
+                del flat, legs
+                torch.cuda.empty_cache()
             # corruption through the all-reduce, and a checkpoint that resumes
             # unsharded: BASELINE config 5's 256 sessions
             sessions, ticks = MESH_SIZES[0]

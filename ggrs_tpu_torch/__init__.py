@@ -3,7 +3,8 @@
 Beside ``ggrs_tpu`` (JAX on a TPU, the reference), this package runs on an
 NVIDIA H100:
 
-- the device rollback replay: the batched SyncTest tick, the state ring,
+- the device rollback replay: the batched SyncTest tick (on the card a
+  CUDA graph replay a steady tick), the state ring,
   ``DeviceSyncTestSession`` and ``BatchedSessions``, with durable
   checkpoints in the JAX package's file format;
 - the request-list path: ``SessionBuilder`` starts a host

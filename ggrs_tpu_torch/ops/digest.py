@@ -26,14 +26,21 @@ patterns, as the TPU kernel's output is (``ggrs_tpu/ops/pallas_checksum.py:
 Routing is by the tensor alone: a CPU tensor goes to the plain version, a
 CUDA tensor to the kernel (or the call raises).  There is no switch and no
 size threshold.
+
+``state_digest.launches`` and ``lane_sums_rows.launches`` count the
+kernel's launches on the card.  A wrapper called while a CUDA graph is
+captured launches nothing yet, and each replay of the graph launches again
+without calling it: ``GraphLaunches`` moves the capture's count onto the
+replays, so the counts keep meaning kernels the card ran.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
-from typing import List, Sequence, Tuple
+from typing import Iterator, List, Sequence, Tuple
 
 import torch
 
@@ -365,3 +372,28 @@ def lane_sums_rows(words: torch.Tensor, offset: int = 0) -> torch.Tensor:
 
 
 lane_sums_rows.launches = 0
+
+
+class GraphLaunches:
+    """The digest launches one CUDA graph holds.
+
+    ``capturing()`` wraps the graph's capture: it records how much the two
+    counters grew (the launches the graph captured) and sets them back,
+    since a capture runs no kernel.  ``replayed()`` adds that count to the
+    counters, once for each replay of the graph."""
+
+    def __init__(self) -> None:
+        self.counts = (0, 0)
+
+    @contextlib.contextmanager
+    def capturing(self) -> Iterator[None]:
+        before = (state_digest.launches, lane_sums_rows.launches)
+        try:
+            yield
+        finally:
+            self.counts = (state_digest.launches - before[0], lane_sums_rows.launches - before[1])
+            state_digest.launches, lane_sums_rows.launches = before
+
+    def replayed(self) -> None:
+        state_digest.launches += self.counts[0]
+        lane_sums_rows.launches += self.counts[1]

@@ -9,23 +9,36 @@ state, inputs and digests resident there.  A first-seen digest history is
 compared with every resimulated frame's digest, so desyncs are counted on
 device and reach the host only when asked.
 
-Where the JAX package jits a ``lax.scan`` over ticks and donates the carry,
-the port runs the ticks eagerly and updates the carry's preallocated tensors
-IN PLACE (nothing is returned that the caller did not pass in).  The carry is
-batched over sessions; its layout is the JAX package's with a leading
-session axis, as ``BatchedSessions`` stacks it::
+Where the JAX package donates the carry, the port updates the carry's
+preallocated tensors IN PLACE (nothing is returned that the caller did not
+pass in).  The carry is batched over sessions; its layout is the JAX
+package's with a leading session axis, as ``BatchedSessions`` stacks it::
 
     ring       -- DeviceStateRing buffers (states / checksums / frames)
     inputs     -- input ring (B, R, ...), same slotting as the state ring
     hist       -- (B, R, 4) int32 first-seen digest per frame slot
     live       -- the current (unsaved) game state, leaves (B, ...)
-    frame      -- (B,) int32, the sessions' current frame (bookkeeping)
+    frame      -- (B,) int32, the sessions' current frame
     mismatches -- (B,) int32 count of resimulated frames whose digest diverged
     first_bad  -- (B,) int32 earliest mismatched frame (INT32_MAX if none)
 
-Digests are int32 tensors holding u32 bit patterns.  Frames are host ints
-(sessions tick in lockstep), so every ring access is a shared-index slice.
-``run_*`` never reads a value back to the host and never synchronises.
+Digests are int32 tensors holding u32 bit patterns.  Slots are host ints
+(sessions tick in lockstep), so every ring access is a shared-index slice;
+the frame NUMBERS a tick writes (the ring's ``frames``, ``first_bad``) come
+from the carry's ``frame``, which each tick advances by one, as the JAX
+scan takes its frames as traced inputs.  ``run_*`` never reads a value back
+to the host and never synchronises.
+
+The JAX package jits its scan of ticks into one XLA program.  The port's
+counterpart on the card is a CUDA graph: ``run_steady`` on a CUDA carry
+runs each steady tick as one input copy and one replay of the graph of its
+phase ``frame % R`` (``TickGraphs``).  A tick's slots depend on its frame
+only through the phase, and its frame numbers come from the device, so
+the graph captured at frame F is the tick at every frame F + kR.  The
+eager ``steady_tick`` is the graph's plain version and what a CPU carry
+runs.  The warmup ticks stay eager: d + 1 of them per session, each in
+another phase.  ``build_scrub_program`` graphs a window of advances the
+same way.
 
 The d resimulated states are digested together: the stacked ``(B, d, ...)``
 window that ``save_many`` writes is digested as B*d rows in ONE
@@ -36,8 +49,8 @@ bitwise the same.  A tick, warmup or steady, makes two digest calls.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, Callable
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Set, Tuple
 
 import torch
 
@@ -46,6 +59,7 @@ from ..core.device import DeviceLike, resolve_device
 from ..utils.tracing import trace_span
 from ..utils.tree import tree_leaves, tree_map
 from .checksum import CHECKSUM_LANES, checksum_device
+from .digest import GraphLaunches
 from .ring import DeviceStateRing
 
 I32_MAX = 2**31 - 1
@@ -62,6 +76,12 @@ def _tick_slice(tick_inputs: Any, t: int) -> Any:
     return tree_map(lambda a: a[:, t], tick_inputs)
 
 
+def _carry_key(carry: Any) -> tuple:
+    """What a carry's graphs are bound to: every leaf's address, shape,
+    strides and dtype."""
+    return tuple((x.data_ptr(), tuple(x.shape), x.stride(), x.dtype) for x in tree_leaves(carry))
+
+
 @dataclass(frozen=True)
 class ReplayPrograms:
     """Tick programs over a fixed (advance, ring, check_distance).
@@ -74,6 +94,13 @@ class ReplayPrograms:
     check_distance: int
     advance: AdvanceFn
     checksum: ChecksumFn
+    # the steady tick's graphs of each CUDA carry, by _carry_key
+    _graphs: Dict[tuple, "TickGraphs"] = field(
+        default_factory=dict, init=False, repr=False, compare=False
+    )
+    # devices on which this program has run a tick eagerly (run_warmup, or
+    # TickGraphs' rehearsal before a first capture)
+    _eager_on: Set[torch.device] = field(default_factory=set, init=False, repr=False, compare=False)
 
     @property
     def warmup_ticks(self) -> int:
@@ -85,6 +112,12 @@ class ReplayPrograms:
         """How many of the next ``n`` ticks must go through the warmup program
         given ``ticks_run`` ticks already executed."""
         return min(max(0, self.warmup_ticks - ticks_run), n)
+
+    @property
+    def tick_graphs(self) -> List["TickGraphs"]:
+        """The steady tick's graphs, one ``TickGraphs`` per CUDA carry that
+        ``run_steady`` has run."""
+        return list(self._graphs.values())
 
     # -- carry ---------------------------------------------------------
 
@@ -131,7 +164,7 @@ class ReplayPrograms:
         ring, hist = self.ring, carry["hist"]
         live = carry["live"]
         cs = self.checksum(live)
-        ring.save(carry["ring"], frame, live, cs)
+        ring.save(carry["ring"], frame, live, cs, stamp=carry["frame"])
         hist[:, ring.slot(frame)] = cs
         self._store_input(carry, frame, inp)
         new_live = self.advance(live, inp)
@@ -139,11 +172,25 @@ class ReplayPrograms:
         # resimulations of that frame are compared against it
         hist[:, ring.slot(frame + 1)] = self.checksum(new_live)
         _copy_into(live, new_live)
+        carry["frame"].add_(1)
 
     def steady_tick(self, carry: Any, inp: Any, frame: int) -> None:
-        """[Load, (Save, Advance) x d resim, Save, Advance] -- 2d+2 requests."""
-        ring, d = self.ring, self.check_distance
+        """[Load, (Save, Advance) x d resim, Save, Advance] -- 2d+2 requests:
+        the tick's input into the input ring, then ``steady_body``.  On a
+        CUDA carry ``run_steady`` replays the body's graph instead; this is
+        its plain version."""
         self._store_input(carry, frame, inp)
+        self.steady_body(carry, frame)
+
+    def steady_body(self, carry: Any, frame: int) -> None:
+        """The steady tick after its input is stored, reading that input
+        from the input ring.  ``frame`` picks the ring slots, and only
+        through ``frame % R``; every frame number written comes from
+        ``carry["frame"]`` (``frame`` on entry, one more on exit).  So the
+        body captured as a CUDA graph at one frame is the body at every
+        frame of its phase."""
+        ring, d = self.ring, self.check_distance
+        inp = tree_map(lambda buf: buf[:, ring.slot(frame)], carry["inputs"])
         st = ring.load(carry["ring"], frame - d)
         # the window's d inputs, gathered once (at most two slices per leaf)
         window_inputs = tree_map(
@@ -159,18 +206,21 @@ class ReplayPrograms:
         window = tree_map(lambda *leaves: torch.stack(leaves, dim=1), *states)
         rows = self.checksum(tree_map(lambda leaf: leaf.flatten(0, 1), window))
         resim_cs = rows.reshape(-1, d, CHECKSUM_LANES)  # (B, d, 4)
-        ring.save_many(carry["ring"], first, window, resim_cs)
+        frames = carry["frame"].unsqueeze(1) + torch.arange(
+            1 - d, 1, dtype=torch.int32, device=resim_cs.device
+        )  # (B, d): F-d+1 .. F
+        ring.save_many(carry["ring"], first, window, resim_cs, stamps=frames)
         # every window frame has a first-seen digest (frame F's was recorded
         # by the previous tick's live advance), so the whole window is checked
         seen = ring.read_window(carry["hist"], first, d)
         bad = (resim_cs != seen).any(dim=2)  # (B, d)
         carry["mismatches"].add_(bad.sum(dim=1, dtype=torch.int32))
-        frames = torch.arange(first, frame + 1, dtype=torch.int32, device=bad.device)
         worst = torch.where(bad, frames, I32_MAX).amin(dim=1)
         torch.minimum(carry["first_bad"], worst, out=carry["first_bad"])
         new_live = self.advance(st, inp)  # st is the resimulated state at F
         carry["hist"][:, ring.slot(frame + 1)] = self.checksum(new_live)
         _copy_into(carry["live"], new_live)
+        carry["frame"].add_(1)
 
     def _run(self, tick: Callable, carry: Any, tick_inputs: Any, start_frame: int) -> Any:
         """``tick`` over the ticks axis (axis 1) of ``tick_inputs``, leaves
@@ -178,43 +228,190 @@ class ReplayPrograms:
         n = tree_leaves(tick_inputs)[0].shape[1]
         for t in range(n):
             tick(carry, _tick_slice(tick_inputs, t), start_frame + t)
-        carry["frame"].add_(n)
         return carry
 
     def run_warmup(self, carry: Any, tick_inputs: Any, start_frame: int) -> Any:
         with trace_span("ggrs:replay_warmup"):
+            self._eager_on.add(carry["frame"].device)
             return self._run(self.warmup_tick, carry, tick_inputs, start_frame)
 
     def run_steady(self, carry: Any, tick_inputs: Any, start_frame: int) -> Any:
+        """The steady ticks: eager ``steady_tick``s on a CPU carry; on a
+        CUDA carry, per tick one input copy and one replay of the phase's
+        graph (``TickGraphs``)."""
         with trace_span("ggrs:replay_steady"):
-            return self._run(self.steady_tick, carry, tick_inputs, start_frame)
+            if carry["frame"].device.type != "cuda":
+                return self._run(self.steady_tick, carry, tick_inputs, start_frame)
+            key = _carry_key(carry)
+            graphs = self._graphs.get(key)
+            if graphs is None:
+                graphs = self._graphs[key] = TickGraphs(self, carry)
+            return self._run(graphs.tick, carry, tick_inputs, start_frame)
 
 
-def build_scrub_program(advance: AdvanceFn, device: DeviceLike = None) -> Callable[[Any, Any], Any]:
+class TickGraphs:
+    """The steady tick of one CUDA carry as CUDA graphs, one per phase
+    ``frame % R``, each captured the first time its phase comes up.
+
+    ``tick`` stores the tick's input in the input ring's slot of its phase
+    (the one copy before the replay), then replays the phase's graph of
+    ``steady_body``, which reads the input there.  A graph writes only into
+    the carry, and nothing its capture allocates outlives the capture, so
+    the R graphs share one private memory pool (the first capture's): they
+    replay one at a time, on the caller's stream, in any order.  They stay
+    valid while the carry's tensors do; ``load_checkpoint`` copies into
+    them in place.  Each replay adds its graph's digest launches to the
+    counters (``digest.GraphLaunches``).
+
+    A capture runs nothing, so whatever a tick does once lazily (the games'
+    device constants, the digest library's first launch) must have run
+    before it: the program's warmup ticks did, or, where the carry came
+    from a checkpoint in a program that ran none on this device, an eager
+    ``steady_body`` on a scratch copy of the carry does before the first
+    capture (its two digest launches ran and count)."""
+
+    def __init__(self, programs: ReplayPrograms, carry: Any) -> None:
+        self.programs = programs
+        self.device = carry["frame"].device
+        self.stream = torch.cuda.Stream(self.device)
+        self.graphs: Dict[int, Tuple[torch.cuda.CUDAGraph, GraphLaunches]] = {}
+        self.pool = None
+        self.replays = 0
+
+    @property
+    def captures(self) -> int:
+        return len(self.graphs)
+
+    def tick(self, carry: Any, inp: Any, frame: int) -> None:
+        programs = self.programs
+        programs._store_input(carry, frame, inp)
+        phase = programs.ring.slot(frame)
+        if phase not in self.graphs:
+            self.graphs[phase] = self._capture(carry, frame)
+        graph, launches = self.graphs[phase]
+        graph.replay()
+        launches.replayed()
+        self.replays += 1
+
+    def _capture(self, carry: Any, frame: int) -> Tuple[torch.cuda.CUDAGraph, GraphLaunches]:
+        programs = self.programs
+        current = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(current)
+        if self.device not in programs._eager_on:
+            with torch.cuda.stream(self.stream):
+                programs.steady_body(tree_map(torch.clone, carry), frame)
+            programs._eager_on.add(self.device)
+        graph = torch.cuda.CUDAGraph()
+        launches = GraphLaunches()
+        # "thread_local": only this thread is barred from the calls that are
+        # unsafe during a capture; threads launching on other streams are not
+        with launches.capturing(), torch.cuda.graph(
+            graph, pool=self.pool, stream=self.stream, capture_error_mode="thread_local"
+        ):
+            programs.steady_body(carry, frame)
+        current.wait_stream(self.stream)
+        if self.pool is None:
+            self.pool = graph.pool()
+        return graph, launches
+
+
+def _advance_window(advance: AdvanceFn, st: Any, inputs: Any) -> Any:
+    """``advance`` over the leading axis of ``inputs``, each frame on the
+    previous frame's output; ``st`` leaves are ``(1, ...)``."""
+    for k in range(tree_leaves(inputs)[0].shape[0]):
+        st = advance(st, tree_map(lambda leaf: leaf[k:k + 1], inputs))
+    return st
+
+
+def _layout(tree: Any) -> str:
+    return repr(tree_map(lambda leaf: (tuple(leaf.shape), leaf.dtype), tree))
+
+
+class ScrubProgram:
     """The confirmed-only playback program: advance N frames with state and
-    inputs resident on ``device`` -- the fast-forward mode of journal replay
+    inputs resident on the device -- the fast-forward mode of journal replay
     (``sessions.replay.ReplaySession``).
 
     Replaying a journal never rolls back (every input is confirmed), so the
     tick above collapses to a bare run of advances: no ring, no digest
-    history, no resimulation.  The returned callable is
-    ``scrub(state, stacked_inputs) -> state`` for one unbatched state, with
-    the window's per-frame inputs stacked on the leading axis.  The window is
-    uploaded once; the batch-native ``advance`` runs eagerly on ``(1, ...)``
-    views, each frame on the previous frame's output, and nothing is read
+    history, no resimulation.  ``scrub(state, stacked_inputs) -> state``
+    takes one unbatched state and the window's per-frame inputs stacked on
+    the leading axis.  The window is uploaded once and nothing is read
     back.  The argument state is never written (the JAX package donates it
-    on a TPU only)."""
-    dev = resolve_device(device)
+    on a TPU only).
 
-    def scrub(state: Any, stacked_inputs: Any) -> Any:
-        inputs = from_numpy(stacked_inputs, dev)
-        st = tree_map(lambda leaf: leaf.unsqueeze(0), from_numpy(state, dev))
+    On a CUDA device a window is one CUDA graph replay: a graph per window
+    length (and state layout), captured at its first call over static state
+    and input buffers, which each call fills with one copy per leaf.  The
+    caller gets a copy of the result, never the graph's own output, which
+    the next replay overwrites.  The graphs of one program share a private
+    memory pool.  ``eager`` is the plain version, each advance issued from
+    Python on ``(1, ...)`` views, and what the CPU runs.  ``captures`` and
+    ``replays`` count the graphs and their replays."""
+
+    def __init__(self, advance: AdvanceFn, device: torch.device) -> None:
+        self.advance = advance
+        self.device = device
+        self._graphs: Dict[Tuple[str, str], Tuple[torch.cuda.CUDAGraph, Any, Any, Any]] = {}
+        self._pool = None
+        self._stream = None
+        self.replays = 0
+
+    @property
+    def captures(self) -> int:
+        return len(self._graphs)
+
+    def _batched(self, state: Any, stacked_inputs: Any) -> Tuple[Any, Any]:
+        st = tree_map(lambda leaf: leaf.unsqueeze(0), from_numpy(state, self.device))
+        return st, from_numpy(stacked_inputs, self.device)
+
+    def eager(self, state: Any, stacked_inputs: Any) -> Any:
+        st, inputs = self._batched(state, stacked_inputs)
         with trace_span("ggrs:scrub"):
-            for k in range(tree_leaves(inputs)[0].shape[0]):
-                st = advance(st, tree_map(lambda leaf: leaf[k:k + 1], inputs))
+            st = _advance_window(self.advance, st, inputs)
         return tree_map(lambda leaf: leaf[0], st)
 
-    return scrub
+    def __call__(self, state: Any, stacked_inputs: Any) -> Any:
+        if self.device.type != "cuda":
+            return self.eager(state, stacked_inputs)
+        st, inputs = self._batched(state, stacked_inputs)
+        with trace_span("ggrs:scrub"):
+            key = (_layout(st), _layout(inputs))
+            if key not in self._graphs:
+                self._graphs[key] = self._capture(st, inputs)
+            graph, static_st, static_inputs, out = self._graphs[key]
+            _copy_into(static_st, st)
+            _copy_into(static_inputs, inputs)
+            graph.replay()
+            self.replays += 1
+            return tree_map(lambda leaf: leaf[0].clone(), out)
+
+    def _capture(self, st: Any, inputs: Any) -> Tuple[torch.cuda.CUDAGraph, Any, Any, Any]:
+        current = torch.cuda.current_stream(self.device)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        static_st = tree_map(torch.empty_like, st)
+        static_inputs = tree_map(torch.empty_like, inputs)
+        self._stream.wait_stream(current)
+        with torch.cuda.stream(self._stream):
+            # one eager advance first: the game's lazy device constants are
+            # made outside the capture
+            self.advance(st, tree_map(lambda leaf: leaf[:1], inputs))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(
+            graph, pool=self._pool, stream=self._stream, capture_error_mode="thread_local"
+        ):
+            out = _advance_window(self.advance, static_st, static_inputs)
+        current.wait_stream(self._stream)
+        if self._pool is None:
+            self._pool = graph.pool()
+        return graph, static_st, static_inputs, out
+
+
+def build_scrub_program(advance: AdvanceFn, device: DeviceLike = None) -> ScrubProgram:
+    """The scrub program (``ScrubProgram``) of a batch-native ``advance``
+    on ``device`` (the card by default)."""
+    return ScrubProgram(advance, resolve_device(device))
 
 
 def build_replay_programs(

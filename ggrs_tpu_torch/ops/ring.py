@@ -8,10 +8,13 @@ preallocated tensors updated IN PLACE::
      "frames": (B, R) int32}
 
 with the session axis first, as ``BatchedSessions`` stacks the JAX carry.
-Frames and slots are host ints (``frame % R``): sessions that tick in
-lockstep share one slot, so a ring access is a shared-index slice.  A
-consecutive window of frames wraps the ring at most once, so window reads
-and writes are at most two slices each.
+Slots are host ints (``frame % R``): sessions that tick in lockstep share
+one slot, so a ring access is a shared-index slice.  A consecutive window
+of frames wraps the ring at most once, so window reads and writes are at
+most two slices each.  The frame numbers a save writes into ``frames`` may
+come from a device tensor instead (``stamp``), as the JAX scan takes its
+frame as a traced input: a CUDA graph captured at one frame then writes
+the right numbers at every frame of its slot.
 
 Sessions that do not tick in lockstep (the pool of ``parallel.session_pool``,
 where each session saves and loads its own frame) use ``save_rows`` and
@@ -89,13 +92,17 @@ class DeviceStateRing:
 
     # -- save / load (in place) ------------------------------------------
 
-    def save(self, ring: Any, frame: int, state: Any, checksum: torch.Tensor) -> Any:
+    def save(
+        self, ring: Any, frame: int, state: Any, checksum: torch.Tensor,
+        stamp: Optional[torch.Tensor] = None,
+    ) -> Any:
         """Write ``state`` (leaves ``(B, ...)``) and its ``(B, 4)`` checksum
-        into the slot for ``frame``."""
+        into the slot for ``frame``, and the frame number: ``stamp`` (a
+        ``(B,)`` int32 tensor) where given, else ``frame``."""
         i = self.slot(frame)
         tree_map(lambda buf, leaf: buf[:, i].copy_(leaf), ring["states"], state)
         ring["checksums"][:, i] = checksum
-        ring["frames"][:, i] = frame
+        ring["frames"][:, i] = frame if stamp is None else stamp
         return ring
 
     def save_where(
@@ -116,12 +123,14 @@ class DeviceStateRing:
         return ring
 
     def save_many(
-        self, ring: Any, first_frame: int, states: Any, checksums: torch.Tensor
+        self, ring: Any, first_frame: int, states: Any, checksums: torch.Tensor,
+        stamps: Optional[torch.Tensor] = None,
     ) -> Any:
         """Write ``n`` consecutive saves (frames ``first_frame ..
         first_frame + n - 1``, n <= R so the slots are distinct) in at most
         two slice copies per buffer.  ``states`` leaves are ``(B, n, ...)``,
-        ``checksums`` is ``(B, n, 4)``."""
+        ``checksums`` is ``(B, n, 4)``; the frame numbers written are
+        ``stamps`` (``(B, n)`` int32) where given, else those frames."""
         n = checksums.shape[1]
         tree_map(
             lambda buf, leaf: self.write_window(buf, first_frame, leaf),
@@ -129,10 +138,11 @@ class DeviceStateRing:
             states,
         )
         self.write_window(ring["checksums"], first_frame, checksums)
-        frames = torch.arange(
-            first_frame, first_frame + n, dtype=torch.int32, device=checksums.device
-        ).expand(checksums.shape[0], n)
-        self.write_window(ring["frames"], first_frame, frames)
+        if stamps is None:
+            stamps = torch.arange(
+                first_frame, first_frame + n, dtype=torch.int32, device=checksums.device
+            ).expand(checksums.shape[0], n)
+        self.write_window(ring["frames"], first_frame, stamps)
         return ring
 
     def load(self, ring: Any, frame: int) -> Any:

@@ -278,6 +278,10 @@ class BatchedSessions:
             self._shards.append((k * self._rows, dev, carry))
 
     @property
+    def programs(self) -> ReplayPrograms:
+        return self._programs
+
+    @property
     def shard_carries(self) -> List[Any]:
         """This process's shards' carries, ``(B / n, R, ...)`` leaves each,
         in shard order (the device buffers themselves)."""

@@ -14,7 +14,8 @@ Two playback speeds:
   ``DeviceRequestExecutor`` fulfils it on the card);
 - **fast-forward** (``stacked_inputs`` + ``ops.replay.build_scrub_program``):
   the whole window's inputs go to the card in one upload and the advances
-  run back to back with the state resident there.
+  run back to back with the state resident there, as one CUDA graph
+  replay a window.
 
 ``seek`` lands on the newest embedded checkpoint at or below the target
 frame (``utils.checkpoint`` npz blobs, validated against the caller's state

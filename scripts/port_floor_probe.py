@@ -9,9 +9,11 @@ one card, with ``torch.cuda.synchronize()`` as the completion fence:
   3. +ring     -- bare plus digest plus the state-ring save per step
   4. flagship  -- the full steady replay (the DeviceSyncTestSession path)
 
-The JAX variants are jitted ``lax.scan`` loops; here the same bodies run as
-eager loops, one kernel launch after another, so the per-step deltas show
-what each extra costs in launches.  All variants run the same number of
+The JAX variants are jitted ``lax.scan`` loops; here the first three bodies
+run as eager loops, one kernel launch after another, so the per-step deltas
+show what each extra costs in launches.  The flagship runs as the session
+does: on the card each steady tick is one replay of its phase's CUDA graph
+(``ops.replay.TickGraphs``).  All variants run the same number of
 ``advance`` steps per dispatch and the same number of dispatches.
 
     python3 scripts/port_floor_probe.py              # the card, the JAX sizes

@@ -5,9 +5,9 @@
     python3 scripts/port_tick_profile.py --executor [--frames 32]
 
 Runs the port's batched replay (ChipVM(2), B sessions, check_distance 8) and
-the flagship (BoxGame(2), one session, check_distance 8) past warmup, then
-times a few steady ticks of each, then traces as many more with
-``torch.profiler``.  With ``--executor`` it does the same for frames of the
+the flagship (BoxGame(2), one session, check_distance 8) past warmup and the
+captures of their steady ticks' CUDA graphs, then times a few steady ticks
+(graph replays) of each, then traces as many more with ``torch.profiler``.  With ``--executor`` it does the same for frames of the
 request-list path instead: ``SessionBuilder`` -> ``SyncTestSession`` ->
 ``DeviceRequestExecutor`` at check_distance 7 (max_prediction 8), for
 BoxGame(2) and ChipVM(2); a frame is ``advance_frame``, ``run`` and reading
@@ -20,7 +20,8 @@ the kernels that take the most device time; for the executor also the host
 ms of ``advance_frame`` and of ``run``.  The whole digest is the digest
 kernel (found by name) plus every other kernel launched inside the digest
 calls, which are wrapped in a ``ggrs:digest`` range for the traced window
-only: so the packing ops of an older digest count too.  (The profiler does
+only (executor frames; a replayed tick's digest runs inside its graph and is
+the kernel alone): so the packing ops of an older digest count too.  (The profiler does
 not tie a kernel launched through ctypes to the range around it, hence the
 name.)  If the profiler records no device time, the device numbers print as
 "not measured".
@@ -34,7 +35,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import dataclasses
 import json
 import os
 import subprocess
@@ -90,17 +90,6 @@ def _in_digest_range(fn):
             return fn(state)
 
     return traced
-
-
-@contextlib.contextmanager
-def replay_digest_range(owner):
-    """Wrap ``owner._programs.checksum`` in a ``ggrs:digest`` range."""
-    untraced = owner._programs
-    owner._programs = dataclasses.replace(untraced, checksum=_in_digest_range(untraced.checksum))
-    try:
-        yield
-    finally:
-        owner._programs = untraced
 
 
 @contextlib.contextmanager
@@ -251,14 +240,18 @@ def main() -> int:
     vm = ChipVM(2)
     batch = BatchedSessions(vm.advance, vm.init_state_np(), np.zeros(2, np.uint8),
                             batch_size=args.batch, check_distance=D, max_prediction=D)
-    n = D + 4 + 2 * args.ticks
+    # past the warmup and a ring period of steady ticks: every phase's CUDA
+    # graph is captured before the windows, which replay them (the digest
+    # runs inside the graphs, so it is found by name only)
+    warm = 2 * (D + 1)
+    n = warm + 1 + 2 * args.ticks
     inputs = torch.from_numpy(
         rng.integers(0, 256, size=(args.batch, n, 2)).astype(np.uint8)).cuda()
-    batch.run_ticks(inputs[:, : D + 3], check=False)
-    it = iter(range(D + 3, n))
+    batch.run_ticks(inputs[:, :warm], check=False)
+    it = iter(range(warm, n))
     profile_ticks(f"batched ChipVM(2) B={args.batch} d={D}",
                   lambda: batch.run_ticks(inputs[:, next(it)].unsqueeze(1), check=False),
-                  sync, args.ticks, lambda: replay_digest_range(batch))
+                  sync, args.ticks, contextlib.nullcontext)
     if batch.verify()["mismatches"]:
         print("port_tick_profile: batched run mismatched", file=sys.stderr)
         return 1
@@ -268,12 +261,12 @@ def main() -> int:
                                  check_distance=D)
     ticks = 32 * args.ticks
     box_in = torch.from_numpy(
-        rng.integers(0, 16, size=(D + 4 + 2 * ticks, 2)).astype(np.uint8)).cuda()
-    sess.run_ticks(box_in[: D + 3], check=False)
-    it2 = iter(range(D + 3, D + 4 + 2 * ticks))
+        rng.integers(0, 16, size=(warm + 1 + 2 * ticks, 2)).astype(np.uint8)).cuda()
+    sess.run_ticks(box_in[:warm], check=False)
+    it2 = iter(range(warm, warm + 1 + 2 * ticks))
     profile_ticks(f"flagship BoxGame(2) d={D}",
                   lambda: sess.run_ticks(box_in[next(it2)].unsqueeze(0), check=False),
-                  sync, ticks, lambda: replay_digest_range(sess))
+                  sync, ticks, contextlib.nullcontext)
     sess.verify()
     return 0
 
