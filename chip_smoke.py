@@ -54,7 +54,15 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    there fails the run.  Every saved checksum and the final live state
    equal the same run on the CPU (BoxGame also the NumPy oracle), and the
    digest launches exactly once per frame (counts zeroed just before each
-   drive).  Host ms per frame, and the digest's device us at the 1 and 7
+   drive).  The executor's single advance and burst run as CUDA graph
+   replays (``ops.executor.ExecutorGraphs``): 9 captures a game in its
+   warmup (the advance and depths 2-9), one replay a frame, and in the last
+   8 frames (profiled) one ``cudaGraphLaunch`` and at most 2L + 2 other
+   launch calls inside ``run`` (L leaves).  The same drive through the
+   plain versions on the card (``EagerPrograms``): saved checksums, live
+   state and digest launches bitwise equal.  Host ms per frame of both,
+   kernels, busy ms and idle share a frame, the graphs' pool bytes, the
+   digest's us inside the graph, and the digest's device us at the 1 and 7
    rows the executor digests, with both held bitwise against the plain
    version.
 6. checkpoint -- the ChipVM B = 16,384, d = 8 batch saved after 32 ticks,
@@ -134,6 +142,14 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    Kernels, busy and idle share per tick (the fulfilment of the last 8
    ticks, each alone under the profiler) and host ms per tick for both;
    digest launches per tick, observed and predicted from the descriptors.
+   The pool's masked tick is one CUDA graph replay a tick
+   (``parallel.session_pool._ShardGraphs``, keyed by the tick's host
+   decisions); the same drive through the eager tick on the card
+   (``EagerPool``) is bitwise equal (states, ring and sent checksums,
+   frames, digest launches), and each profiled tick that captured nothing
+   makes one ``cudaGraphLaunch`` and at most two other launch calls inside
+   ``run``.  One line (``graphs``) with both paths' host ms, captures,
+   replays, pool bytes, busy, idle and the digest's us inside the graph.
    Then 256 matches (512 sessions) for 24 ticks, the first 32 matches held
    against a CPU rerun of them.
    Phases 7, 10, 11 and 12 run the native host cores (the C++ sync core and
@@ -299,13 +315,16 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
 23. scripts -- the port's operator scripts: ``port_floor_probe.main`` cut to
    64 ticks x 2 dispatches x 2 repeats (its four rows, digest launches as
    the formula predicts, ``desync gate green``), ``port_profile_tick.py
-   --matches 64 --ticks 50`` in a subprocess (the native bank's phases
-   named), ``port_fleet_top.render`` over phase 18's control healthz,
+   --matches 64 --ticks 50 --fulfil cuda`` in a subprocess (the native
+   bank's phases named; its device half one graph launch a tick), ``port_fleet_top.render`` over phase 18's control healthz,
    merged registry and timelines, and ``port_match_timeline``'s ``--list``
    and ``-m ... --perfetto`` over phase 19's SIGKILL timelines (a trace
    that ``validate_chrome_trace`` accepts).  µs per advance step of each
    probe variant.
 
+After each phase, a line with its seconds and the CUDA graphs (the
+replay's, the scrub's, the executors' and the pools') it captured and
+replayed in this process.
 Then the seconds each phase took, one ``{"kernels": [...]}`` line (phase
 21's launches as ``launches_sanitized_production`` and
 ``launches_sanitized``, phases 22–23's as ``launches_examples`` and
@@ -327,6 +346,7 @@ import json
 import math
 import os
 import random
+import re
 import resource
 import select
 import signal
@@ -411,6 +431,7 @@ from ggrs_tpu_torch.obs import (
     validate_chrome_trace,
     validate_exposition,
 )
+from ggrs_tpu_torch.ops import graphs as graph_ops
 from ggrs_tpu_torch.ops.checksum import checksum_device, checksum_device_plain, checksum_to_u128
 from ggrs_tpu_torch.ops.digest import (
     MAX_LEAVES,
@@ -443,6 +464,7 @@ EXEC_D, EXEC_MAX_PREDICTION = 7, 8
 # ChipVM's executor drive is cut from 500 frames to 250 to keep the whole
 # run near 5 minutes on a slow host now that phase 7 runs too
 EXEC_GAMES = [("BoxGame(2)", BoxGame(2), 2000, 16), ("ChipVM(2)", ChipVM(2), 250, 256)]
+EXEC_PROFILED = 8  # the last frames of a card drive, under the profiler
 CKPT_TICKS = 32
 CHIPVM_STATE_BYTES = 256 + 4 + 1
 P2P_GAMES = [("BoxGame(2)", BoxGame(2), 750, 100), ("ChipVM(2)", ChipVM(2), 80, 20)]
@@ -549,7 +571,7 @@ EX_MODULES = ("port_ex_game", "port_ex_game_synctest", "port_ex_game_server",
 # (73,728 eager advances a pass, minutes a variant) to 64 x 2 x 2; the bank
 # profile at B = 64 for 50 ticks
 PROBE_CUT = dict(ticks_per_dispatch=64, dispatches=2, repeats=2)
-PROFILE_ARGS = ("--matches", "64", "--ticks", "50")
+PROFILE_ARGS = ("--matches", "64", "--ticks", "50", "--fulfil", "cuda")
 SCRIPT_MODULES = ("port_floor_probe", "port_fleet_top", "port_match_timeline")
 
 
@@ -927,11 +949,11 @@ def graph_stats(programs) -> dict:
             "replays": sum(g.replays for g in sets), "pool_bytes": pool_bytes}
 
 
-def profile_ticks(fn, ticks: int) -> dict:
-    """One call of ``fn`` (``ticks`` steady ticks) under the profiler: the
-    device kernels and busy ms a tick, and the host's CUDA calls that launch
-    work (``LAUNCH_CALLS``) inside the replay's ``ggrs:replay_steady`` spans,
-    a tick, by name."""
+def profile_ticks(fn, ticks: int, span: str = "ggrs:replay_steady") -> dict:
+    """One call of ``fn`` (``ticks`` steady ticks, or frames) under the
+    profiler: the device kernels and busy ms a tick, and the host's CUDA
+    calls that launch work (``LAUNCH_CALLS``) inside the ``span`` ranges
+    (the replay's by default), a tick, by name."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -940,7 +962,7 @@ def profile_ticks(fn, ticks: int) -> dict:
         torch.cuda.synchronize()
     cpu = torch.autograd.DeviceType.CPU
     events = prof.events()
-    spans = [e.time_range for e in events if e.name == "ggrs:replay_steady" and e.device_type == cpu]
+    spans = [e.time_range for e in events if e.name == span and e.device_type == cpu]
     host = {}
     for e in events:
         start = e.time_range.start
@@ -950,6 +972,7 @@ def profile_ticks(fn, ticks: int) -> dict:
     dev = device_summary(prof, ticks)
     return {"kernels_per_tick": dev["kernels"], "busy_ms_per_tick": dev["busy_us"] / 1e3,
             "digest_share_of_busy": dev["digest_share"], "digest_us_per_tick": dev["digest_us"],
+            "digest_kernels_per_tick": dev["digest_kernels"],
             "host_launches_per_tick": {k: v / ticks for k, v in sorted(host.items())}}
 
 
@@ -1164,32 +1187,64 @@ def guarded_run(fulfil, reqs, card: bool) -> None:
             torch.cuda.set_sync_debug_mode(0)
 
 
-def drive_executor(game, inputs: np.ndarray, device):
+class EagerPrograms(ExecutorPrograms):
+    """The executor's programs through their plain versions on the card
+    (``advance_eager``, ``burst_eager``): the graphs' eager twin.  The
+    package has no switch; this object offers no graphs, so its route is
+    the eager one on any device."""
+
+    def graphs(self, device):
+        return None
+
+
+def drive_executor(game, inputs: np.ndarray, device, programs=None, profiled: int = 0):
     """Play ``inputs`` through SessionBuilder -> SyncTestSession ->
-    DeviceRequestExecutor.  On the card every ``run`` is under the sync
-    debug mode "error", and the digest launch counts are zeroed just before
-    the first frame (after the warmup).  Each frame's saved checksums are
-    read back after its ``run``, as the session reads them next frame.
-    Returns (executor, saved (frame, checksum) per frame, loop seconds, the
-    last frame's saved states)."""
+    DeviceRequestExecutor (over ``programs`` where given).  On the card every
+    ``run`` is under the sync debug mode "error", and the digest launch
+    counts are zeroed just before the first frame (after the warmup).  Each
+    frame's saved checksums are read back after its ``run``, as the session
+    reads them next frame.  The last ``profiled`` frames run under the
+    profiler, each ``run`` inside a ``smoke:run`` span, and are left out of
+    the loop's seconds.  Returns (executor, saved (frame, checksum) per
+    frame, loop seconds, the last frame's saved states, the profile or
+    None)."""
     sess = (SessionBuilder(boxgame_config()).with_check_distance(EXEC_D)
             .with_max_prediction_window(EXEC_MAX_PREDICTION).start_synctest_session())
-    ex = DeviceRequestExecutor(game.advance, game.init_state_np(), executor_inputs, device=device)
+    ex = DeviceRequestExecutor(game.advance, game.init_state_np(), executor_inputs,
+                               programs=programs, device=device)
     ex.warmup(inputs[0], burst_depths=range(2, EXEC_MAX_PREDICTION + 2))
     card = ex.device.type == "cuda"
     saved, saves = [], []
-    state_digest.launches = lane_sums_rows.launches = 0
-    t0 = time.perf_counter()
-    for f in range(len(inputs)):
+    timed = len(inputs) - profiled
+
+    def frame(f: int) -> None:
+        nonlocal saves
         sess.add_local_input(0, int(inputs[f, 0]))
         sess.add_local_input(1, int(inputs[f, 1]))
         reqs = sess.advance_frame()
-        guarded_run(ex.run, reqs, card)
+        with torch.profiler.record_function("smoke:run"):
+            guarded_run(ex.run, reqs, card)
         saves = [r for r in reqs if isinstance(r, SaveGameState)]
         saved.append([(r.frame, r.cell.checksum) for r in saves])
+
+    state_digest.launches = lane_sums_rows.launches = 0
+    t0 = time.perf_counter()
+    for f in range(timed):
+        frame(f)
     ex.block_until_ready()
     seconds = time.perf_counter() - t0
-    return ex, saved, seconds, [r.cell.data() for r in saves]
+    prof = None
+    if profiled:
+        it = iter(range(timed, len(inputs)))
+        prof = profile_ticks(lambda: [frame(f) for f in it], profiled, span="smoke:run")
+    return ex, saved, seconds, [r.cell.data() for r in saves], prof
+
+
+def pool_bytes(pools) -> int:
+    """The bytes of the allocator's segments of CUDA graph pools ``pools``."""
+    ids = {tuple(p) for p in pools if p is not None}
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) in ids)
 
 
 def sync_caught(fn) -> bool:
@@ -1216,11 +1271,30 @@ def phase_executor() -> int:
     total = 0
     for name, game, frames, high in EXEC_GAMES:
         inputs = np.random.default_rng(17).integers(0, high, size=(frames, 2)).astype(np.uint8)
-        ex, saved, seconds, last = drive_executor(game, inputs, None)
+        programs = ExecutorPrograms(game.advance)
+        ex, saved, seconds, last, prof = drive_executor(game, inputs, None, programs,
+                                                        EXEC_PROFILED)
         launches = state_digest.launches
         check(lane_sums_rows.launches == 0, f"executor {name}: the digest went around state_digest")
         check(launches == frames, f"executor {name}: {launches} digest launches, not one per frame ({frames})")
-        cpu, cpu_saved, _, _ = drive_executor(game, inputs, "cpu")
+        graphs = programs.graphs(tree_leaves(ex.state)[0].device)
+        depths = EXEC_MAX_PREDICTION  # warmup: the advance and a burst of each depth 2..9
+        check(graphs.captures == 1 + depths and graphs.replays == 1 + depths + frames,
+              f"executor {name}: {graphs.captures} captures and {graphs.replays} replays for "
+              f"{frames} frames")
+        leaves = len(tree_leaves(ex.state))
+        host = prof["host_launches_per_tick"]
+        graph_launches = sum(v for k, v in host.items() if "GraphLaunch" in k)
+        check(graph_launches == 1 and sum(host.values()) - graph_launches <= 2 * leaves + 2,
+              f"executor {name}: host launches a frame {host}, not one graph launch and at "
+              f"most {2 * leaves + 2} copies")
+        twin, twin_saved, twin_seconds, _, _ = drive_executor(game, inputs, None,
+                                                              EagerPrograms(game.advance))
+        twin_launches = state_digest.launches
+        check(twin_saved == saved and twin_launches == launches
+              and cards_equal(ex.state, twin.state),
+              f"executor {name}: the graphs' run != the eager run on the card")
+        cpu, cpu_saved, _, _, _ = drive_executor(game, inputs, "cpu")
         check(saved == cpu_saved, f"executor {name}: saved checksums != CPU run")
         check(trees_equal(to_numpy(ex.state), to_numpy(cpu.state)), f"executor {name}: live state != CPU run")
         oracle = None
@@ -1242,12 +1316,24 @@ def phase_executor() -> int:
                             "plain_ms": device_ms(lambda: checksum_device_plain(st), iters=20),
                             "bound_us": bound_us(row_bytes * rows, rows),
                             "max_abs_err": u32_err(got, want)}
+        timed = frames - EXEC_PROFILED
+        graph_ms = seconds / timed * 1e3
+        eager_ms = twin_seconds / frames * 1e3
         emit({"phase": "executor", "game": name, "check_distance": EXEC_D,
               "max_prediction": EXEC_MAX_PREDICTION, "frames": frames,
               "saves": sum(len(s) for s in saved), "equal_to_cpu": True,
-              "equal_to_oracle": oracle, "sync_debug_mode": "error",
-              "host_ms_per_frame": seconds / frames * 1e3,
-              "digest_launches": launches, "digest_launches_per_frame": launches / frames,
+              "equal_to_oracle": oracle, "equal_to_eager": True, "sync_debug_mode": "error",
+              "host_ms_per_frame": graph_ms, "timed_frames": timed,
+              "eager_host_ms_per_frame": eager_ms, "speedup": eager_ms / graph_ms,
+              "captures": graphs.captures, "replays": graphs.replays,
+              "pool_bytes": pool_bytes([graphs.set.pool]), "leaves": leaves,
+              "profiled_frames": EXEC_PROFILED, "host_launches_per_frame": host,
+              "kernels_per_frame": prof["kernels_per_tick"],
+              "device_busy_ms_per_frame": prof["busy_ms_per_tick"],
+              "idle_share": 1 - prof["busy_ms_per_tick"] / graph_ms,
+              "digest_us_in_graph": prof["digest_us_per_tick"],
+              "digest_launches": launches, "digest_launches_eager": twin_launches,
+              "digest_launches_per_frame": launches / frames,
               "digest_us_1_row": digest[1]["device_us"],
               f"digest_us_{EXEC_D}_rows": digest[EXEC_D]["device_us"],
               "digest_plain_ms_1_row": digest[1]["plain_ms"],
@@ -1531,13 +1617,15 @@ def device_summary(prof, calls: int) -> dict:
     ops = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA
            and (getattr(e, "self_device_time_total", 0) or 0) > 0]
-    # record_function ranges ("ggrs:...") also appear as device-side
-    # annotations spanning their kernels; only kernels count as busy time
-    ops = [e for e in ops if not e.key.startswith("ggrs:")]
+    # record_function ranges ("ggrs:...", and the "smoke:..." spans around
+    # the calls profiled here) also appear as device-side annotations
+    # spanning their kernels; only kernels count as busy time
+    ops = [e for e in ops if not e.key.startswith(("ggrs:", "smoke:"))]
     busy = sum(e.self_device_time_total for e in ops)
     digest = sum(e.self_device_time_total for e in ops if "state_digest" in e.key)
     return {"kernels": sum(e.count for e in ops) / calls, "busy_us": busy / calls,
-            "digest_us": digest / calls, "digest_share": digest / busy if busy else None}
+            "digest_us": digest / calls, "digest_share": digest / busy if busy else None,
+            "digest_kernels": sum(e.count for e in ops if "state_digest" in e.key) / calls}
 
 
 def copies_in(fn) -> dict:
@@ -2103,16 +2191,26 @@ def pool_predicted(desc) -> int:
     return writes
 
 
+class EagerPool(BatchedRequestExecutor):
+    """The pool's masked tick through its plain version on the card (the
+    eager ``_tick_shard``, shard by shard): the graphs' eager twin.  The
+    package has no switch; this pool never replays its graphs."""
+
+    def _run_shard(self, shard, desc):
+        self._tick_shard(shard, desc)
+
+
 def drive_pool(n_matches: int, ticks: int, device, pooled: bool = True, profiled_ticks: int = 0,
-               config=None, cores: str = "native", plane: bool = False):
+               config=None, cores: str = "native", plane: bool = False, eager: bool = False):
     """``n_matches`` matches fulfilled by one ``BatchedRequestExecutor``
-    (``pooled``) or by one ``DeviceRequestExecutor`` per session, on
-    ``device``.  On the card every fulfilment is under the sync debug mode
-    "error"; in the last ``profiled_ticks`` ticks the fulfilment runs alone
-    under the profiler, and those ticks are left out of the host times.
-    Each tick adds every session's local input, then (with ``plane``) runs
-    the prediction plane's ``begin_tick`` on ``device``, then advances every
-    session, as the host session pool orders a tick."""
+    (``pooled``; an ``EagerPool`` with ``eager``) or by one
+    ``DeviceRequestExecutor`` per session, on ``device``.  On the card every
+    fulfilment is under the sync debug mode "error"; in the last
+    ``profiled_ticks`` ticks the fulfilment runs alone under the profiler,
+    inside a ``smoke:fulfil`` span, and those ticks are left out of the host
+    times.  Each tick adds every session's local input, then (with
+    ``plane``) runs the prediction plane's ``begin_tick`` on ``device``,
+    then advances every session, as the host session pool orders a tick."""
     sessions = pool_sessions(n_matches, ticks, config, cores)
     pl = None
     if plane:
@@ -2121,18 +2219,19 @@ def drive_pool(n_matches: int, ticks: int, device, pooled: bool = True, profiled
             sess.bind_prediction_plane(pl, slot)
     B = len(sessions)
     game = BoxGame(2)
-    predicted = 0
+    predicted = ticks_run = 0
     if pooled:
-        pool = BatchedRequestExecutor(game.advance, game.init_state_np(), executor_inputs,
-                                      batch_size=B, ring_length=POOL_RING,
-                                      max_burst=POOL_MAX_BURST, device=device)
+        pool = (EagerPool if eager else BatchedRequestExecutor)(
+            game.advance, game.init_state_np(), executor_inputs, batch_size=B,
+            ring_length=POOL_RING, max_burst=POOL_MAX_BURST, device=device)
         pool.warmup(np.zeros(2, np.uint8))
         card = pool.device.type == "cuda"
         real_tick = pool._tick
 
         def tick(desc):
-            nonlocal predicted
+            nonlocal predicted, ticks_run
             predicted += pool_predicted(desc)
+            ticks_run += 1
             return real_tick(desc)
 
         pool._tick = tick
@@ -2181,17 +2280,32 @@ def drive_pool(n_matches: int, ticks: int, device, pooled: bool = True, profiled
             host["sessions"] += t1 - t0
             host["fulfil"] += time.perf_counter() - t1
         else:
-            prof.append(profile_device(lambda: guarded_run(fulfil, reqs, card), 1))
+            captures = pool.captures if pooled else 0
+
+            def one():
+                with torch.profiler.record_function("smoke:fulfil"):
+                    guarded_run(fulfil, reqs, card)
+
+            prof.append(profile_ticks(one, 1, span="smoke:fulfil"))
+            prof[-1]["captured"] = pooled and pool.captures != captures
         desyncs += sum(1 for s in sessions for e in s.events() if isinstance(e, DesyncDetected))
         last = reqs
     if card:
         torch.cuda.synchronize()
     if timed == ticks:
         wall = time.perf_counter() - t_start
-    kernels = busy = None
+    kernels = busy = digest_us = None
+    host_launches = {}
     if prof:
-        kernels = sum(r["kernels"] for r in prof) / len(prof)
-        busy = sum(r["busy_us"] for r in prof) / len(prof)
+        kernels = sum(r["kernels_per_tick"] for r in prof) / len(prof)
+        busy = sum(r["busy_ms_per_tick"] for r in prof) / len(prof) * 1e3
+        n_digest = sum(r["digest_kernels_per_tick"] for r in prof)
+        digest_us = sum(r["digest_us_per_tick"] for r in prof) / n_digest if n_digest else None
+        # the host's launch calls of the profiled ticks that captured no graph
+        replay_only = [r["host_launches_per_tick"] for r in prof if not r["captured"]]
+        for h in replay_only:
+            for k, v in h.items():
+                host_launches[k] = host_launches.get(k, 0) + v / len(replay_only)
     saved = [(b, r.frame) for b, rs in enumerate(last) for r in rs if isinstance(r, SaveGameState)]
     if pooled:
         states = [pool.live_state(b) for b in range(B)]
@@ -2215,6 +2329,13 @@ def drive_pool(n_matches: int, ticks: int, device, pooled: bool = True, profiled
         "device_busy_ms_per_tick": None if busy is None else busy / 1e3,
         "idle_share": None if busy is None else 1 - busy / 1e3 / wall_ms,
         "cores": core_kinds(sessions),
+        "profiled": [{"host_launches": r["host_launches_per_tick"], "captured": r["captured"]}
+                     for r in prof],
+        "host_launches_per_tick": host_launches, "digest_us_per_launch": digest_us,
+        "captures": pool.captures if pooled else None, "ticks_run": ticks_run,
+        "replays": pool.replays if pooled else None,
+        "pool_bytes": (pool_bytes([s["graphs"].set.pool for s in pool._shards
+                                   if s["graphs"] is not None]) if pooled and card else None),
         "plane": None if pl is None else {
             **pl.stats(), "host_us_begin_tick": host["begin_tick"] / timed * 1e6,
             "copies_per_tick": plane_copies,
@@ -2223,12 +2344,56 @@ def drive_pool(n_matches: int, ticks: int, device, pooled: bool = True, profiled
     }
 
 
+def pool_graph_vs_eager(name: str, graph: dict, eager: dict) -> dict:
+    """A pooled drive on the graphs against its ``EagerPool`` twin on the
+    card: live states, ring checksums, sent checksums, frames and digest
+    launches bitwise equal; one replay a tick (after the two warmup
+    captures, one capture a key met first in the drive); in every profiled
+    tick that captured nothing, one ``cudaGraphLaunch`` and at most two
+    other launch calls inside ``run`` (the descriptor's copy).  Emits the
+    graphs line and returns it."""
+    check(all(trees_equal(a, b) for a, b in zip(graph["states"], eager["states"]))
+          and graph["last_checksums"] == eager["last_checksums"]
+          and graph["sent"] == eager["sent"]
+          and graph["frames_reached"] == eager["frames_reached"]
+          and graph["launches"] == eager["launches"] == graph["predicted"],
+          f"{name}: the graphs' drive != the eager drive on the card")
+    check(graph["replays"] == graph["ticks_run"] and graph["captures"] >= 2,
+          f"{name}: {graph['captures']} captures, {graph['replays']} replays for "
+          f"{graph['ticks_run']} ticks")
+    replayed = [p["host_launches"] for p in graph["profiled"] if not p["captured"]]
+    check(len(replayed) >= POOL_PROFILED // 2, f"{name}: {len(replayed)} profiled ticks replayed only")
+    for host in replayed:
+        graphs = sum(v for k, v in host.items() if "GraphLaunch" in k)
+        check(graphs == 1 and sum(host.values()) - graphs <= 2,
+              f"{name}: host launches a tick {host}, not one graph launch and at most 2 copies")
+    line = {"phase": name, "graphs": True, "sessions": len(graph["states"]),
+            "graph_host_ms_per_tick": graph["host_ms_per_tick"],
+            "eager_host_ms_per_tick": eager["host_ms_per_tick"],
+            "graph_ms_fulfil": graph["host_ms_fulfil"], "eager_ms_fulfil": eager["host_ms_fulfil"],
+            "speedup_fulfil": eager["host_ms_fulfil"] / graph["host_ms_fulfil"],
+            "captures": graph["captures"], "replays": graph["replays"],
+            "pool_bytes": graph["pool_bytes"], "profiled_replay_ticks": len(replayed),
+            "host_launches_per_tick": graph["host_launches_per_tick"],
+            "kernels_per_tick": graph["kernels_per_tick"],
+            "eager_kernels_per_tick": eager["kernels_per_tick"],
+            "device_busy_ms_per_tick": graph["device_busy_ms_per_tick"],
+            "idle_share": graph["idle_share"], "eager_idle_share": eager["idle_share"],
+            "digest_us_per_launch_in_graph": graph["digest_us_per_launch"],
+            "digest_launches": graph["launches"], "digest_launches_eager": eager["launches"],
+            "graph_equal_to_eager": True, "sync_debug_mode": "error"}
+    emit(line)
+    return line
+
+
 def phase_pool():
     """Massed hosting on the card: one pool against one executor per
     session, and a CPU rerun; then B = 512.  Returns the digest launches
     of the card's drives and the 64-session pooled run."""
     pooled = drive_pool(POOL_MATCHES, POOL_TICKS, None, True, POOL_PROFILED)
+    twin = drive_pool(POOL_MATCHES, POOL_TICKS, None, True, POOL_PROFILED, eager=True)
     single = drive_pool(POOL_MATCHES, POOL_TICKS, None, False, POOL_PROFILED)
+    graph_line = pool_graph_vs_eager("pool", pooled, twin)
     check(pooled["cores"] == single["cores"] == NATIVE_CORES,
           f"pool: the sessions ran {pooled['cores']}")
     for name, run in (("pool", pooled), ("executors", single)):
@@ -2262,6 +2427,8 @@ def phase_pool():
     emit({"phase": "pool", "game": "BoxGame(2)", "matches": POOL_MATCHES,
           "sessions": POOL_SESSIONS, "ring_length": POOL_RING, "max_burst": POOL_MAX_BURST,
           "desync_interval": POOL_DESYNC_INTERVAL, "ticks": POOL_TICKS, "desyncs": 0,
+          "captures": pooled["captures"], "replays": pooled["replays"],
+          "equal_to_eager": graph_line["graph_equal_to_eager"],
           "sync_debug_mode": "error", "states_equal_to_executors_and_cpu": True,
           "ring_checksums_equal": True, "rollbacks_per_100_session_ticks":
               pooled["rollbacks"] / (POOL_SESSIONS * POOL_TICKS) * 100,
@@ -2275,6 +2442,8 @@ def phase_pool():
     emit({"phase": "pool", "game": "BoxGame(2)", "matches": POOL_BIG_MATCHES,
           "sessions": POOL_BIG_SESSIONS, "ticks": POOL_BIG_TICKS, "desyncs": 0,
           "sessions_equal_to_cpu": POOL_SESSIONS, "profiled_ticks": POOL_PROFILED,
+          "captures": big["captures"], "replays": big["replays"],
+          "host_launches_per_tick": big["host_launches_per_tick"],
           "pool": {k: big[k] for k in keys},
           "digest_launches": big["launches"], "digest_launches_predicted": big["predicted"],
           "digest_launches_per_tick": big["launches"] / POOL_BIG_TICKS})
@@ -3690,7 +3859,8 @@ def phase_fleet():
 def timed_spawns():
     """Time every runner spawn (``ProcShard._spawn``: the Popen and the
     ``hello`` round trip, which waits for the child's torch import, its
-    CUDA context and the digest library's load)."""
+    CUDA context, the digest library's load and its warm-up of the fleet's
+    card game)."""
     orig = ProcShard._spawn
     seconds = []
 
@@ -3704,6 +3874,27 @@ def timed_spawns():
         yield seconds
     finally:
         ProcShard._spawn = orig
+
+
+@contextlib.contextmanager
+def timed_admits():
+    """Time every admission RPC into a runner (``ProcShard.admit_spec``: the
+    runner builds the match's session, socket and game), in ms."""
+    orig = ProcShard.admit_spec
+    ms = []
+
+    def timed(self, *args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return orig(self, *args, **kw)
+        finally:
+            ms.append((time.perf_counter() - t0) * 1e3)
+
+    ProcShard.admit_spec = timed
+    try:
+        yield ms
+    finally:
+        ProcShard.admit_spec = orig
 
 
 def runner_counts(counts_dir: str, pid: int) -> dict:
@@ -3777,7 +3968,7 @@ def drive_proc(scenario: str, device, journal_dir: str, counts_dir: str) -> dict
 
     tracer = Tracer(capacity=1 << 16)
     t_run = time.perf_counter()
-    with timed_spawns() as spawn_s:
+    with timed_spawns() as spawn_s, timed_admits() as admit_ms:
         state_digest.launches = lane_sums_rows.launches = 0
         EXECUTOR_COUNTS.update(launches=0, predicted=0, host_loads=0)
         ctx = drive_proc_fleet(
@@ -3807,6 +3998,7 @@ def drive_proc(scenario: str, device, journal_dir: str, counts_dir: str) -> dict
         "failovers": int(ctx["registry"].value("ggrs_fleet_failovers_total") or 0),
         "runner": None if scenario == "proc_sigkill" else runner_counts(counts_dir, pid),
         "spawn_s": list(spawn_s),
+        "admit_ms_first": admit_ms[0] if admit_ms else None, "admit_ms_max": max(admit_ms, default=None),
         "host_ms_p50": pct(tick, 50), "host_ms_p99": pct(tick, 99),
         "advance_all_ms_p50": pct(adv, 50), "advance_all_ms_p99": pct(adv, 99),
         "rpc_ms_p50": pct(served, 50), "rpc_ms_p99": pct(served, 99), "rpc_ticks": len(served),
@@ -3819,7 +4011,7 @@ def drive_proc(scenario: str, device, journal_dir: str, counts_dir: str) -> dict
     return run
 
 
-PROC_RUN_KEYS = ("matches", "spawn_s", "host_ms_p50", "host_ms_p99", "advance_all_ms_p50",
+PROC_RUN_KEYS = ("matches", "spawn_s", "admit_ms_first", "admit_ms_max", "host_ms_p50", "host_ms_p99", "advance_all_ms_p50",
                  "advance_all_ms_p99", "rpc_ms_p50", "rpc_ms_p99", "rpc_ticks", "s0_ms_p50", "fulfil_ms_p50",
                  "fulfil_ms_p99", "runner_tick_ms_p50", "runner_tick_ms_p99",
                  "runner_ticks_traced", "seconds", "detect_ms", "failover_ms", "resume_ms", "failovers",
@@ -4464,6 +4656,11 @@ def phase_scripts(fleet_docs: dict, proc_timelines: dict) -> int:
     check({"pool.tick", "bank.crossing", "pool.slot"} <= set(phases)
           and sum(p.startswith("bank.") for p in phases) >= 9,
           f"scripts: the bank profile names {phases}")
+    device_half = prof.stdout[prof.stdout.index("# device fulfilment"):].splitlines() \
+        if "# device fulfilment" in prof.stdout else []
+    check(any(line.split()[:3] == ["launch", "calls", "in"]
+              and re.search(r"GraphLaunch\S* 1\.00 ", line) for line in device_half),
+          f"scripts: the profile's device half shows no graph launch a tick: {device_half}")
 
     frame = m["port_fleet_top"].render(fleet_docs["healthz"], fleet_docs["metrics"],
                                        timelines=fleet_docs["timelines"])
@@ -4495,12 +4692,36 @@ def phase_scripts(fleet_docs: dict, proc_timelines: dict) -> int:
                           "seconds": probe_s, "digest_launches": launches,
                           "digest_predicted": predicted, "gate": lines[-1]},
           "profile_tick": {"args": list(PROFILE_ARGS), "seconds": profile_s,
-                           "phases": phases, "head": prof.stdout.splitlines()[:4]},
+                           "phases": phases, "head": prof.stdout.splitlines()[:4],
+                           "device_half": device_half},
           "fleet_top": {"lines": frame.count("\n") + 1, "head": frame.splitlines()[0]},
           "match_timeline": {"matches": len(proc_timelines), "rendered": failed_over[0],
                              "events": len(shown.splitlines()) - 2,
                              "perfetto_problems": len(problems)}})
     return launches
+
+
+# the CUDA graphs (ops.graphs) captured and replayed in this process,
+# counted from count_graphs() on
+GRAPH_COUNTS = {"captures": 0, "replays": 0}
+
+
+def count_graphs() -> None:
+    """Count every capture and replay of the port's CUDA graphs (the
+    executors', the pools', the replay's and the scrub's, all made through
+    ``ops.graphs.GraphSet``) in ``GRAPH_COUNTS``: each phase's line then
+    gives the graphs its drives captured and replayed in this process."""
+    capture, replay = graph_ops.GraphSet.capture, graph_ops.Graph.replay
+
+    def counted_capture(self, body):
+        GRAPH_COUNTS["captures"] += 1
+        return capture(self, body)
+
+    def counted_replay(self):
+        GRAPH_COUNTS["replays"] += 1
+        return replay(self)
+
+    graph_ops.GraphSet.capture, graph_ops.Graph.replay = counted_capture, counted_replay
 
 
 def main() -> int:
@@ -4511,11 +4732,15 @@ def main() -> int:
     raise_fd_limit()
     smi = nvidia_smi()
     seconds = {}
+    count_graphs()
 
     def timed(name, fn, *args):
         t0 = time.perf_counter()
+        before = dict(GRAPH_COUNTS)
         out = fn(*args)
         seconds[name] = time.perf_counter() - t0
+        emit({"phase": name, "seconds": seconds[name],
+              **{f"graph_{k}": GRAPH_COUNTS[k] - before[k] for k in GRAPH_COUNTS}})
         return out
 
     timed("build", phase_build, smi)

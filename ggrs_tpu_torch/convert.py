@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .core.device import DeviceLike, resolve_device
+from .utils.tree import tree_map
 
 DIGEST_KEYS = ("hist", "checksums")
 
@@ -47,6 +48,30 @@ def from_numpy(tree: Any, device: DeviceLike = None) -> Any:
         return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
 
     return _map(conv, tree)
+
+
+def host_tensors(tree: Any) -> Any:
+    """Pytree of numpy arrays (or scalars, or tensors) -> the host tensors
+    ``from_numpy`` would send (u32 as int32 bit patterns); tensors pass
+    through."""
+    return _map(lambda leaf, _key: leaf if isinstance(leaf, torch.Tensor) else _host_tensor(leaf),
+                tree)
+
+
+def copy_into(dst: Any, tree: Any) -> None:
+    """Copy ``tree`` (host tensors from ``host_tensors``, or tensors) into
+    the tensors ``dst`` of the same structure and shapes, in place, one
+    copy per leaf.  A host leaf bound for a CUDA tensor goes from a fresh
+    pinned block with ``non_blocking=True``, as ``from_numpy`` sends it:
+    the caching host allocator keeps the block until its copy completes."""
+
+    def copy(d: torch.Tensor, leaf: torch.Tensor) -> None:
+        if d.device.type == "cuda" and leaf.device.type == "cpu":
+            d.copy_(leaf.pin_memory(), non_blocking=True)
+        else:
+            d.copy_(leaf)
+
+    tree_map(copy, dst, tree)
 
 
 def to_numpy(tree: Any) -> Any:

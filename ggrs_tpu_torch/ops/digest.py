@@ -31,7 +31,9 @@ size threshold.
 kernel's launches on the card.  A wrapper called while a CUDA graph is
 captured launches nothing yet, and each replay of the graph launches again
 without calling it: ``GraphLaunches`` moves the capture's count onto the
-replays, so the counts keep meaning kernels the card ran.
+replays, so the counts keep meaning kernels the card ran.  A capture takes
+only its own thread's launches: what other threads launch meanwhile stays
+on the counters.
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ import contextlib
 import ctypes
 import functools
 import math
-from typing import Iterator, List, Sequence, Tuple
+import threading
+from typing import Dict, Iterator, List, Sequence, Tuple
 
 import torch
 
@@ -325,7 +328,7 @@ def state_digest(
         table = [(leaf.data_ptr(), stride, nbytes, off) for leaf, stride, nbytes, off in entries]
         out = _launch(table, rows, width, dev, salt_mix, 0, raw=False)
         if rows:
-            state_digest.launches += 1
+            _count(state_digest)
         return out
     acc = None
     for g in range(0, len(entries), MAX_LEAVES):
@@ -336,7 +339,7 @@ def state_digest(
         lanes = _launch(table, rows, end - start, dev, salt_mix, start, raw=True).to(torch.int64)
         acc = lanes if acc is None else acc + lanes
         if rows:
-            state_digest.launches += 1
+            _count(state_digest)
     acc = (acc + _mix_tensor(tuple(salt_mix), acc.device)) & MASK32
     return u32_to_i32(acc ^ (acc >> 15))
 
@@ -367,32 +370,61 @@ def lane_sums_rows(words: torch.Tensor, offset: int = 0) -> torch.Tensor:
     entries, rows, width = leaf_table([words])
     out = _launch(entries, rows, width, dev, (0, 0, 0, 0), offset, raw=True)
     if rows:
-        lane_sums_rows.launches += 1
+        _count(lane_sums_rows)
     return out
 
 
 lane_sums_rows.launches = 0
 
 
+# the capture in progress on each thread (by thread id), if any
+_captures: Dict[int, "GraphLaunches"] = {}
+
+
+def _count(wrapper) -> None:
+    """One launch of ``wrapper``'s kernel (``state_digest`` or
+    ``lane_sums_rows``).  While another thread captures a graph, the launch
+    is noted as foreign to that capture, which then leaves it counted."""
+    wrapper.launches += 1
+    if _captures:
+        me = threading.get_ident()
+        k = 0 if wrapper is state_digest else 1
+        for tid, graph in list(_captures.items()):
+            if tid != me:
+                graph.foreign[k] += 1
+
+
 class GraphLaunches:
     """The digest launches one CUDA graph holds.
 
     ``capturing()`` wraps the graph's capture: it records how much the two
-    counters grew (the launches the graph captured) and sets them back,
-    since a capture runs no kernel.  ``replayed()`` adds that count to the
-    counters, once for each replay of the graph."""
+    counters grew on this thread (the launches the graph captured) and sets
+    them back, since a capture runs no kernel; launches that other threads
+    counted meanwhile (``foreign``) stay counted.  ``replayed()`` adds the
+    graph's count to the counters, once for each replay of the graph."""
 
     def __init__(self) -> None:
         self.counts = (0, 0)
+        self.foreign = [0, 0]
 
     @contextlib.contextmanager
     def capturing(self) -> Iterator[None]:
         before = (state_digest.launches, lane_sums_rows.launches)
+        self.foreign = [0, 0]
+        tid = threading.get_ident()
+        outer = _captures.get(tid)
+        _captures[tid] = self
         try:
             yield
         finally:
-            self.counts = (state_digest.launches - before[0], lane_sums_rows.launches - before[1])
-            state_digest.launches, lane_sums_rows.launches = before
+            if outer is None:
+                del _captures[tid]
+            else:
+                _captures[tid] = outer
+            f = self.foreign
+            self.counts = (state_digest.launches - before[0] - f[0],
+                           lane_sums_rows.launches - before[1] - f[1])
+            state_digest.launches, lane_sums_rows.launches = before[0] + f[0], before[1] + f[1]
 
     def replayed(self) -> None:
         state_digest.launches += self.counts[0]

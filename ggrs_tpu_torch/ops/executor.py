@@ -11,10 +11,18 @@ the game state as tensors on the card and fulfils the list there:
   host tree in the cell, as a journal failover loads one, goes up first);
 - an ``(Advance, Save?)*`` run of two or more advances is one burst: the
   inputs of all its steps are stacked on the host and uploaded in one copy,
-  the advances run in order, and the states of the steps that are saved are
-  digested together in ONE ``checksum_device`` call (one kernel launch).
-  The JAX burst digests every step inside its scan; the unsaved digests are
-  never read, so the saved values are the same.
+  the advances run in order, and the saved steps are digested together in
+  ONE launch of the digest kernel.  The JAX burst digests every step inside
+  its scan; the unsaved digests are never read, so the saved values are the
+  same.
+
+The JAX package jits the single advance, the checksum and the scanned burst
+(``ExecutorPrograms``).  The port's counterpart on the card is a CUDA graph:
+``advance`` and ``burst`` on a CUDA state are each one graph replay between
+copies of the state and inputs in and clones of the outputs out
+(``ExecutorGraphs``); the lone save's checksum is one direct launch.  The
+eager bodies (``advance_eager``, ``burst_eager``) are the graphs' plain
+versions and what the CPU runs.  Routing is by the state's device.
 
 ``run`` reads nothing back from the card and never synchronises: inputs go
 up from pinned memory without blocking, and checksums stay on the card
@@ -24,15 +32,15 @@ while warming up, and the burst ``(Adv, Save) x d, Adv`` after the Load
 once steady.
 
 The executor never writes a state in place (the replay of ``ops/replay.py``
-does, into its ring): a cell holds the very tensors that a later Load makes
-live, and ``advance`` returns new tensors.
+does, into its ring): a cell holds tensors that no later step writes, which
+a later Load makes live again, and every step returns new tensors (the
+eager advance's own outputs, or the clones of a graph's).
 
 The port's games are batch-native, with a leading session axis, while a
 request list is about one session.  The executor runs ``advance`` and the
 digest on ``(1, ...)`` views (``unsqueeze(0)``) and exposes the state, and
-what a cell holds, in the JAX package's single-state layout (``[0]`` views of
-the advance's output), so that the two packages' states compare leaf for
-leaf.
+what a cell holds, in the JAX package's single-state layout (``[0]`` views),
+so that the two packages' states compare leaf for leaf.
 
 With a ``speculation`` strategy (``parallel.SpeculativeRollback``) attached,
 the executor keeps K branch trajectories alive between ticks and lets a
@@ -42,21 +50,24 @@ call (``advance_and_extend``), and a rollback whose window the branches cover
 is one ``fulfill_and_refill`` call -- matching, the select or the replay
 (both computed, one taken on the card), re-rooting, re-extension and the
 trailing live advance -- whose saved steps are digested in one launch.  The
-host never reads whether it hit.
+host never reads whether it hit.  Speculation's own calls run eagerly on
+the card; a rollback the branches cannot answer replays through the burst
+graph.
 """
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Any, Callable, List, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Any, Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
 
-from ..convert import from_numpy
+from ..convert import copy_into, from_numpy, host_tensors
 from ..core.device import DeviceLike, resolve_device
 from ..core.types import AdvanceFrame, GgrsRequest, InputStatus, LoadGameState, SaveGameState
 from ..utils.tree import tree_leaves, tree_map
-from .checksum import DeviceChecksum, checksum_device
+from .checksum import CHECKSUM_LANES, DeviceChecksum, checksum_device
+from .graphs import Graph, GraphSet, synchronize
 
 if TYPE_CHECKING:
     from ..parallel.spec_rollback import SpeculativeRollback
@@ -85,18 +96,58 @@ def _row(tree: Any, i: int = 0) -> Any:
     return tree_map(lambda leaf: leaf[i], tree)
 
 
+def _device(state: Any) -> torch.device:
+    return tree_leaves(state)[0].device
+
+
+def _layout(tree: Any) -> tuple:
+    return tuple((tuple(leaf.shape), leaf.dtype) for leaf in tree_leaves(tree))
+
+
 class ExecutorPrograms:
     """The executor's programs for one batch-native ``advance``: a single
-    step, a burst, and the digest of one state.  They hold no state, so one
-    instance can serve every executor that drives the same game."""
+    step, a burst, and the digest of one state.  They hold no game state,
+    so one instance can serve every executor that drives the same game.
+
+    On a CUDA device ``advance`` and ``burst`` are CUDA graph replays
+    (``ExecutorGraphs``), the counterpart of the JAX package's jitted
+    ``advance`` and scanned ``burst``; ``advance_eager`` and ``burst_eager``
+    are their plain versions and what the CPU runs.  ``checksum``, the
+    counterpart of the jitted ``checksum``, stays one direct launch of the
+    digest kernel on the card: a graph of one node would save nothing.
+
+    The graphs and their static buffers belong to this object, so an
+    instance shared by several executors (the in-process fleet's matches in
+    ``chaos.ExecutorGame``) serves one thread at a time; the sessions that
+    drive them are ``ThreadOwned``, which already holds them to one."""
 
     def __init__(self, advance: Callable[[Any, Any], Any], with_checksums: bool = True) -> None:
         self.with_checksums = with_checksums
         self.raw_advance = advance  # for executor-side identity validation
+        self._graphs: Dict[torch.device, ExecutorGraphs] = {}
+        # devices on which the bodies ran eagerly (see ExecutorGraphs)
+        self._eager_on: Set[torch.device] = set()
+
+    def graphs(self, device: torch.device) -> Optional["ExecutorGraphs"]:
+        """The graphs of ``device``, made at its first use there when it is
+        a CUDA device; None elsewhere (the eager route)."""
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        g = self._graphs.get(device)
+        if g is None and device.type == "cuda":
+            g = self._graphs[device] = ExecutorGraphs(self, device)
+        return g
 
     def advance(self, state: Any, inputs: Any) -> Any:
-        """One step of one unbatched state: the advance's output as ``[0]``
+        """One step of one unbatched state with one step's ``inputs`` (host
+        arrays or tensors): the next state, in the same layout."""
+        g = self.graphs(_device(state))
+        return self.advance_eager(state, inputs) if g is None else g.advance(state, inputs)
+
+    def advance_eager(self, state: Any, inputs: Any) -> Any:
+        """``advance``'s plain version: the advance's output as ``[0]``
         views."""
+        inputs = from_numpy(inputs, _device(state))
         return _row(self.raw_advance(_one_row(state), _one_row(inputs)))
 
     def checksum(self, state: Any) -> torch.Tensor:
@@ -105,15 +156,27 @@ class ExecutorPrograms:
 
     def burst(
         self, state: Any, inputs: Any, saved: Sequence[int]
-    ) -> Tuple[List[Any], Optional[torch.Tensor]]:
-        """``n`` advances from ``state`` with ``inputs`` (leaves ``(n, ...)``).
+    ) -> Tuple[List[Any], Optional[List[torch.Tensor]]]:
+        """``n`` advances from ``state`` with ``inputs`` (host arrays or
+        tensors, leaves ``(n, ...)``).
 
         Returns ``(steps, sums)``: ``steps[k]`` is the state after step
-        ``k``, as ``[0]`` views of the advance's own output, and ``sums`` is
-        the ``(len(saved), 4)`` digest of the steps listed in ``saved``,
-        made by one ``checksum_device`` call over their stacked rows (None
-        without checksums or saves).  The stack is the digest's input only;
-        the steps stay the advance's outputs."""
+        ``k`` and ``sums[j]`` the ``(4,)`` digest of step ``saved[j]``, all
+        made by one digest launch (None without checksums or saves)."""
+        g = self.graphs(_device(state))
+        if g is None:
+            return self.burst_eager(state, inputs, saved)
+        return g.burst(state, inputs, saved)
+
+    def burst_eager(
+        self, state: Any, inputs: Any, saved: Sequence[int]
+    ) -> Tuple[List[Any], Optional[List[torch.Tensor]]]:
+        """``burst``'s plain version: ``n`` advances issued from Python on
+        ``(1, ...)`` views, the steps ``[0]`` views of the advance's own
+        outputs, and the saved steps digested by one ``checksum_device``
+        call over their stacked rows.  The stack is the digest's input
+        only; the steps stay the advance's outputs."""
+        inputs = from_numpy(inputs, _device(state))
         n = tree_leaves(inputs)[0].shape[0]
         st = _one_row(state)
         outs = []
@@ -123,8 +186,144 @@ class ExecutorPrograms:
         sums = None
         if self.with_checksums and saved:
             rows = tree_map(lambda *leaves: torch.cat(leaves), *[outs[k] for k in saved])
-            sums = checksum_device(rows)
+            sums = list(checksum_device(rows))
         return [_row(o) for o in outs], sums
+
+    def rehearse(self, state: Any, inputs: Any) -> None:
+        """One eager advance (with one step's ``inputs``) and, with
+        checksums, one digest of ``state``, writing nothing: whatever the
+        bodies do once lazily on this device (the game's device constants,
+        the digest library's first launch) is then done."""
+        self.advance_eager(state, inputs)
+        if self.with_checksums:
+            self.checksum(state)
+        self._eager_on.add(_device(state))
+
+    def warmup(self, state: Any, example_inputs: Any, burst_depths: Sequence[int] = ()) -> None:
+        """``rehearse``, then the single advance and a burst of each depth
+        in ``burst_depths`` (2 or more; each step but the last saved) from
+        ``state``, whose tensors are left as they are: on a CUDA device
+        this captures their graphs (and replays each once)."""
+        self.rehearse(state, example_inputs)
+        self.advance(state, example_inputs)
+        for n in burst_depths:
+            if n >= 2:
+                self.burst(state, _stack_pytrees([example_inputs] * n), range(n - 1))
+
+
+class ExecutorGraphs:
+    """``ExecutorPrograms``' ``advance`` and ``burst`` on one CUDA device as
+    CUDA graphs, the counterpart of the JAX package's jit cache.
+
+    A graph is captured at the first call of its key and replayed at every
+    later one:
+
+    - the single advance, keyed by the state's and the inputs' layout
+      (shapes and dtypes);
+    - the burst, keyed by those (the inputs' leading axis is its depth
+      ``n``) and by whether it digests (checksums on and some step saved).
+
+    Each graph reads a static state buffer and a static input buffer, and
+    writes static outputs: the next state, or the burst's ``(n, ...)``
+    stack of every step (row ``k`` is step ``k``) and, when it digests,
+    the ``(n, 4)`` digest of that stack's rows in one launch of the digest
+    kernel.  A call copies the state in (one copy a leaf) and the inputs
+    (one copy a leaf, from a fresh pinned block), replays, and clones the
+    outputs once each: the caller gets the clones, never the graph's own
+    buffers, which the next replay overwrites.  Burst steps and saved
+    digests are ``[k]`` views of the clones, so a cell keeps its burst's
+    stack alive.  Every digest is per row, so the saved values are
+    bitwise the eager ones, which digest the saved steps alone.
+
+    The graphs of a device share one ``GraphSet`` (side stream, private
+    pool).  Before the first capture on a device whose bodies never ran
+    eagerly, ``ExecutorPrograms.rehearse`` runs them once (its digest
+    launch runs and counts); ``warmup`` does that first."""
+
+    def __init__(self, programs: ExecutorPrograms, device: torch.device) -> None:
+        self.programs = programs
+        self.device = device
+        self.set = GraphSet(device)
+        self._entries: Dict[tuple, tuple] = {}
+
+    @property
+    def captures(self) -> int:
+        return self.set.captures
+
+    @property
+    def replays(self) -> int:
+        return self.set.replays
+
+    def _capture(self, body: Callable[[], None], state: Any, step_inputs: Any) -> Graph:
+        if self.device not in self.programs._eager_on:
+            self.programs.rehearse(state, step_inputs)
+        return self.set.capture(body)
+
+    def advance(self, state: Any, inputs: Any) -> Any:
+        host = host_tensors(inputs)
+        key = ("advance", _layout(state), _layout(host))
+        entry = self._entries.get(key)
+        if entry is None:
+            entry = (None, _empty_like(state), _empty_like(host, self.device), _empty_like(state))
+        graph, st, inp, out = entry
+        copy_into(st, state)
+        copy_into(inp, host)
+        if graph is None:
+            advance = self.programs.raw_advance
+
+            def body() -> None:
+                nxt = advance(_one_row(st), _one_row(inp))
+                tree_map(lambda o, x: o.copy_(x[0]), out, nxt)
+
+            graph = self._capture(body, state, host)
+            self._entries[key] = (graph, st, inp, out)
+        graph.replay()
+        return tree_map(torch.clone, out)
+
+    def burst(
+        self, state: Any, inputs: Any, saved: Sequence[int]
+    ) -> Tuple[List[Any], Optional[List[torch.Tensor]]]:
+        host = host_tensors(inputs)
+        n = tree_leaves(host)[0].shape[0]
+        digest = self.programs.with_checksums and bool(saved)
+        key = ("burst", _layout(state), _layout(host), digest)
+        entry = self._entries.get(key)
+        if entry is None:
+            stack = tree_map(lambda leaf: torch.empty((n, *leaf.shape), dtype=leaf.dtype,
+                                                      device=self.device), state)
+            sums = torch.empty((n, CHECKSUM_LANES), dtype=torch.int32, device=self.device)
+            entry = (None, _empty_like(state), _empty_like(host, self.device), stack, sums)
+        graph, st, inp, stack, sums = entry
+        copy_into(st, state)
+        copy_into(inp, host)
+        if graph is None:
+            advance = self.programs.raw_advance
+
+            def body() -> None:
+                x, steps = _one_row(st), []
+                for k in range(n):
+                    x = advance(x, tree_map(lambda leaf: leaf[k:k + 1], inp))
+                    steps.append(x)
+                tree_map(lambda o, *xs: torch.cat(xs, out=o), stack, *steps)
+                if digest:
+                    sums.copy_(checksum_device(stack))
+
+            graph = self._capture(body, state, tree_map(lambda leaf: leaf[0], host))
+            self._entries[key] = (graph, st, inp, stack, sums)
+        graph.replay()
+        outs = tree_map(torch.clone, stack)
+        steps = [_row(outs, k) for k in range(n)]
+        if not digest:
+            return steps, None
+        lanes = sums.clone()
+        return steps, [lanes[k] for k in saved]
+
+
+def _empty_like(tree: Any, device: Optional[torch.device] = None) -> Any:
+    """Contiguous uninitialised tensors of ``tree``'s shapes and dtypes."""
+    return tree_map(lambda leaf: torch.empty(leaf.shape, dtype=leaf.dtype,
+                                             device=leaf.device if device is None else device),
+                    tree)
 
 
 class DeviceRequestExecutor:
@@ -192,19 +391,15 @@ class DeviceRequestExecutor:
     def warmup(self, example_inputs: Any, burst_depths: Sequence[int] = ()) -> None:
         """Run the single advance, the digest and a burst of each depth in
         ``burst_depths`` once, without touching the live state, then wait for
-        the card.  This builds the digest kernel and fills the allocators
-        before a live loop instead of inside it.  A full-window rollback of a
-        session with ``max_prediction`` groups into a ``max_prediction + 1``
-        deep burst, so pass ``range(2, max_prediction + 2)`` to cover every
-        depth (depth 1 is the single advance)."""
-        self._programs.advance(self._state, from_numpy(example_inputs, self.device))
-        if self._with_checksums:
-            self._programs.checksum(self._state)
-        for n in burst_depths:
-            if n < 2:
-                continue
-            stacked = from_numpy(_stack_pytrees([example_inputs] * n), self.device)
-            self._programs.burst(self._state, stacked, range(n - 1))
+        the card.  This builds the digest kernel, the game's device
+        constants and, on a CUDA device, captures the programs' graphs
+        (``ExecutorPrograms.warmup``) before a live loop instead of inside
+        it.  A full-window rollback of a session with ``max_prediction``
+        groups into a ``max_prediction + 1`` deep burst, so pass
+        ``range(2, max_prediction + 2)`` to cover every depth (depth 1 is
+        the single advance).  A burst that saves no step has a graph of its
+        own, captured at its first use."""
+        self._programs.warmup(self._state, example_inputs, burst_depths)
         self.block_until_ready()
         if self._spec is not None:
             # every speculation path (extend, advance and extend, and
@@ -228,7 +423,7 @@ class DeviceRequestExecutor:
 
     def block_until_ready(self) -> None:
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            synchronize(self.device)
 
     def run(self, requests: List[GgrsRequest]) -> None:
         """Execute a session's request list in order."""
@@ -331,7 +526,7 @@ class DeviceRequestExecutor:
             if nxt is not None:
                 self._state = nxt
                 return
-        self._state = self._programs.advance(self._state, from_numpy(inputs, self.device))
+        self._state = self._programs.advance(self._state, inputs)
 
     def _do_burst(
         self,
@@ -341,13 +536,12 @@ class DeviceRequestExecutor:
     ) -> List[Tuple[int, SaveGameState, Any]]:
         """(Advance, Save?) x N: one upload of the stacked inputs, N advances,
         one digest launch over the saved steps; each save cell gets its
-        step's own tensors and a lazy checksum over its row of the digest.
+        step's tensors and a lazy checksum over its row of the digest.
         Returns the fulfilled saves as ``(pair_index, request, state)``."""
         if arrays is None:
             arrays = [self._inputs_to_array(p.inputs) for p in pairs]
-        stacked = from_numpy(_stack_pytrees(arrays), self.device)
         saved = [k for k, s in enumerate(saves) if s is not None]
-        steps, sums = self._programs.burst(self._state, stacked, saved)
+        steps, sums = self._programs.burst(self._state, _stack_pytrees(arrays), saved)
         self._state = steps[-1]
         if self._spec is not None:
             # one extension per executed advance (a no-op while unrooted,

@@ -59,7 +59,7 @@ from ..core.device import DeviceLike, resolve_device
 from ..utils.tracing import trace_span
 from ..utils.tree import tree_leaves, tree_map
 from .checksum import CHECKSUM_LANES, checksum_device
-from .digest import GraphLaunches
+from .graphs import Graph, GraphSet
 from .ring import DeviceStateRing
 
 I32_MAX = 2**31 - 1
@@ -273,46 +273,36 @@ class TickGraphs:
     def __init__(self, programs: ReplayPrograms, carry: Any) -> None:
         self.programs = programs
         self.device = carry["frame"].device
-        self.stream = torch.cuda.Stream(self.device)
-        self.graphs: Dict[int, Tuple[torch.cuda.CUDAGraph, GraphLaunches]] = {}
-        self.pool = None
-        self.replays = 0
+        self.set = GraphSet(self.device)
+        self.graphs: Dict[int, Graph] = {}
 
     @property
     def captures(self) -> int:
-        return len(self.graphs)
+        return self.set.captures
+
+    @property
+    def replays(self) -> int:
+        return self.set.replays
+
+    @property
+    def pool(self):
+        return self.set.pool
 
     def tick(self, carry: Any, inp: Any, frame: int) -> None:
         programs = self.programs
         programs._store_input(carry, frame, inp)
         phase = programs.ring.slot(frame)
-        if phase not in self.graphs:
-            self.graphs[phase] = self._capture(carry, frame)
-        graph, launches = self.graphs[phase]
+        graph = self.graphs.get(phase)
+        if graph is None:
+            graph = self.graphs[phase] = self._capture(carry, frame)
         graph.replay()
-        launches.replayed()
-        self.replays += 1
 
-    def _capture(self, carry: Any, frame: int) -> Tuple[torch.cuda.CUDAGraph, GraphLaunches]:
+    def _capture(self, carry: Any, frame: int) -> Graph:
         programs = self.programs
-        current = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(current)
         if self.device not in programs._eager_on:
-            with torch.cuda.stream(self.stream):
-                programs.steady_body(tree_map(torch.clone, carry), frame)
+            programs.steady_body(tree_map(torch.clone, carry), frame)
             programs._eager_on.add(self.device)
-        graph = torch.cuda.CUDAGraph()
-        launches = GraphLaunches()
-        # "thread_local": only this thread is barred from the calls that are
-        # unsafe during a capture; threads launching on other streams are not
-        with launches.capturing(), torch.cuda.graph(
-            graph, pool=self.pool, stream=self.stream, capture_error_mode="thread_local"
-        ):
-            programs.steady_body(carry, frame)
-        current.wait_stream(self.stream)
-        if self.pool is None:
-            self.pool = graph.pool()
-        return graph, launches
+        return self.set.capture(lambda: programs.steady_body(carry, frame))
 
 
 def _advance_window(advance: AdvanceFn, st: Any, inputs: Any) -> Any:
@@ -352,14 +342,16 @@ class ScrubProgram:
     def __init__(self, advance: AdvanceFn, device: torch.device) -> None:
         self.advance = advance
         self.device = device
-        self._graphs: Dict[Tuple[str, str], Tuple[torch.cuda.CUDAGraph, Any, Any, Any]] = {}
-        self._pool = None
-        self._stream = None
-        self.replays = 0
+        self.set = GraphSet(device)
+        self._graphs: Dict[Tuple[str, str], Tuple[Graph, Any, Any, Any]] = {}
 
     @property
     def captures(self) -> int:
-        return len(self._graphs)
+        return self.set.captures
+
+    @property
+    def replays(self) -> int:
+        return self.set.replays
 
     def _batched(self, state: Any, stacked_inputs: Any) -> Tuple[Any, Any]:
         st = tree_map(lambda leaf: leaf.unsqueeze(0), from_numpy(state, self.device))
@@ -383,29 +375,18 @@ class ScrubProgram:
             _copy_into(static_st, st)
             _copy_into(static_inputs, inputs)
             graph.replay()
-            self.replays += 1
             return tree_map(lambda leaf: leaf[0].clone(), out)
 
-    def _capture(self, st: Any, inputs: Any) -> Tuple[torch.cuda.CUDAGraph, Any, Any, Any]:
-        current = torch.cuda.current_stream(self.device)
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
+    def _capture(self, st: Any, inputs: Any) -> Tuple[Graph, Any, Any, Any]:
         static_st = tree_map(torch.empty_like, st)
         static_inputs = tree_map(torch.empty_like, inputs)
-        self._stream.wait_stream(current)
-        with torch.cuda.stream(self._stream):
-            # one eager advance first: the game's lazy device constants are
-            # made outside the capture
-            self.advance(st, tree_map(lambda leaf: leaf[:1], inputs))
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(
-            graph, pool=self._pool, stream=self._stream, capture_error_mode="thread_local"
-        ):
-            out = _advance_window(self.advance, static_st, static_inputs)
-        current.wait_stream(self._stream)
-        if self._pool is None:
-            self._pool = graph.pool()
-        return graph, static_st, static_inputs, out
+        # one eager advance first: the game's lazy device constants are
+        # made outside the capture
+        self.advance(st, tree_map(lambda leaf: leaf[:1], inputs))
+        out = []
+        graph = self.set.capture(
+            lambda: out.append(_advance_window(self.advance, static_st, static_inputs)))
+        return graph, static_st, static_inputs, out[0]
 
 
 def build_scrub_program(advance: AdvanceFn, device: DeviceLike = None) -> ScrubProgram:

@@ -20,7 +20,9 @@ Sessions that do not tick in lockstep (the pool of ``parallel.session_pool``,
 where each session saves and loads its own frame) use ``save_rows`` and
 ``load_rows``: a scatter and a gather over flat ``(session, slot)`` indices
 that the host builds (``flat_index``), the JAX package's ``vmap`` of
-``save_where`` and ``load`` over a per-session frame.
+``save_where`` and ``load`` over a per-session frame.  ``save_rows_where``
+is the fixed-shape form that the pool's CUDA graphs run: every row writes,
+and a row the mask does not take writes back its slot's own contents.
 """
 
 from __future__ import annotations
@@ -188,6 +190,30 @@ class DeviceStateRing:
                  ring["states"], state)
         self._slots(ring["checksums"]).index_copy_(0, index, pick(checksum))
         ring["frames"].view(-1).index_copy_(0, index, frames)
+        return ring
+
+    def save_rows_where(
+        self, ring: Any, index: torch.Tensor, state: Any, checksum: torch.Tensor,
+        frames: torch.Tensor, mask: torch.Tensor,
+    ) -> Any:
+        """In place, the fixed-shape per-row masked save, the counterpart of
+        the JAX ring's ``save_where`` under ``vmap``: row ``b`` of ``state``
+        (leaves ``(B, ...)``), of ``checksum`` (``(B, 4)``) and the frame
+        ``frames[b]`` go to flat slot ``index[b]`` where ``mask[b]`` (all
+        ``(B,)`` tensors).  Every row writes, so the shapes never depend on
+        the mask: a row the mask does not take writes back what its slot
+        ``index[b]`` (any slot of its own ring) already holds, which is
+        bitwise what skipping it does."""
+
+        def upd(buf: torch.Tensor, val: torch.Tensor) -> None:
+            slots = self._slots(buf)
+            old = slots.index_select(0, index)
+            keep = mask.view(-1, *([1] * (old.dim() - 1)))
+            slots.index_copy_(0, index, torch.where(keep, val, old))
+
+        tree_map(upd, ring["states"], state)
+        upd(ring["checksums"], checksum)
+        upd(ring["frames"], frames)
         return ring
 
     def load_rows(self, ring: Any, index: torch.Tensor) -> Any:

@@ -30,6 +30,7 @@ import torch
 from ..convert import from_numpy, to_numpy
 from ..core.device import DeviceLike, resolve_device
 from ..core.errors import InvalidRequest
+from ..ops.graphs import synchronize
 from ..ops.replay import I32_MAX, ReplayPrograms, build_replay_programs
 from ..utils.checkpoint import load_pytree, save_pytree
 from ..utils.tracing import trace_span
@@ -424,4 +425,4 @@ class BatchedSessions:
     def block_until_ready(self) -> None:
         for dev in {dev for _, dev, _ in self._shards}:
             if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+                synchronize(dev)

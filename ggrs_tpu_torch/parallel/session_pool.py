@@ -31,6 +31,14 @@ takes: the same result, fewer kernels.  Each write that some row takes is
 one ``checksum_device`` launch over the B rows and one scatter per ring
 buffer; the descriptor goes to the card in one copy from pinned memory.
 
+The JAX package jits that tick.  The port's counterpart on the card is a
+CUDA graph per shard and per set of those host decisions (``_ShardGraphs``):
+a tick packs its descriptor in one fixed layout, copies it in one copy into
+the shard's static descriptor buffer and replays one graph, which updates
+the ring and the live state in place and launches the same digests as the
+eager tick.  The eager ``_tick_shard`` is the graphs' plain version and
+what the CPU runs; routing is by the shard's device.
+
 Saved states live in per-session rings ``[B, R, ...]`` tagged with frame
 numbers and 4-lane digests; ``GameStateCell``s are fulfilled with lazy slot
 references and lazy checksums, so desync detection and ``cell.load()`` work
@@ -60,12 +68,13 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..convert import from_numpy, to_numpy
+from ..convert import copy_into, from_numpy, to_numpy
 from ..core.device import DeviceLike, resolve_device
 from ..core.types import AdvanceFrame, Frame, GgrsRequest, LoadGameState, SaveGameState
 from ..obs.registry import default_registry
 from ..obs.trace import NULL_TRACER
 from ..ops.checksum import CHECKSUM_LANES, checksum_device, checksum_to_u128
+from ..ops.graphs import Graph, GraphSet, synchronize
 from ..ops.ring import DeviceStateRing
 from ..utils.tree import tree_map
 from .batch import Mesh, _on
@@ -159,16 +168,145 @@ class _Upload:
         self._size = at + (arr.nbytes + 7) // 8 * 8
         return len(self._parts) - 1
 
-    def send(self, device: torch.device) -> List[torch.Tensor]:
+    def pack(self) -> np.ndarray:
+        """The sections as one host byte buffer."""
         buf = np.zeros(max(self._size, 8), np.uint8)
         for at, arr in self._parts:
             buf[at:at + arr.nbytes] = arr.reshape(-1).view(np.uint8)
-        dev = from_numpy(buf, device)
+        return buf
+
+    def views(self, dev: torch.Tensor) -> List[torch.Tensor]:
+        """Each section as a typed view of ``dev``, a byte buffer that holds
+        (or will hold) ``pack()``."""
         out = []
         for at, arr in self._parts:
             t = dev[at:at + arr.nbytes].view(_torch_dtype(arr.dtype))
             out.append(t.reshape(arr.shape))
         return out
+
+    def send(self, device: torch.device) -> List[torch.Tensor]:
+        return self.views(from_numpy(self.pack(), device))
+
+
+class _ShardGraphs:
+    """One shard's masked tick as CUDA graphs: the counterpart of the JAX
+    package's jitted (and, under a mesh, shard_mapped) ``vmap`` of
+    ``session_tick``.
+
+    A graph is keyed by the decisions the eager ``_tick_shard`` makes on
+    the host each tick (``key``): the largest ``n_adv`` and which masked
+    writes some row takes.  So a replay launches the same digests as the
+    eager tick, and everything per row is a fixed-shape tensor of one
+    descriptor, whose layout is fixed by the shard's rows and the pool's
+    ``max_burst`` (``pack``): each write's ``(rows,)`` mask, flat ring
+    index and frame, the load's mask and index, each step's ``act`` mask
+    and the ``(max_burst, rows, ...)`` inputs.  A row a write's mask does
+    not take points at its own slot and writes back its contents
+    (``DeviceStateRing.save_rows_where``); ``_tree_where`` with an all-true
+    mask is the plain output bit for bit.  A tick packs its descriptor on
+    the host, copies it from a fresh pinned block into the static
+    descriptor buffer in one copy, and replays its key's graph, which
+    updates the shard's ring and live state in place (the live state is a
+    static buffer: the graph copies the tick's final state into it).
+
+    A graph is captured at its key's first tick (``warmup`` captures a
+    quiet tick's and a full-window rollback's).  It is captured while the
+    descriptor buffer is all zero, a descriptor that takes no row; the
+    tick's own descriptor is copied in after, before the replay."""
+
+    def __init__(self, pool: "BatchedRequestExecutor", shard: Dict[str, Any]) -> None:
+        self.pool = pool
+        self.shard = shard
+        self.set = GraphSet(shard["device"])
+        self._graphs: Dict[tuple, Graph] = {}
+        blank = {k: v[:pool._rows] for k, v in pool._blank_desc().items()}
+        up, _ = self.pack(blank)
+        self._static = torch.zeros(up.pack().nbytes, dtype=torch.uint8, device=shard["device"])
+        self._views = up.views(self._static)
+
+    @property
+    def captures(self) -> int:
+        return self.set.captures
+
+    @property
+    def replays(self) -> int:
+        return self.set.replays
+
+    def pack(self, desc: Dict[str, np.ndarray]) -> Tuple[_Upload, tuple]:
+        """The descriptor of one shard's rows in the fixed layout, and the
+        key of its graph."""
+        ring = self.pool._ring
+        rows = np.arange(len(desc["n_adv"]))
+        n_adv = desc["n_adv"]
+        act = np.arange(self.pool.max_burst)[:, None] < n_adv[None, :]  # (D, rows)
+        save = act & desc["save_mask"].T
+        up = _Upload()
+        for mask, frames in ((desc["pre_save"], desc["pre_frame"]),
+                             (desc["postload_save"], desc["postload_frame"])):
+            up.add(mask)
+            up.add(ring.flat_index(rows, frames))
+            up.add(frames)
+        up.add(desc["do_load"])
+        up.add(ring.flat_index(rows, desc["load_frame"]))
+        up.add(act)
+        up.add(save)
+        up.add(ring.flat_index(rows[None, :], desc["save_frame"].T))
+        up.add(np.ascontiguousarray(desc["save_frame"].T))
+        up.add(np.moveaxis(desc["inputs"], 1, 0))
+        n_max = int(n_adv.max())
+        key = (n_max, bool(desc["pre_save"].any()), bool(desc["do_load"].any()),
+               bool(desc["postload_save"].any()), tuple(save[:n_max].any(axis=1).tolist()))
+        return up, key
+
+    def _body(self, key: tuple) -> Callable[[], None]:
+        n_max, pre, load, post, saves = key
+        pool, shard = self.pool, self.shard
+        ring, live, dring = shard["ring"], shard["live"], pool._ring
+        (pre_mask, pre_index, pre_frame, post_mask, post_index, post_frame, load_mask,
+         load_index, act, save_mask, save_index, save_frame, inputs) = self._views
+
+        def write(st: Any, index, frames, mask) -> None:
+            cs = checksum_device(st) if pool._with_checksums else shard["zero_cs"]
+            dring.save_rows_where(ring, index, st, cs, frames, mask)
+
+        def body() -> None:
+            if pre:
+                write(live, pre_index, pre_frame, pre_mask)
+            st = live
+            if load:
+                st = _tree_where(load_mask, dring.load_rows(ring, load_index), live)
+            if post:
+                write(st, post_index, post_frame, post_mask)
+            for j in range(n_max):
+                st = _tree_where(act[j], pool._advance(st, inputs[j]), st)
+                if saves[j]:
+                    write(st, save_index[j], save_frame[j], save_mask[j])
+            if st is not live:
+                tree_map(lambda dst, src: dst.copy_(src), live, st)
+
+        return body
+
+    def warm(self) -> None:
+        """Capture the keys every live loop meets: a quiet tick (each row
+        saves its live state, then advances once) and a full-window
+        rollback (beside quiet rows, a load and ``max_burst`` advances, each
+        but the live last one saved)."""
+        d = self.pool.max_burst
+        self.capture((1, True, False, False, (False,)))
+        self.capture((d, True, True, False, (True,) * (d - 1) + (False,)))
+
+    def capture(self, key: tuple) -> Graph:
+        self._static.zero_()
+        graph = self._graphs[key] = self.set.capture(self._body(key))
+        return graph
+
+    def tick(self, desc: Dict[str, np.ndarray]) -> None:
+        up, key = self.pack(desc)
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = self.capture(key)
+        copy_into(self._static, torch.from_numpy(up.pack()))
+        graph.replay()
 
 
 class BatchedRequestExecutor:
@@ -261,7 +399,7 @@ class BatchedRequestExecutor:
                 live = tree_map(lambda l: l.unsqueeze(0).expand(self._rows, *l.shape).clone(), state0)
                 self._shards.append({
                     "lo": k * self._rows, "device": dev, "live": live,
-                    "ring": self._ring.init(live),
+                    "ring": self._ring.init(live), "graphs": None,
                     "zero_cs": torch.zeros((self._rows, CHECKSUM_LANES), dtype=torch.int32,
                                            device=dev),
                 })
@@ -425,10 +563,21 @@ class BatchedRequestExecutor:
         for shard in self._shards:
             lo, hi = shard["lo"], shard["lo"] + self._rows
             with _on(shard["device"]):
-                self._tick_shard(shard, {k: v[lo:hi] for k, v in desc.items()})
+                self._run_shard(shard, {k: v[lo:hi] for k, v in desc.items()})
+
+    def _run_shard(self, shard: Dict[str, Any], desc: Dict[str, np.ndarray]) -> None:
+        """One shard's rows of the tick: one replay of its graphs on a CUDA
+        shard (``_ShardGraphs``), the eager ``_tick_shard`` elsewhere."""
+        graphs = shard["graphs"]
+        if graphs is None:
+            self._tick_shard(shard, desc)
+        else:
+            graphs.tick(desc)
 
     def _tick_shard(self, shard: Dict[str, Any], desc: Dict[str, np.ndarray]) -> None:
-        """One shard's rows of the tick, masked over them."""
+        """One shard's rows of the tick, masked over them: the plain version
+        of its graphs, and what the CPU runs.  It skips each write that no
+        row takes and replaces the shard's live state."""
         rows_all = len(desc["n_adv"])
         n_max = int(desc["n_adv"].max())
         up = _Upload()
@@ -477,8 +626,12 @@ class BatchedRequestExecutor:
     def warmup(self, example_inputs: Any) -> None:
         """Record the per-frame input array's shape and dtype, and run the
         tick's device work once without touching the pool's state (a B-row
-        digest, advance and gather), then wait for the card: this builds the
-        digest kernel and fills the allocators before a live loop."""
+        digest, advance and gather): this builds the digest kernel and the
+        game's device constants before a live loop.  On a CUDA shard it
+        then captures the graphs that every live loop meets (``captures``):
+        a quiet tick (one advance after a pre-save) and a full-window
+        rollback (a load and ``max_burst`` advances, each but the last
+        saved, beside quiet rows' pre-saves).  Then it waits for the card."""
         arr = np.asarray(example_inputs)
         self._input_dtype = arr.dtype
         self._input_shape = arr.shape
@@ -491,7 +644,20 @@ class BatchedRequestExecutor:
                 self._advance(shard["live"], inputs)
                 index = from_numpy(self._ring.flat_index(np.arange(B), np.zeros(B, np.int64)), dev)
                 self._ring.load_rows(shard["ring"], index)
+                if dev.type == "cuda" and shard["graphs"] is None:
+                    shard["graphs"] = _ShardGraphs(self, shard)
+                    shard["graphs"].warm()
         self.block_until_ready()
+
+    @property
+    def captures(self) -> int:
+        """Graphs captured over the shards (0 on the CPU)."""
+        return sum(s["graphs"].captures for s in self._shards if s["graphs"] is not None)
+
+    @property
+    def replays(self) -> int:
+        """Graph replays over the shards: one a shard a tick on the card."""
+        return sum(s["graphs"].replays for s in self._shards if s["graphs"] is not None)
 
     def _fulfill_fast(self, cells, b: int, frame: Frame) -> None:
         """Fulfil one save cell WITHOUT a SaveGameState object (the
@@ -668,11 +834,12 @@ class BatchedRequestExecutor:
 
     @property
     def live_states(self) -> Any:
-        """The ``(B, ...)`` live state tensors: no transfer on one device, a
-        copy on the first shard's device when sharded."""
+        """A copy of the ``(B, ...)`` live state tensors, on the first
+        shard's device (the card's graphs update the live state in place,
+        so the caller never gets the tick's own tensors)."""
         self._check_valid()
         if len(self._shards) == 1:
-            return self._shards[0]["live"]
+            return tree_map(torch.clone, self._shards[0]["live"])
         return tree_map(lambda *leaves: torch.cat([l.to(self.device) for l in leaves]),
                         *[shard["live"] for shard in self._shards])
 
@@ -688,10 +855,11 @@ class BatchedRequestExecutor:
         return self._shards[index // self._rows], index % self._rows
 
     def live_state(self, index: int) -> Any:
-        """One session's live state, fetched to the host as numpy arrays."""
+        """One session's live state, fetched to the host as numpy arrays of
+        its own (the live state is updated in place on the graph route)."""
         self._check_valid()
         shard, row = self._locate(index)
-        return to_numpy(tree_map(lambda l: l[row], shard["live"]))
+        return to_numpy(tree_map(lambda l: l[row].clone(), shard["live"]))
 
     def _check_valid(self) -> None:
         if self._invalid is not None:
@@ -735,7 +903,7 @@ class BatchedRequestExecutor:
         with self.tracer.span("device.fence"):
             for shard in self._shards:
                 if shard["device"].type == "cuda":
-                    torch.cuda.synchronize(shard["device"])
+                    synchronize(shard["device"])
 
 
 class HostedPool:

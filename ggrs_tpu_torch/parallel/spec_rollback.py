@@ -46,6 +46,7 @@ from ..convert import from_numpy
 from ..core.device import DeviceLike, resolve_device
 from ..ops.checksum import checksum_device
 from ..ops.executor import _stack_pytrees
+from ..ops.graphs import synchronize
 from ..utils.tree import tree_leaves, tree_map
 
 AdvanceFn = Callable[[Any, Any], Any]
@@ -451,7 +452,7 @@ class SpeculativeRollback:
                         0, [example_inputs] * n, state, with_checksums, live_inputs=live,
                     )
             if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+                synchronize(self.device)
         finally:
             (self._root_frame, self._count, self._states, self._traj_buf,
              self._inp_buf, self._prefix_buf, self._hit_count) = saved

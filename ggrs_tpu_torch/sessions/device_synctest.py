@@ -25,6 +25,7 @@ from ..convert import from_numpy, to_numpy
 from ..core.device import DeviceLike, resolve_device
 from ..core.errors import InvalidRequest, MismatchedChecksum
 from ..ops.checksum import checksum_device
+from ..ops.graphs import synchronize
 from ..ops.replay import I32_MAX, ReplayPrograms, build_replay_programs
 from ..utils.checkpoint import load_pytree, save_pytree
 from ..utils.tracing import trace_span
@@ -142,7 +143,7 @@ class DeviceSyncTestSession:
 
     def block_until_ready(self) -> None:
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            synchronize(self.device)
 
     # ------------------------------------------------------------------
 

@@ -10,7 +10,14 @@ is not a view: on the card each is one kernel or copy.  A digest call counts
 as the launches its card route makes (one per group of ``MAX_LEAVES``
 leaves), not as the plain version's ops.  Prints one JSON line per workload:
 ops per peer-0 rollback tick and plain tick, and per pooled tick, past the
-first ticks.  It is a count, not a measurement: the card's numbers come from
+first ticks.
+
+Then the CUDA graphs of the request path: phase 5's executor drive
+(BoxGame(2) and ChipVM(2), SyncTest d = 7) and phase 12's pool at 64
+sessions run their graph route on the CPU, each capture replaced by a
+stand-in that runs the captured body at every replay, and the ops of one
+body are counted: the kernels a replay launches on the card, by graph key.
+It is a count, not a measurement: the card's numbers come from
 ``chip_smoke.py``.
 """
 
@@ -29,6 +36,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 import chip_smoke  # noqa: E402
 import ggrs_tpu_torch.ops.checksum as checksum_mod  # noqa: E402
 import ggrs_tpu_torch.ops.executor as executor_mod  # noqa: E402
+import ggrs_tpu_torch.ops.graphs as graphs_mod  # noqa: E402
 import ggrs_tpu_torch.parallel.session_pool as pool_mod  # noqa: E402
 from ggrs_tpu_torch.ops.digest import MAX_LEAVES  # noqa: E402
 
@@ -136,6 +144,71 @@ def main() -> None:
             pool_mod.BatchedRequestExecutor._tick = real_tick
         print(json.dumps({"workload": "pool", "sessions": 2 * matches, "ticks": ticks,
                           "ops_per_tick": summary(rows, 16)}), flush=True)
+    graph_counts()
+
+
+class _CountedGraph:
+    """A capture's stand-in on the CPU: each replay runs the captured body
+    again, its ops counted in ``ops``."""
+
+    def __init__(self, body) -> None:
+        self.body = body
+        self.ops: list = []
+
+    def replay(self) -> None:
+        self.ops.append(counted(self.body))
+
+
+def graph_counts() -> None:
+    """Ops a replay of each request-path graph runs, on the CPU."""
+    made: list = []
+
+    def record(graphs, body):
+        made.append(_CountedGraph(body))
+        return made[-1]
+
+    real_record = graphs_mod._record
+    graphs_mod._record = record
+    try:
+        for name, game, high in (("BoxGame(2)", chip_smoke.BoxGame(2), 16),
+                                 ("ChipVM(2)", chip_smoke.ChipVM(2), 256)):
+            made.clear()
+            programs = executor_mod.ExecutorPrograms(game.advance)
+            cpu = torch.device("cpu")
+            programs._graphs[cpu] = executor_mod.ExecutorGraphs(programs, cpu)
+            inputs = chip_smoke.np.random.default_rng(17).integers(
+                0, high, size=(40, 2)).astype(chip_smoke.np.uint8)
+            chip_smoke.drive_executor(game, inputs, "cpu", programs)
+            keys = list(programs._graphs[cpu]._entries)
+            print(json.dumps({"workload": "executor graphs", "game": name,
+                              "graphs": [{"key": k[0] + ("" if k[0] == "advance" else
+                                                         f" n={k[2][0][0][0]} digest={k[3]}"),
+                                          "replays": len(g.ops),
+                                          "ops_per_replay": summary(g.ops, 0)}
+                                         for k, g in zip(keys, made)]}), flush=True)
+
+        made.clear()
+        real_warmup = pool_mod.BatchedRequestExecutor.warmup
+
+        def warmup(self, example_inputs):
+            real_warmup(self, example_inputs)
+            for shard in self._shards:
+                shard["graphs"] = pool_mod._ShardGraphs(self, shard)
+                shard["graphs"].warm()
+
+        pool_mod.BatchedRequestExecutor.warmup = warmup
+        try:
+            chip_smoke.drive_pool(chip_smoke.POOL_MATCHES, 40, "cpu", True)
+        finally:
+            pool_mod.BatchedRequestExecutor.warmup = real_warmup
+        replayed = [g for g in made if g.ops]
+        print(json.dumps({"workload": "pool graphs", "sessions": chip_smoke.POOL_SESSIONS,
+                          "ticks": 40, "captures": len(made),
+                          "ops_per_replay": summary([n for g in replayed for n in g.ops], 0),
+                          "by_graph": [{"replays": len(g.ops), "ops": g.ops[0]}
+                                       for g in replayed]}), flush=True)
+    finally:
+        graphs_mod._record = real_record
 
 
 if __name__ == "__main__":

@@ -13,7 +13,12 @@ eight native phases, with the per-slot Python remainder attributed
 explicitly.  It is host only (the bank's requests are answered by a dummy
 save), as the JAX script is; ``scripts/port_tick_profile.py`` profiles the
 other half, the replay and the executor on the card, and the two share no
-code.
+code.  With ``--fulfil DEVICE`` it appends the device half of the same
+population's tick, untraced by the bank: the requests fulfilled by a
+``BatchedRequestExecutor`` on DEVICE (on a card, one CUDA graph replay a
+tick), with the host ms of ``run`` a tick and, on a card, the host's launch
+calls a tick inside ``run``, the device's busy ms and idle share a tick
+(``torch.profiler``) and the pool's graph captures and replays.
 
     python scripts/port_profile_tick.py                   # B=64, 200 ticks
     python scripts/port_profile_tick.py --matches 256 --ticks 100
@@ -21,6 +26,7 @@ code.
                                                           # per-slot parse
     python scripts/port_profile_tick.py --trace tick.perfetto.json
                                                           # + full Perfetto dump
+    python scripts/port_profile_tick.py --fulfil cuda     # + the device half
 
 Notes: a TRACED pool uses the legacy sequential decode by design (per-slot
 spans are the point of tracing), so the Python-side numbers here price the
@@ -143,6 +149,90 @@ def drive(pool, schedules, net, ticks, base=0, staged=True, split=None):
     return times
 
 
+# the host's CUDA calls the profiler names that launch work on the card
+LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cuGraphLaunch", "cudaMemcpy",
+                "cuMemcpy", "cudaMemset", "cuMemset")
+
+
+def fulfil_leg(n_matches: int, ticks: int, device: str, profiled: int = 8) -> None:
+    """The population's tick with its requests fulfilled on ``device`` by a
+    ``BatchedRequestExecutor`` (the RequestPlan's columns into the masked
+    tick): host ms of ``run`` a tick over ``ticks`` ticks, then, on a card,
+    ``profiled`` more ticks under ``torch.profiler``."""
+    import torch
+
+    from ggrs_tpu_torch.games import BoxGame
+    from ggrs_tpu_torch.parallel import BatchedRequestExecutor
+
+    pool, schedules, net = build_pool(n_matches)
+    game = BoxGame(2)
+    ex = BatchedRequestExecutor(
+        game.advance, game.init_state_np(),
+        lambda pairs: np.asarray([v for v, _ in pairs], np.uint8),
+        batch_size=len(pool), ring_length=10, max_burst=9, device=device,
+        raw_inputs_to_array=lambda blobs, statuses: blobs[:, :, 0])
+    ex.warmup(np.zeros(2, np.uint8))
+    card = ex.device.type == "cuda"
+    n = len(pool)
+    run_s = 0.0
+
+    def tick(i: int, span: bool = False) -> float:
+        pool.stage_inputs([(h, h % 2, schedules[h](i)) for h in range(n)])
+        plan = pool.advance_all()
+        t0 = time.perf_counter()
+        if span:
+            with torch.profiler.record_function("fulfil:run"):
+                ex.run(plan)
+        else:
+            ex.run(plan)
+        dt = time.perf_counter() - t0
+        net.tick()
+        return dt
+
+    for i in range(16):
+        tick(i)
+    ex.block_until_ready()
+    t0 = time.perf_counter()
+    for i in range(16, 16 + ticks):
+        run_s += tick(i)
+    ex.block_until_ready()
+    wall_ms = (time.perf_counter() - t0) / ticks * 1e3
+    print(f"\n# device fulfilment on {ex.device}: B={n_matches} matches, {ticks} ticks")
+    print(f"  run                    {run_s / ticks * 1e6:9.0f} us/tick   "
+          f"(whole tick {wall_ms:.2f} ms)")
+    if not card:
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    captures = ex.captures
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(16 + ticks, 16 + ticks + profiled):
+            tick(i, span=True)
+        ex.block_until_ready()
+        traced_ms = (time.perf_counter() - t0) / profiled * 1e3
+    cpu = torch.autograd.DeviceType.CPU
+    events = prof.events()
+    spans = [e.time_range for e in events if e.name == "fulfil:run" and e.device_type == cpu]
+    calls = {}
+    for e in events:
+        if (e.device_type == cpu and e.name.startswith(LAUNCH_CALLS)
+                and any(r.start <= e.time_range.start <= r.end for r in spans)):
+            calls[e.name] = calls.get(e.name, 0) + 1 / profiled
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.startswith("fulfil:")) / profiled
+    launches = " ".join(f"{k} {v:.2f}" for k, v in sorted(calls.items()))
+    print(f"  launch calls in run    {launches or 'none'} per tick"
+          f"   ({'a capture in the window' if ex.captures != captures else 'replays only'})")
+    if busy_us:
+        print(f"  device busy            {busy_us:9.0f} us/tick   "
+              f"idle share {1 - busy_us / 1e3 / traced_ms:.3f} of the traced tick")
+    else:
+        print("  device busy            not measured")
+    print(f"  graphs                 {ex.captures} captures, {ex.replays} replays")
+
+
 def bar(us, full_us, width=42):
     n = 0 if full_us <= 0 else int(round(width * us / full_us))
     return "█" * max(0, min(width, n))
@@ -170,6 +260,9 @@ def main() -> int:
                          "parallel slow-slot decode (untraced, fast path "
                          "off so every slot is slow), with per-worker "
                          "utilization and GRO segments-per-datagram")
+    ap.add_argument("--fulfil", default=None, metavar="DEVICE",
+                    help="append the device half: the requests fulfilled by a "
+                         "BatchedRequestExecutor on DEVICE (cuda or cpu)")
     ap.add_argument("--decode-backend", default="thread",
                     metavar="B", help="parallel leg backend for --decode "
                                       "(default thread)")
@@ -237,6 +330,9 @@ def main() -> int:
         print(f"\n# §21 staging/decode split (wall, batched staging): "
               f"staging {stage_us:.0f} us/tick, "
               f"advance_all (crossing+decode) {decode_us:.0f} us/tick")
+
+    if args.fulfil:
+        fulfil_leg(args.matches, args.ticks, args.fulfil)
 
     if args.trace:
         path = tracer.write(args.trace)

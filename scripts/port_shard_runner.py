@@ -13,9 +13,11 @@ standalone for the supervisor to adopt:
 Everything else (the frame protocol, the ops, heartbeats, the SIGTERM
 drain) lives in ``ggrs_tpu_torch.fleet.proc.ShardRunner``.  The runner
 imports torch and numpy, never jax.  On a machine with a CUDA card it
-opens its CUDA context and loads the digest kernel's library before it
-serves, so the first ``admit`` or ``tick`` call pays neither (the library
-is built at first use; in a fleet the parent builds it before spawning).
+opens its CUDA context, loads the digest kernel's library and warms the
+fleet's card game (``chaos.ExecutorGame`` for two-player BoxGame) before it
+serves, so the first ``admit`` or ``tick`` call pays none of them (the
+library is built at first use; in a fleet the parent builds it before
+spawning).
 
 Exit code 0 = drained (signal or supervisor-requested shutdown);
 1 = the supervisor vanished or the control stream was poisoned.  After
@@ -32,18 +34,25 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import torch  # noqa: E402
 
+from ggrs_tpu_torch.chaos import ExecutorGame  # noqa: E402
 from ggrs_tpu_torch.fleet.proc import runner_main  # noqa: E402
 from ggrs_tpu_torch.ops import digest  # noqa: E402
 
 
 def warm_card() -> None:
-    """Open this process's CUDA context and load the digest library (built
-    at first use) before serving: both take longer than one RPC's
-    deadline.  Nothing happens without a card."""
+    """Open this process's CUDA context, load the digest library (built at
+    first use) and warm the card game that the fleet's two-player matches
+    ship, before serving: each takes longer than one RPC's deadline may
+    allow.  The game's first advance loads its kernels (CUDA loads a
+    kernel's module at its first launch), and the first ``ExecutorGame``
+    of a process captures its graphs; the process keeps those programs, so
+    the match that ships the same factory finds them.  Nothing happens
+    without a card."""
     if torch.cuda.is_available():
         torch.zeros(1, device="cuda")
         torch.cuda.synchronize()
         digest._lib()
+        ExecutorGame("boxgame", 2)
 
 
 if __name__ == "__main__":

@@ -7,24 +7,24 @@
 Runs the port's batched replay (ChipVM(2), B sessions, check_distance 8) and
 the flagship (BoxGame(2), one session, check_distance 8) past warmup and the
 captures of their steady ticks' CUDA graphs, then times a few steady ticks
-(graph replays) of each, then traces as many more with ``torch.profiler``.  With ``--executor`` it does the same for frames of the
-request-list path instead: ``SessionBuilder`` -> ``SyncTestSession`` ->
+(graph replays) of each, then traces as many more with ``torch.profiler``.
+With ``--executor`` it does the same for frames of the request-list path
+instead: ``SessionBuilder`` -> ``SyncTestSession`` ->
 ``DeviceRequestExecutor`` at check_distance 7 (max_prediction 8), for
-BoxGame(2) and ChipVM(2); a frame is ``advance_frame``, ``run`` and reading
-back the frame's saved checksums, as the session reads them next frame.
+BoxGame(2) and ChipVM(2), past the warmup that captures the executor's
+graphs; a frame is ``advance_frame``, ``run`` (one burst graph replay once
+steady) and reading back the frame's saved checksums, as the session reads
+them next frame.
 
 Prints one JSON line per workload: host wall time per tick or frame
 (untraced, and traced), device busy time (sum of kernel times; one stream,
-so kernels do not overlap), the device's idle share, kernel launches, and
-the kernels that take the most device time; for the executor also the host
-ms of ``advance_frame`` and of ``run``.  The whole digest is the digest
-kernel (found by name) plus every other kernel launched inside the digest
-calls, which are wrapped in a ``ggrs:digest`` range for the traced window
-only (executor frames; a replayed tick's digest runs inside its graph and is
-the kernel alone): so the packing ops of an older digest count too.  (The profiler does
-not tie a kernel launched through ctypes to the range around it, hence the
-name.)  If the profiler records no device time, the device numbers print as
-"not measured".
+so kernels do not overlap), the device's idle share, kernel launches, the
+kernels that take the most device time, the digest kernel (found by name:
+it runs inside the graphs, so no range can be put around it), and the
+host's launch calls a tick or frame (``cudaGraphLaunch``, copies, kernel
+launches); for the executor also the host ms of ``advance_frame`` and of
+``run``, and its graphs' captures and replays.  If the profiler records no
+device time, the device numbers print as "not measured".
 
 The host bank's own tick (the native crossing and its phases) is profiled by
 ``scripts/port_profile_tick.py``, the twin of ``scripts/profile_tick.py``;
@@ -34,7 +34,6 @@ the two scripts share no code.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import subprocess
@@ -43,7 +42,7 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -57,11 +56,13 @@ from ggrs_tpu_torch import (  # noqa: E402
     SessionBuilder,
     boxgame_config,
 )
-from ggrs_tpu_torch.ops import executor as executor_mod  # noqa: E402
 
 D = 8
 EXEC_D, EXEC_MAX_PREDICTION = 7, 8
 DIGEST_KERNELS = ("state_digest", "lane_sums_rows")  # the digest kernel, now and before its redesign
+# the host's CUDA calls the profiler names that launch work on the card
+LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cuGraphLaunch", "cudaMemcpy",
+                "cuMemcpy", "cudaMemset", "cuMemset")
 
 
 def _device_us(evt) -> float:
@@ -72,41 +73,9 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _span_kernels(evt):
-    """(device us, kernel count) of every kernel launched under ``evt``,
-    the digest kernel left out."""
-    own = [k for k in evt.kernels if not any(d in k.name for d in DIGEST_KERNELS)]
-    us = sum(k.duration for k in own)
-    n = len(own)
-    for child in evt.cpu_children:
-        cu, cn = _span_kernels(child)
-        us, n = us + cu, n + cn
-    return us, n
-
-
-def _in_digest_range(fn):
-    def traced(state):
-        with record_function("ggrs:digest"):
-            return fn(state)
-
-    return traced
-
-
-@contextlib.contextmanager
-def executor_digest_range():
-    """Wrap the executor's ``checksum_device`` in a ``ggrs:digest`` range."""
-    untraced = executor_mod.checksum_device
-    executor_mod.checksum_device = _in_digest_range(untraced)
-    try:
-        yield
-    finally:
-        executor_mod.checksum_device = untraced
-
-
-def profile_ticks(name: str, run_tick, sync, ticks: int, digest_range) -> dict:
+def profile_ticks(name: str, run_tick, sync, ticks: int) -> dict:
     """Time ``ticks`` steady ticks untraced (the wall the idle share is taken
-    against: tracing slows the host), then trace ``ticks`` more with the
-    digest calls inside ``digest_range()``."""
+    against: tracing slows the host), then trace ``ticks`` more."""
     run_tick()
     sync()
     t0 = time.perf_counter()
@@ -114,7 +83,7 @@ def profile_ticks(name: str, run_tick, sync, ticks: int, digest_range) -> dict:
         run_tick()
     sync()
     plain_wall = time.perf_counter() - t0
-    with digest_range(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(ticks):
             run_tick()
@@ -130,11 +99,10 @@ def profile_ticks(name: str, run_tick, sync, ticks: int, digest_range) -> dict:
     busy_us = sum(_device_us(e) for e in kernels)
     launches = sum(e.count for e in kernels)
     top = sorted(kernels, key=_device_us, reverse=True)[:8]
-    span_us = span_n = 0
+    host_launches = {}
     for e in prof.events():
-        if e.name == "ggrs:digest" and e.device_type == torch.autograd.DeviceType.CPU:
-            us, n = _span_kernels(e)
-            span_us, span_n = span_us + us, span_n + n
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith(LAUNCH_CALLS):
+            host_launches[e.name] = host_launches.get(e.name, 0) + 1 / ticks
     by_name = [e for e in kernels if any(k in e.key for k in DIGEST_KERNELS)]
     by_name_us = sum(_device_us(e) for e in by_name)
     rec = {"workload": name, "ticks": ticks,
@@ -159,12 +127,8 @@ def profile_ticks(name: str, run_tick, sync, ticks: int, digest_range) -> dict:
                 for e in by_name
             ],
             "digest_kernel_share_of_busy": by_name_us / busy_us,
-            "whole_digest": {
-                "kernels_per_tick": (span_n + sum(e.count for e in by_name)) / ticks,
-                "device_us_per_tick": (span_us + by_name_us) / ticks,
-                "share_of_busy": (span_us + by_name_us) / busy_us,
-            },
         })
+    rec["host_launch_calls_per_tick"] = host_launches
     print(json.dumps(rec), flush=True)
     return rec
 
@@ -204,7 +168,10 @@ def profile_executor(name: str, game, high: int, frames: int, sync) -> dict:
         frame()
     sync()
     split.update(advance_frame=0.0, run=0.0, read_checksums=0.0)
-    rec = profile_ticks(name, frame, sync, frames, executor_digest_range)
+    rec = profile_ticks(name, frame, sync, frames)
+    graphs = ex._programs.graphs(ex.device)  # the graphs of the current card
+    print(json.dumps({"workload": name, "captures": graphs.captures,
+                      "replays": graphs.replays}), flush=True)
     # split covers the untimed first frame, the untraced and the traced window
     return rec, {k: v / (2 * frames + 1) * 1e3 for k, v in split.items()}
 
@@ -251,7 +218,7 @@ def main() -> int:
     it = iter(range(warm, n))
     profile_ticks(f"batched ChipVM(2) B={args.batch} d={D}",
                   lambda: batch.run_ticks(inputs[:, next(it)].unsqueeze(1), check=False),
-                  sync, args.ticks, contextlib.nullcontext)
+                  sync, args.ticks)
     if batch.verify()["mismatches"]:
         print("port_tick_profile: batched run mismatched", file=sys.stderr)
         return 1
@@ -266,7 +233,7 @@ def main() -> int:
     it2 = iter(range(warm, warm + 1 + 2 * ticks))
     profile_ticks(f"flagship BoxGame(2) d={D}",
                   lambda: sess.run_ticks(box_in[next(it2)].unsqueeze(0), check=False),
-                  sync, ticks, contextlib.nullcontext)
+                  sync, ticks)
     sess.verify()
     return 0
 
