@@ -123,16 +123,28 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    in-memory network, max_prediction 8, desync detection at interval 1, for
    400 ticks (the last 20 with inputs held); peer 0's executor carries
    ``SpeculativeRollback(K=8, max_window=8)`` with ``bench.py``'s
-   hypotheses (seven held-button guesses and the schedule itself).  The
-   same drive without speculation, and the speculating drive on the CPU:
-   all four peers' states and every checksum they sent are bitwise equal
-   across the three, 0 ``DesyncDetected``, hits + misses equal peer 0's
-   rollbacks, every window the branches cover hits, and no fused rollback
-   tick runs a burst.  Every ``run`` under the sync debug mode "error".
-   Kernels and device busy per peer-0 rollback tick and plain tick for both
-   variants (40 rollback ticks mid-run and the last 15, plain, each ``run``
-   alone under the profiler), host ms per tick, digest launches observed
-   and predicted.
+   hypotheses (seven held-button guesses and the schedule itself).  On the
+   card every speculation call is one CUDA graph replay
+   (``parallel.spec_rollback.SpecGraphs``: 18 captured in the warmup,
+   ``advance_and_extend``, ``extend`` and the fused tick at n = 1..8 with
+   and without the live advance).  The same drive on the eager twin
+   (``EagerSpec``), without speculation, and on the CPU: all four peers'
+   states and every checksum they sent are bitwise equal across the four,
+   0 ``DesyncDetected``, hits + misses equal peer 0's rollbacks and the
+   CPU's, every window the branches cover hits, and no fused rollback tick
+   runs a burst.  Every ``run`` under the sync debug mode "error".  Peer
+   0's profiled ticks (40 rollback ticks mid-run, two plain ticks of the
+   drain that extend the window and its last eight, each ``run`` alone under
+   the profiler) are counted at the dispatcher: a fused rollback tick is 1
+   graph launch and 3L + 2 copies, a plain tick 1 graph launch and 2L + 1
+   copies (L leaves).  Kernels and device busy per tick, host launch calls
+   in ``run``, host ms per rollback tick, plain tick that extends the window
+   and plain tick for the graphs, the eager twin and speculation off, digest
+   launches observed and predicted, captures and replays.  Then
+   ``build_speculation_programs(BoxGame(4).advance, 8)`` at W = 8 on its
+   graphs (5 captures), its eager twin and the CPU: ``init``,
+   ``speculate_window``, ``resolve`` of a hit and a miss, ``replay_window``
+   and ``collapse`` bitwise equal.
 12. pool -- ``bench.py``'s massed hosting: 32 two-peer BoxGame matches (64
    sessions, ring 10, max_burst 9, desync detection at interval 8) for 180
    ticks through one ``BatchedRequestExecutor``, and through 64
@@ -163,10 +175,12 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    frame under the profiler) and for phases 7 and 12.
 14. plane -- the 64-session pool with ``Config.for_uint(8)`` carrying
    ``BatchedRepeatLast``, then ``BatchedDefault``: the prediction plane on
-   the card and off, and on the CPU; live states, ring and sent checksums
-   bitwise equal across the three, the plane's hits > 0 and its stats equal
-   to the CPU's, one host-to-device and one device-to-host copy per
-   ``begin_tick`` (counted at PyTorch's dispatcher) and its host us.
+   the card (its kernel one CUDA graph replay a ``begin_tick``), on its
+   eager twin (``EagerPlane``), off, and on the CPU; live states, ring and
+   sent checksums bitwise equal across the four, the plane's hits > 0 and
+   its stats equal to the eager twin's and the CPU's, one host-to-device
+   and one device-to-host copy (counted at PyTorch's dispatcher) and one
+   graph launch per ``begin_tick``, one capture, and its host us.
 15. mesh (BASELINE config 5's shape) -- ChipVM(2) at d = 8 over
    ``make_mesh(1)``, ``make_mesh2d(1, 1)`` and ``make_distributed_mesh()`` in
    a world-size-1 NCCL group (a ``file://`` store in a temporary directory,
@@ -323,8 +337,8 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    probe variant.
 
 After each phase, a line with its seconds and the CUDA graphs (the
-replay's, the scrub's, the executors' and the pools') it captured and
-replayed in this process.
+replay's, the scrub's, the executors', the pools', speculation's and the
+plane's) it captured and replayed in this process.
 Then the seconds each phase took, one ``{"kernels": [...]}`` line (phase
 21's launches as ``launches_sanitized_production`` and
 ``launches_sanitized``, phases 22–23's as ``launches_examples`` and
@@ -405,6 +419,7 @@ from ggrs_tpu_torch import (
 )
 from ggrs_tpu_torch import NotSynchronized, PredictionThreshold, UdpNonBlockingSocket
 from ggrs_tpu_torch.broadcast import SpectatorHub
+from ggrs_tpu_torch.convert import from_numpy
 from ggrs_tpu_torch.chaos import (
     EXECUTOR_COUNTS,
     ExecutorGame,
@@ -439,6 +454,7 @@ from ggrs_tpu_torch.ops.digest import (
     lane_sums_rows_plain,
     state_digest,
 )
+from ggrs_tpu_torch.parallel.speculation import BranchPrograms
 from ggrs_tpu_torch.utils.tree import tree_leaves, tree_map
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -482,8 +498,10 @@ FLOAT_ATOL = 1e-3  # per leaf, card against CPU; cos/sin may differ in the last 
 RTS_FRAMES, RTS_DRAIN, RTS_SETTLE, RTS_WINDOW = 600, 20, 200, 64
 SPEC_PLAYERS, SPEC_K, SPEC_W, SPEC_MAX_PREDICTION = 4, 8, 8, 8  # BASELINE config 3
 SPEC_TICKS, SPEC_DRAIN = 400, 20
-# peer 0's profiled ticks: rollback ticks mid-run, plain ticks in the drain
-SPEC_PROFILED = tuple(range(100, 140)) + tuple(range(SPEC_TICKS - 15, SPEC_TICKS))
+# peer 0's profiled ticks: rollback ticks mid-run, and in the drain two
+# plain ticks that extend the window and the last eight (the window full)
+SPEC_PROFILED = (tuple(range(100, 140)) + (SPEC_TICKS - 14, SPEC_TICKS - 13)
+                 + tuple(range(SPEC_TICKS - 8, SPEC_TICKS)))
 POOL_MATCHES, POOL_RING, POOL_MAX_BURST, POOL_DESYNC_INTERVAL = 32, 10, 9, 8
 POOL_SESSIONS, POOL_TICKS, POOL_PROFILED = 2 * POOL_MATCHES, 180, 8
 POOL_BIG_MATCHES, POOL_BIG_TICKS = 256, 24
@@ -492,6 +510,7 @@ NATIVE_CORES = {("_NativeSyncCore", "NativeEndpointCore")}
 PYTHON_CORES = {("InputQueue", "PyEndpointCore")}
 PLANE_PREDICTORS = (("BatchedRepeatLast", BatchedRepeatLast), ("BatchedDefault", BatchedDefault))
 PLANE_PROFILED = 4
+PLANE_CALLS = 200  # begin_tick calls a timed round, graph and eager twin alternating
 # BASELINE config 5 (256 SyncTest sessions over a mesh), and phase 4's
 # 16,384 sessions for a shortened run: 24 ticks, the first 18 untimed (the
 # warmup and every graph's capture), the last 2 profiled
@@ -2019,14 +2038,90 @@ def spec_branches():
     return (lambda k, frame, arr: branch_inputs_all(frame, arr)[k]), branch_inputs_all
 
 
-def drive_spec(speculate: bool, device, profile: bool = False) -> dict:
+class EagerSpec(SpeculativeRollback):
+    """Speculation through its plain versions on the card (the eager
+    bodies): the graphs' eager twin.  The package has no switch; this
+    object offers no graphs, so its route is the eager one on any device."""
+
+    def graphs(self):
+        return None
+
+
+class EagerBranchPrograms(BranchPrograms):
+    """``build_speculation_programs``' five programs through their eager
+    bodies on any device: the branch graphs' eager twin."""
+
+    def graphs(self, device):
+        return None
+
+
+def dispatched(fn) -> dict:
+    """What one call of ``fn`` issues, counted at PyTorch's dispatcher:
+    copies (``copy_``, ``_to_copy``, ``clone``, whatever the devices), the
+    port's CUDA graph replays (one ``cudaGraphLaunch`` each) and digest
+    launches."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    aten = torch.ops.aten
+    copy_ops = (aten.copy_.default, aten._to_copy.default, aten.clone.default)
+    count = {"graph_launches": 0, "copies": 0, "digest_launches": -state_digest.launches}
+
+    class Copies(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            count["copies"] += func in copy_ops
+            return func(*args, **(kwargs or {}))
+
+    replay = graph_ops.Graph.replay
+
+    def counted(self):
+        count["graph_launches"] += 1
+        return replay(self)
+
+    graph_ops.Graph.replay = counted
+    try:
+        with Copies():
+            fn()
+    finally:
+        graph_ops.Graph.replay = replay
+    count["digest_launches"] += state_digest.launches
+    return count
+
+
+def spec_tick_prediction(kind: str, leaves: int) -> dict:
+    """The launches one peer-0 ``run`` issues on the graph route, by tick:
+    a fused rollback tick is one ``fulfill_and_refill`` replay between one
+    upload (inputs, hypotheses, window rows, offset), L copies of the loaded
+    state in and 2L + 1 clones out (steps, digests, live state); a plain
+    tick one ``advance_and_extend`` (or, with a full window, the executor's
+    advance) replay between one upload, L copies in and L clones out, and
+    its lone Save's one direct digest launch (a plain tick that extends the
+    window and one without count alike)."""
+    if kind == "rollback":
+        return {"graph_launches": 1, "copies": 3 * leaves + 2, "digest_launches": 1}
+    return {"graph_launches": 1, "copies": 2 * leaves + 1, "digest_launches": 1}
+
+
+def spec_tick_kind(reqs, spec) -> str:
+    """Peer 0's tick: a rollback, a plain tick that extends the window
+    (``advance_and_extend``), or a plain tick without (no speculation, or
+    the window unrooted or full: the executor's own advance)."""
+    if any(isinstance(r, LoadGameState) for r in reqs):
+        return "rollback"
+    if spec is not None and spec.root_frame is not None and spec.window < spec.max_window:
+        return "extend"
+    return "plain"
+
+
+def drive_spec(speculate: bool, device, profile: bool = False, eager: bool = False) -> dict:
     """BASELINE config 3: four ``BoxGame(4)`` P2P peers over an in-memory
     network, max_prediction 8, desync detection at interval 1, each with an
     executor on ``device``; with ``speculate`` peer 0 carries
-    ``SpeculativeRollback(K=8, max_window=8)``.  Every ``run`` on the card
-    is under the sync debug mode "error".  With ``profile``, peer 0's runs
-    of the ``SPEC_PROFILED`` ticks run alone under the profiler and are left
-    out of the host times."""
+    ``SpeculativeRollback(K=8, max_window=8)`` (its ``EagerSpec`` twin with
+    ``eager``).  Every ``run`` on the card is under the sync debug mode
+    "error".  With ``profile``, peer 0's runs of the ``SPEC_PROFILED`` ticks
+    run alone under the profiler, inside a ``smoke:run`` span and counted
+    at the dispatcher (``dispatched``), and are left out of the host
+    times."""
     game = BoxGame(SPEC_PLAYERS)
     net = InMemoryNetwork()
     names = [f"P{p}" for p in range(SPEC_PLAYERS)]
@@ -2035,8 +2130,9 @@ def drive_spec(speculate: bool, device, profile: bool = False) -> dict:
     for me in range(SPEC_PLAYERS):
         spec = None
         if speculate and me == 0:
-            spec = SpeculativeRollback(game.advance, SPEC_K, branch_inputs, max_window=SPEC_W,
-                                       branch_inputs_all=branch_inputs_all, device=device)
+            spec = (EagerSpec if eager else SpeculativeRollback)(
+                game.advance, SPEC_K, branch_inputs, max_window=SPEC_W,
+                branch_inputs_all=branch_inputs_all, device=device)
         ex = DeviceRequestExecutor(game.advance, game.init_state_np(), executor_inputs,
                                    speculation=spec, device=device)
         ex.warmup(np.zeros(SPEC_PLAYERS, np.uint8),
@@ -2051,6 +2147,8 @@ def drive_spec(speculate: bool, device, profile: bool = False) -> dict:
         peers.append((me, sess, ex))
     ex0 = peers[0][2]
     card = ex0.device.type == "cuda"
+    spec_graphs = None if ex0._spec is None else ex0._spec.graphs()
+    warm_captures = None if spec_graphs is None else spec_graphs.captures
     calls = {"burst": 0, "fused": 0}
     for obj, name, key in ((ex0, "_do_burst", "burst"), (ex0._spec, "fulfill_and_refill", "fused")):
         if obj is not None:
@@ -2058,8 +2156,8 @@ def drive_spec(speculate: bool, device, profile: bool = False) -> dict:
             setattr(obj, name, lambda *a, _o=orig, _k=key, **kw: (
                 calls.__setitem__(_k, calls[_k] + 1), _o(*a, **kw))[1])
     loads = predicted = desyncs = fused_with_burst = 0
-    host = {"tick": 0.0, "ticks": 0, "rollback": [0.0, 0], "plain": [0.0, 0]}
-    prof = {"rollback": [], "plain": []}
+    host = {"tick": 0.0, "ticks": 0, "rollback": [0.0, 0], "extend": [0.0, 0], "plain": [0.0, 0]}
+    prof = {"rollback": [], "extend": [], "plain": []}
     state_digest.launches = lane_sums_rows.launches = 0
     for i in range(SPEC_TICKS):
         in_prof = profile and card and i in SPEC_PROFILED
@@ -2072,11 +2170,20 @@ def drive_spec(speculate: bool, device, profile: bool = False) -> dict:
             reqs = sess.advance_frame()
             predicted += predicted_digest_launches(reqs)
             if p == 0:
-                kind = "rollback" if any(isinstance(r, LoadGameState) for r in reqs) else "plain"
+                kind = spec_tick_kind(reqs, ex0._spec)
                 loads += kind == "rollback"
                 before = dict(calls)
                 if in_prof:
-                    prof[kind].append(profile_device(lambda: guarded_run(ex.run, reqs, card), 1))
+                    counts = {}
+
+                    def one(reqs=reqs, counts=counts):
+                        with torch.profiler.record_function("smoke:run"):
+                            counts.update(dispatched(lambda: guarded_run(ex.run, reqs, card)))
+
+                    row = profile_ticks(one, 1, span="smoke:run")
+                    row["dispatched"] = counts
+                    row["fused"] = calls["fused"] > before["fused"]
+                    prof[kind].append(row)
                 else:
                     guarded_run(ex.run, reqs, card)
                     host[kind][0] += time.perf_counter() - t0
@@ -2092,12 +2199,33 @@ def drive_spec(speculate: bool, device, profile: bool = False) -> dict:
         torch.cuda.synchronize()
     per_class = {}
     for kind, rows in prof.items():
+        seen = {}
+        for r in rows:
+            k = json.dumps(r["dispatched"], sort_keys=True)
+            seen[k] = seen.get(k, 0) + 1
+        launches = {}
+        for r in rows:
+            for k, v in r["host_launches_per_tick"].items():
+                launches[k] = launches.get(k, 0) + v / len(rows)
+        n_digest = sum(r["digest_kernels_per_tick"] for r in rows)
         per_class[kind] = {
             "ticks_profiled": len(rows),
-            "kernels": sum(r["kernels"] for r in rows) / len(rows) if rows else None,
-            "device_busy_us": sum(r["busy_us"] for r in rows) / len(rows) if rows else None,
-            "host_ms_advance_frame_and_run": host[kind][0] / max(host[kind][1], 1) * 1e3,
+            "kernels": sum(r["kernels_per_tick"] for r in rows) / len(rows) if rows else None,
+            "device_busy_us": (sum(r["busy_ms_per_tick"] for r in rows) / len(rows) * 1e3
+                               if rows else None),
+            "ticks_timed": host[kind][1],
+            "host_ms_advance_frame_and_run": (host[kind][0] / host[kind][1] * 1e3
+                                              if host[kind][1] else None),
+            "host_launch_calls_in_run": launches,
+            "dispatched_in_run": seen,
+            "digest_us_per_launch": (sum(r["digest_us_per_tick"] for r in rows) / n_digest
+                                     if n_digest else None),
         }
+    graphs = None
+    if spec_graphs is not None:
+        graphs = {"captures": spec_graphs.captures, "replays": spec_graphs.replays,
+                  "captures_in_warmup": warm_captures,
+                  "pool_bytes": pool_bytes([spec_graphs.set.pool]) if card else None}
     return {
         "launches": state_digest.launches, "around": lane_sums_rows.launches,
         "predicted": predicted, "desyncs": desyncs, "loads": loads,
@@ -2107,15 +2235,57 @@ def drive_spec(speculate: bool, device, profile: bool = False) -> dict:
         "sent": [dict(s.recorder.checksums.items()) for _, s, _ in peers],
         "frames_reached": [s.current_frame for _, s, _ in peers],
         "host_ms_per_tick": host["tick"] / host["ticks"] * 1e3, "per_class": per_class,
+        "profiled": prof, "spec_graphs": graphs, "leaves": len(tree_leaves(ex0.state)),
     }
 
 
+def branch_leg(device, eager: bool = False) -> dict:
+    """``build_speculation_programs(BoxGame(4).advance, 8)`` (its
+    ``EagerBranchPrograms`` twin with ``eager``) on ``device`` at W = 8:
+    ``init``, ``speculate_window``, ``resolve`` of a hit (branch 5's own
+    window) and of a miss, ``replay_window`` of branch 5's window, and
+    ``collapse`` at the hit's device index and at 3.  Returns the results
+    on the host, the graphs' counts and host us per call."""
+    game = BoxGame(SPEC_PLAYERS)
+    programs = (EagerBranchPrograms if eager else BranchPrograms)(game.advance, SPEC_K)
+    progs = programs.branches()
+    rng = np.random.default_rng(33)
+    inputs_kw = rng.integers(0, 16, size=(SPEC_K, SPEC_W, SPEC_PLAYERS)).astype(np.uint8)
+    nowhere = np.full((SPEC_W, SPEC_PLAYERS), 255, np.uint8)
+    base = from_numpy(game.init_state_np(), device)
+    base = tree_map(lambda l: l[0], game.advance(tree_map(lambda l: l.unsqueeze(0), base),
+                                                 from_numpy(inputs_kw[0, :1], device)))
+    branches = progs.speculate_window(base, inputs_kw)
+    hit = progs.resolve(branches, inputs_kw, inputs_kw[5])
+    out = {"init": progs.init(base), "branches": branches, "hit": hit,
+           "miss": progs.resolve(branches, inputs_kw, nowhere),
+           "replay": progs.replay_window(base, inputs_kw[5]),
+           "collapse_hit": progs.collapse(branches, hit[1]),
+           "collapse_3": progs.collapse(branches, 3)}
+    card = tree_leaves(base)[0].device.type == "cuda"
+    g = programs.graphs(tree_leaves(base)[0].device)
+    counts = (None, None) if g is None else (g.captures, g.replays)
+    us, ms = {}, {}
+    if card:
+        for name, fn in (("speculate_window", lambda: progs.speculate_window(base, inputs_kw)),
+                         ("resolve", lambda: progs.resolve(branches, inputs_kw, inputs_kw[5])),
+                         ("replay_window", lambda: progs.replay_window(base, inputs_kw[5]))):
+            us[name] = host_us(fn, calls=50)
+            ms[name] = device_ms(fn, iters=50)
+    return {"out": to_numpy(out), "idx": (int(hit[1]), int(out["miss"][1])),
+            "found": (bool(hit[2]), bool(out["miss"][2])),
+            "captures": counts[0], "replays": counts[1], "host_us_per_call": us,
+            "wall_ms_per_call": ms}
+
+
 def phase_speculation() -> int:
-    """BASELINE config 3 on the card, speculation on and off, against a CPU
-    rerun; returns the digest launches of the card's drives."""
+    """BASELINE config 3 on the card: speculation on its graphs, on their
+    eager twin and off, against a CPU rerun, then the speculation programs'
+    leg; returns the digest launches of the card's drives."""
     on = drive_spec(True, None, profile=True)
+    eager = drive_spec(True, None, profile=True, eager=True)
     off = drive_spec(False, None, profile=True)
-    for name, run in (("on", on), ("off", off)):
+    for name, run in (("on", on), ("eager", eager), ("off", off)):
         check(run["around"] == 0, f"speculation {name}: the digest went around state_digest")
         check(run["desyncs"] == 0, f"speculation {name}: {run['desyncs']} DesyncDetected")
         check(run["launches"] == run["predicted"],
@@ -2124,36 +2294,105 @@ def phase_speculation() -> int:
         check(len(set(run["frames_reached"])) == 1 and all(
             trees_equal(run["states"][0], st) for st in run["states"][1:]),
               f"speculation {name}: the four peers differ after the drain")
-    check(all(trees_equal(a, b) for a, b in zip(on["states"], off["states"])),
-          "speculation: states with speculation != without")
-    check(on["sent"] == off["sent"], "speculation: sent checksums with speculation != without")
-    check(on["hits"] + on["misses"] == on["loads"],
-          f"speculation: {on['hits']} hits + {on['misses']} misses != {on['loads']} rollbacks")
-    check(on["fused_with_burst"] == 0, "speculation: a fused rollback tick also ran a burst")
-    # branch 7 is the schedule itself, so every window the branches cover hits
-    check(on["hits"] == on["fused"] > 0,
-          f"speculation: {on['hits']} hits of {on['fused']} fused windows")
-    check(on["bursts"] <= on["misses"], "speculation: bursts on ticks that hit")
+    for name, run in (("eager twin", eager), ("speculation off", off)):
+        check(all(trees_equal(a, b) for a, b in zip(on["states"], run["states"])),
+              f"speculation: states on the graphs != {name}")
+        check(on["sent"] == run["sent"], f"speculation: sent checksums on the graphs != {name}")
+    for name, run in (("on", on), ("eager", eager)):
+        check(run["hits"] + run["misses"] == run["loads"],
+              f"speculation {name}: {run['hits']} hits + {run['misses']} misses != "
+              f"{run['loads']} rollbacks")
+        check(run["fused_with_burst"] == 0, f"speculation {name}: a fused rollback tick also ran a burst")
+        # branch 7 is the schedule itself, so every window the branches cover hits
+        check(run["hits"] == run["fused"] > 0,
+              f"speculation {name}: {run['hits']} hits of {run['fused']} fused windows")
+        check(run["bursts"] <= run["misses"], f"speculation {name}: bursts on ticks that hit")
+    check((eager["hits"], eager["misses"], eager["fused"]) == (on["hits"], on["misses"], on["fused"]),
+          "speculation: hits, misses and fused windows on the graphs != the eager twin")
+    graphs = on["spec_graphs"]
+    # warmup: advance_and_extend, extend and the fused tick at n = 1..8 with
+    # and without the live advance
+    check(graphs["captures_in_warmup"] == 2 + 2 * SPEC_W,
+          f"speculation: {graphs['captures_in_warmup']} graphs captured in warmup")
+    leaves = on["leaves"]
+    for kind, rows in on["profiled"].items():
+        for r in rows:
+            if kind == "rollback" and not r["fused"]:
+                continue
+            want = spec_tick_prediction(kind, leaves)
+            check(r["dispatched"] == want,
+                  f"speculation: a {kind} tick's run dispatched {r['dispatched']}, not {want}")
     cpu = drive_spec(True, "cpu")
     check(all(trees_equal(a, b) for a, b in zip(on["states"], cpu["states"])),
           "speculation: card states != CPU rerun")
     check(on["sent"] == cpu["sent"], "speculation: sent checksums != CPU rerun")
     check((cpu["hits"], cpu["misses"]) == (on["hits"], on["misses"]),
           "speculation: hits and misses != CPU rerun")
+    legs = {"graph": branch_leg(None), "eager": branch_leg(None, eager=True),
+            "cpu": branch_leg("cpu")}
+    for name in ("eager", "cpu"):
+        check(trees_equal(legs["graph"]["out"], legs[name]["out"]),
+              f"speculation programs: the graphs' results != {name}")
+    g = legs["graph"]
+    check(g["idx"] == (5, 0) and g["found"] == (True, False),
+          f"speculation programs: resolve gave {g['idx']}, {g['found']}")
+    check(trees_equal(g["out"]["hit"][0], g["out"]["replay"]),
+          "speculation programs: the hit's branch != the replayed window")
+    check((g["captures"], g["replays"]) == (5, 7),
+          f"speculation programs: {g['captures']} captures, {g['replays']} replays")
+    # without speculation the drain's ticks are all plain: the ticks that
+    # extend the window on the graphs are plain ticks there
+    # the digest the fused graphs replay, at the drive's window depths (1
+    # row, and the full window's 8), against its plain version
+    digest = {}
+    rng = np.random.default_rng(11)
+    for rows in (1, SPEC_W):
+        st = boxgame_state(rng, (rows,), players=SPEC_PLAYERS)
+        got, want = checksum_device(st), checksum_device_plain(st)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"speculation: digest of {rows} rows != plain")
+        row_bytes = sum(math.prod(l.shape[1:]) * l.element_size() for l in tree_leaves(st))
+        digest[rows] = {"device_us": graph_us(checksum_device, [st]),
+                        "plain_ms": device_ms(lambda: checksum_device_plain(st), iters=20),
+                        "bound_us": bound_us(row_bytes * rows, rows),
+                        "max_abs_err": u32_err(got, want)}
+    per_tick = {k: {**v, "host_ms_advance_frame_and_run": {
+        "graph": v["host_ms_advance_frame_and_run"],
+        "eager_twin": eager["per_class"][k]["host_ms_advance_frame_and_run"],
+        "off": off["per_class"]["plain" if k == "extend" else k][
+            "host_ms_advance_frame_and_run"]}}
+        for k, v in on["per_class"].items()}
     emit({"phase": "speculation", "config": "BASELINE config 3", "game": "BoxGame(4)",
           "peers": SPEC_PLAYERS, "branches": SPEC_K, "max_window": SPEC_W,
           "max_prediction": SPEC_MAX_PREDICTION, "ticks": SPEC_TICKS, "drain": SPEC_DRAIN,
           "desync_interval": 1, "desyncs": 0, "sync_debug_mode": "error",
-          "states_equal_on_off_cpu": True, "sent_checksums_equal_on_off_cpu": True,
+          "states_equal_graph_eager_off_cpu": True, "sent_checksums_equal_graph_eager_off_cpu": True,
           "rollbacks_peer0": on["loads"], "hits": on["hits"], "misses": on["misses"],
           "fused_windows": on["fused"], "fallback_bursts": on["bursts"],
-          "frames_reached": on["frames_reached"][0],
-          "peer0_per_tick": {"on": on["per_class"], "off": off["per_class"]},
-          "host_ms_per_tick_4_peers": {"on": on["host_ms_per_tick"],
+          "frames_reached": on["frames_reached"][0], "spec_graphs": graphs,
+          "digest_at_window": digest,
+          "predicted_in_run": {k: spec_tick_prediction(k, leaves)
+                               for k in ("rollback", "extend", "plain")},
+          "peer0_per_tick": {"graph": per_tick,
+                             "eager_twin": {k: {kk: vv for kk, vv in v.items()
+                                                if kk != "dispatched_in_run"}
+                                            for k, v in eager["per_class"].items()},
+                             "off": off["per_class"]},
+          "host_ms_per_tick_4_peers": {"graph": on["host_ms_per_tick"],
+                                       "eager_twin": eager["host_ms_per_tick"],
                                        "off": off["host_ms_per_tick"]},
-          "digest_launches": {"on": on["launches"], "off": off["launches"]},
-          "digest_launches_predicted": {"on": on["predicted"], "off": off["predicted"]}})
-    return on["launches"] + off["launches"]
+          "digest_launches": {"graph": on["launches"], "eager_twin": eager["launches"],
+                              "off": off["launches"]},
+          "digest_launches_predicted": {"graph": on["predicted"], "eager_twin": eager["predicted"],
+                                        "off": off["predicted"]}})
+    emit({"phase": "speculation", "leg": "build_speculation_programs", "K": SPEC_K, "W": SPEC_W,
+          "equal_to_eager_and_cpu": True, "captures": g["captures"], "replays": g["replays"],
+          "resolve_hit_idx": g["idx"][0],
+          "host_us_per_call": {"graph": g["host_us_per_call"],
+                               "eager_twin": legs["eager"]["host_us_per_call"]},
+          "wall_ms_per_call_back_to_back": {"graph": g["wall_ms_per_call"],
+                                            "eager_twin": legs["eager"]["wall_ms_per_call"]}})
+    return on["launches"] + eager["launches"] + off["launches"]
 
 
 def pool_sched(m: int, me: int, i: int) -> int:
@@ -2200,8 +2439,17 @@ class EagerPool(BatchedRequestExecutor):
         self._tick_shard(shard, desc)
 
 
+class EagerPlane(DevicePredictionPlane):
+    """The prediction plane's kernel through its plain version on the card
+    (called eagerly between the copies): the plane graph's eager twin."""
+
+    def graphs(self):
+        return None
+
+
 def drive_pool(n_matches: int, ticks: int, device, pooled: bool = True, profiled_ticks: int = 0,
-               config=None, cores: str = "native", plane: bool = False, eager: bool = False):
+               config=None, cores: str = "native", plane: bool = False, eager: bool = False,
+               eager_plane: bool = False):
     """``n_matches`` matches fulfilled by one ``BatchedRequestExecutor``
     (``pooled``; an ``EagerPool`` with ``eager``) or by one
     ``DeviceRequestExecutor`` per session, on ``device``.  On the card every
@@ -2210,11 +2458,15 @@ def drive_pool(n_matches: int, ticks: int, device, pooled: bool = True, profiled
     inside a ``smoke:fulfil`` span, and those ticks are left out of the host
     times.  Each tick adds every session's local input, then (with
     ``plane``) runs the prediction plane's ``begin_tick`` on ``device``,
-    then advances every session, as the host session pool orders a tick."""
+    then advances every session, as the host session pool orders a tick
+    (the plane's ``EagerPlane`` twin with ``eager_plane``).  Each profiled
+    ``begin_tick`` counts its copies at the dispatcher and its graph
+    launches."""
     sessions = pool_sessions(n_matches, ticks, config, cores)
     pl = None
     if plane:
-        pl = DevicePredictionPlane(config, capacity=len(sessions), device=device)
+        pl = (EagerPlane if eager_plane else DevicePredictionPlane)(
+            config, capacity=len(sessions), device=device)
         for slot, sess in enumerate(sessions):
             sess.bind_prediction_plane(pl, slot)
     B = len(sessions)
@@ -2265,7 +2517,10 @@ def drive_pool(n_matches: int, ticks: int, device, pooled: bool = True, profiled
             s.add_local_input(b % 2, pool_sched(b // 2, b % 2, i))
         if pl is not None:
             if i >= timed and card and len(plane_copies) < PLANE_PROFILED:
+                g = pl.graphs()
+                before = 0 if g is None else g.replays
                 plane_copies.append(copies_in(pl.begin_tick))
+                plane_copies[-1]["graph_launches"] = (0 if g is None else g.replays) - before
             else:
                 tb = time.perf_counter()
                 pl.begin_tick()
@@ -2336,9 +2591,12 @@ def drive_pool(n_matches: int, ticks: int, device, pooled: bool = True, profiled
         "replays": pool.replays if pooled else None,
         "pool_bytes": (pool_bytes([s["graphs"].set.pool for s in pool._shards
                                    if s["graphs"] is not None]) if pooled and card else None),
+        "plane_obj": pl,
         "plane": None if pl is None else {
             **pl.stats(), "host_us_begin_tick": host["begin_tick"] / timed * 1e6,
             "copies_per_tick": plane_copies,
+            "graphs": None if pl.graphs() is None else {"captures": pl.graphs().captures,
+                                                        "replays": pl.graphs().replays},
             "plane_mispredicts": sum(q.plane_mispredicts for s in sessions
                                      for q in s._sync_layer.input_queues)},
     }
@@ -2507,20 +2765,24 @@ def phase_native(p2p_runs: dict, pool_run: dict) -> int:
 
 def phase_plane() -> int:
     """The 64-session pool with a batched predictor, the prediction plane on
-    (on the card) and off, for both batched strategies, against each other
-    and a CPU rerun.  Returns the digest launches of the card's legs."""
+    its graph (on the card), on its eager twin and off, for both batched
+    strategies, against each other and a CPU rerun.  Returns the digest
+    launches of the card's legs."""
     total = 0
+    timing = ("host_us_begin_tick", "copies_per_tick", "graphs")
     for name, predictor in PLANE_PREDICTORS:
         config = Config.for_uint(8, predictor=predictor())
         on = drive_pool(POOL_MATCHES, POOL_TICKS, None, True, PLANE_PROFILED, config=config,
                         plane=True)
+        eager = drive_pool(POOL_MATCHES, POOL_TICKS, None, True, PLANE_PROFILED, config=config,
+                           plane=True, eager_plane=True)
         off = drive_pool(POOL_MATCHES, POOL_TICKS, None, True, PLANE_PROFILED, config=config)
         cpu = drive_pool(POOL_MATCHES, POOL_TICKS, "cpu", True, config=config, plane=True)
-        for leg, run in (("on", on), ("off", off), ("cpu", cpu)):
+        for leg, run in (("on", on), ("eager", eager), ("off", off), ("cpu", cpu)):
             check(run["cores"] == {("InputQueue", "NativeEndpointCore")},
                   f"plane {name} {leg}: the sessions ran {run['cores']}")
             check(run["desyncs"] == 0 and run["around"] == 0, f"plane {name} {leg}: desync")
-        for leg, run in (("off", off), ("cpu", cpu)):
+        for leg, run in (("eager", eager), ("off", off), ("cpu", cpu)):
             check(run["frames_reached"] == on["frames_reached"], f"plane {name}: frames != {leg}")
             check(all(trees_equal(a, b) for a, b in zip(on["states"], run["states"])),
                   f"plane {name}: live states != {leg}")
@@ -2531,17 +2793,32 @@ def phase_plane() -> int:
         check(stats["hits"] > 0, f"plane {name}: the plane served no prediction")
         check(stats["ticks"] == POOL_TICKS and len(stats["copies_per_tick"]) == PLANE_PROFILED,
               f"plane {name}: {stats['ticks']} plane ticks")
-        check(stats == {**cpu["plane"], "host_us_begin_tick": stats["host_us_begin_tick"],
-                        "copies_per_tick": stats["copies_per_tick"]},
-              f"plane {name}: plane stats != CPU run")
-        check(all(c == {"dtoh": 1, "htod": 1} for c in stats["copies_per_tick"]),
+        for leg, run in (("eager twin", eager), ("CPU run", cpu)):
+            check({k: v for k, v in stats.items() if k not in timing}
+                  == {k: v for k, v in run["plane"].items() if k not in timing},
+                  f"plane {name}: plane stats != {leg}")
+        check(all(c == {"dtoh": 1, "htod": 1, "graph_launches": 1} for c in stats["copies_per_tick"]),
               f"plane {name}: begin_tick copies {stats['copies_per_tick']}")
+        check(all(c == {"dtoh": 1, "htod": 1, "graph_launches": 0}
+                  for c in eager["plane"]["copies_per_tick"]),
+              f"plane {name}: the eager twin's begin_tick {eager['plane']['copies_per_tick']}")
+        check(stats["graphs"] == {"captures": 1, "replays": POOL_TICKS},
+              f"plane {name}: the plane's graphs {stats['graphs']}")
+        # begin_tick alone, the graph and its eager twin alternating, over
+        # the sessions as the drives left them
+        begin_us = {"graph": [], "eager_twin": []}
+        for _ in range(2):
+            begin_us["graph"].append(host_us(on["plane_obj"].begin_tick, calls=PLANE_CALLS))
+            begin_us["eager_twin"].append(host_us(eager["plane_obj"].begin_tick,
+                                                  calls=PLANE_CALLS))
         keys = ("host_ms_per_tick", "host_ms_sessions", "host_ms_fulfil")
-        emit({"phase": "plane", "predictor": name, "sessions": POOL_SESSIONS, "ticks": POOL_TICKS,
-              "desyncs": 0, "states_equal_on_off_cpu": True, "ring_checksums_equal": True,
+        emit({"phase": "plane", "predictor": name, "begin_tick_host_us_alternating": begin_us, "sessions": POOL_SESSIONS, "ticks": POOL_TICKS,
+              "desyncs": 0, "states_equal_on_eager_off_cpu": True, "ring_checksums_equal": True,
               "sent_checksums_equal": True, "plane": stats,
-              "on": {k: on[k] for k in keys}, "off": {k: off[k] for k in keys}})
-        total += on["launches"] + off["launches"]
+              "eager_twin_host_us_begin_tick": eager["plane"]["host_us_begin_tick"],
+              "on": {k: on[k] for k in keys}, "eager_twin": {k: eager[k] for k in keys},
+              "off": {k: off[k] for k in keys}})
+        total += on["launches"] + eager["launches"] + off["launches"]
     return total
 
 
@@ -4708,9 +4985,10 @@ GRAPH_COUNTS = {"captures": 0, "replays": 0}
 
 def count_graphs() -> None:
     """Count every capture and replay of the port's CUDA graphs (the
-    executors', the pools', the replay's and the scrub's, all made through
-    ``ops.graphs.GraphSet``) in ``GRAPH_COUNTS``: each phase's line then
-    gives the graphs its drives captured and replayed in this process."""
+    executors', the pools', the replay's, the scrub's, speculation's and
+    the prediction plane's, all made through ``ops.graphs.GraphSet``) in
+    ``GRAPH_COUNTS``: each phase's line then gives the graphs its drives
+    captured and replayed in this process."""
     capture, replay = graph_ops.GraphSet.capture, graph_ops.Graph.replay
 
     def counted_capture(self, body):

@@ -50,9 +50,11 @@ call (``advance_and_extend``), and a rollback whose window the branches cover
 is one ``fulfill_and_refill`` call -- matching, the select or the replay
 (both computed, one taken on the card), re-rooting, re-extension and the
 trailing live advance -- whose saved steps are digested in one launch.  The
-host never reads whether it hit.  Speculation's own calls run eagerly on
-the card; a rollback the branches cannot answer replays through the burst
-graph.
+host never reads whether it hit.  On the card each of speculation's calls is
+one CUDA graph replay (``parallel.spec_rollback.SpecGraphs``): a plain tick's
+``advance_and_extend`` and a covered rollback tick's ``fulfill_and_refill``;
+a rollback the branches cannot answer replays through the burst graph, with
+one ``extend`` replay for each of its advances.
 """
 
 from __future__ import annotations

@@ -28,10 +28,13 @@ capture on another thread to end.
 from __future__ import annotations
 
 import threading
-from typing import Callable
+from typing import Any, Callable, Dict, List, Tuple
 
+import numpy as np
 import torch
 
+from ..convert import copy_into, from_numpy
+from ..utils.tree import tree_leaves, tree_map
 from .digest import GraphLaunches
 
 # held for each capture, and by ``synchronize``
@@ -95,3 +98,150 @@ class GraphSet:
             graph = _record(self, body)
         self.captures += 1
         return Graph(self, graph, launches)
+
+
+def torch_dtype(dt: np.dtype) -> torch.dtype:
+    """The tensor dtype ``convert.from_numpy`` gives a numpy dtype (u32 as
+    int32 bit patterns)."""
+    dt = np.dtype(np.int32) if dt == np.uint32 else dt
+    return torch.from_numpy(np.zeros(1, dt)).dtype
+
+
+class Upload:
+    """Arrays packed into one byte buffer, each at an 8-byte boundary, sent
+    to the device in one copy and read back there as typed views.
+
+    A section may also be a tensor: a CPU tensor is packed as its array; a
+    tensor on a device holds a blank section, which ``send_into`` fills by
+    one copy on the device after the host block."""
+
+    def __init__(self) -> None:
+        self._parts: List[Tuple[int, np.ndarray]] = []
+        self._device: List[Tuple[int, torch.Tensor]] = []
+        self._size = 0
+
+    def add(self, arr: Any) -> int:
+        if isinstance(arr, torch.Tensor):
+            if arr.device.type != "cpu":
+                self._device.append((len(self._parts), arr))
+                arr = np.zeros(tuple(arr.shape), torch.empty((), dtype=arr.dtype).numpy().dtype)
+            else:
+                arr = arr.numpy()
+        arr = np.ascontiguousarray(arr)
+        at = self._size
+        self._parts.append((at, arr))
+        self._size = at + (arr.nbytes + 7) // 8 * 8
+        return len(self._parts) - 1
+
+    def pack(self) -> np.ndarray:
+        """The sections as one host byte buffer."""
+        buf = np.zeros(max(self._size, 8), np.uint8)
+        for at, arr in self._parts:
+            buf[at:at + arr.nbytes] = arr.reshape(-1).view(np.uint8)
+        return buf
+
+    def views(self, dev: torch.Tensor) -> List[torch.Tensor]:
+        """Each section as a typed view of ``dev``, a byte buffer that holds
+        (or will hold) ``pack()``."""
+        out = []
+        for at, arr in self._parts:
+            t = dev[at:at + arr.nbytes].view(torch_dtype(arr.dtype))
+            out.append(t.reshape(arr.shape))
+        return out
+
+    def static(self, device: torch.device) -> torch.Tensor:
+        """A zeroed byte buffer on ``device`` that holds this layout."""
+        return torch.zeros(max(self._size, 8), dtype=torch.uint8, device=device)
+
+    def send(self, device: torch.device) -> List[torch.Tensor]:
+        return self.views(from_numpy(self.pack(), device))
+
+    def send_into(self, static: torch.Tensor, views: List[torch.Tensor]) -> None:
+        """Fill ``static`` (a buffer of this layout; ``views`` its typed
+        views): the host sections in one copy, then each device section."""
+        copy_into(static, torch.from_numpy(self.pack()))
+        for i, t in self._device:
+            views[i].copy_(t)
+
+
+def host_arrays(tree: Any) -> Any:
+    """A call's host inputs as ``Upload`` sections: arrays and tensors pass
+    through, scalars become arrays; nothing is read from a device."""
+    return tree_map(lambda l: l if isinstance(l, (np.ndarray, torch.Tensor)) else np.asarray(l),
+                    tree)
+
+
+def leaf_dtype(leaf: Any) -> torch.dtype:
+    """The tensor dtype of a host array or tensor leaf."""
+    return torch_dtype(leaf.dtype) if isinstance(leaf, np.ndarray) else leaf.dtype
+
+
+def _empty_like(tree: Any, device: torch.device) -> Any:
+    return tree_map(lambda leaf: torch.empty(leaf.shape, dtype=leaf.dtype, device=device), tree)
+
+
+class KeyedGraphs:
+    """Graphs of one device keyed the way a jit cache is keyed, each over
+    static buffers of its own: the route of speculation's programs
+    (``parallel/spec_rollback.py``, ``parallel/speculation.py``) and the
+    prediction plane's kernel (``predict/batched.py``).
+
+    ``replay(key, sections, state_in, build)`` runs one call: ``sections``
+    (trees of host arrays or tensors) go up in one ``Upload`` into the
+    key's static byte buffer, ``state_in`` (a tree of tensors on the device,
+    or None) into the key's static state by one copy a leaf, and the key's
+    graph replays.  At the key's first call ``build(views, state)`` makes
+    the body over those buffers (``views``: the sections' trees of typed
+    views of the byte buffer) and its static outputs, allocated outside the
+    capture; the body is captured and the outputs returned at every call.
+    Before the set's first capture, ``rehearse(body)`` runs once eagerly on
+    the filled buffers: the body itself, unless a subclass says otherwise."""
+
+    def __init__(self, device: torch.device) -> None:
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device = device
+        self.set = GraphSet(device)
+        self._entries: Dict[tuple, list] = {}
+        self._rehearsed = False
+
+    @property
+    def captures(self) -> int:
+        return self.set.captures
+
+    @property
+    def replays(self) -> int:
+        return self.set.replays
+
+    def rehearse(self, body: Callable[[], None]) -> None:
+        """Whatever the bodies do once lazily on the device (a game's device
+        constants, the digest library's first launch), done eagerly."""
+        body()
+
+    def replay(self, key: tuple, sections: List[Any], state_in: Any,
+               build: Callable[[List[Any], Any], Tuple[Callable[[], None], Any]]) -> Any:
+        up = Upload()
+        for sec in sections:
+            for leaf in tree_leaves(sec):
+                up.add(leaf)
+        entry = self._entries.get(key)
+        if entry is None:
+            static = up.static(self.device)
+            flat = up.views(static)
+            it = iter(flat)
+            views = [tree_map(lambda _: next(it), sec) for sec in sections]
+            st = None if state_in is None else _empty_like(state_in, self.device)
+            entry = [None, static, flat, st, *build(views, st)]
+        graph, static, flat, st, body, outs = entry
+        if sections:
+            up.send_into(static, flat)
+        if st is not None:
+            copy_into(st, state_in)
+        if graph is None:
+            if not self._rehearsed:
+                self.rehearse(body)
+                self._rehearsed = True
+            graph = entry[0] = self.set.capture(body)
+            self._entries[key] = entry
+        graph.replay()
+        return outs

@@ -74,7 +74,7 @@ from ..core.types import AdvanceFrame, Frame, GgrsRequest, LoadGameState, SaveGa
 from ..obs.registry import default_registry
 from ..obs.trace import NULL_TRACER
 from ..ops.checksum import CHECKSUM_LANES, checksum_device, checksum_to_u128
-from ..ops.graphs import Graph, GraphSet, synchronize
+from ..ops.graphs import Graph, GraphSet, Upload, synchronize
 from ..ops.ring import DeviceStateRing
 from ..utils.tree import tree_map
 from .batch import Mesh, _on
@@ -145,49 +145,6 @@ class _LazyBatchChecksum:
         return self._value
 
 
-def _torch_dtype(dt: np.dtype) -> torch.dtype:
-    """The tensor dtype ``convert.from_numpy`` gives a numpy dtype (u32 as
-    int32 bit patterns)."""
-    dt = np.dtype(np.int32) if dt == np.uint32 else dt
-    return torch.from_numpy(np.zeros(1, dt)).dtype
-
-
-class _Upload:
-    """Numpy sections packed into one byte buffer, each at an 8-byte
-    boundary, sent to the device in one copy and read back there as typed
-    views."""
-
-    def __init__(self) -> None:
-        self._parts: List[Tuple[int, np.ndarray]] = []
-        self._size = 0
-
-    def add(self, arr: np.ndarray) -> int:
-        arr = np.ascontiguousarray(arr)
-        at = self._size
-        self._parts.append((at, arr))
-        self._size = at + (arr.nbytes + 7) // 8 * 8
-        return len(self._parts) - 1
-
-    def pack(self) -> np.ndarray:
-        """The sections as one host byte buffer."""
-        buf = np.zeros(max(self._size, 8), np.uint8)
-        for at, arr in self._parts:
-            buf[at:at + arr.nbytes] = arr.reshape(-1).view(np.uint8)
-        return buf
-
-    def views(self, dev: torch.Tensor) -> List[torch.Tensor]:
-        """Each section as a typed view of ``dev``, a byte buffer that holds
-        (or will hold) ``pack()``."""
-        out = []
-        for at, arr in self._parts:
-            t = dev[at:at + arr.nbytes].view(_torch_dtype(arr.dtype))
-            out.append(t.reshape(arr.shape))
-        return out
-
-    def send(self, device: torch.device) -> List[torch.Tensor]:
-        return self.views(from_numpy(self.pack(), device))
-
-
 class _ShardGraphs:
     """One shard's masked tick as CUDA graphs: the counterpart of the JAX
     package's jitted (and, under a mesh, shard_mapped) ``vmap`` of
@@ -232,7 +189,7 @@ class _ShardGraphs:
     def replays(self) -> int:
         return self.set.replays
 
-    def pack(self, desc: Dict[str, np.ndarray]) -> Tuple[_Upload, tuple]:
+    def pack(self, desc: Dict[str, np.ndarray]) -> Tuple[Upload, tuple]:
         """The descriptor of one shard's rows in the fixed layout, and the
         key of its graph."""
         ring = self.pool._ring
@@ -240,7 +197,7 @@ class _ShardGraphs:
         n_adv = desc["n_adv"]
         act = np.arange(self.pool.max_burst)[:, None] < n_adv[None, :]  # (D, rows)
         save = act & desc["save_mask"].T
-        up = _Upload()
+        up = Upload()
         for mask, frames in ((desc["pre_save"], desc["pre_frame"]),
                              (desc["postload_save"], desc["postload_frame"])):
             up.add(mask)
@@ -544,7 +501,7 @@ class BatchedRequestExecutor:
     # the tick
     # ------------------------------------------------------------------
 
-    def _plan_write(self, up: _Upload, pred: np.ndarray, frames: np.ndarray):
+    def _plan_write(self, up: Upload, pred: np.ndarray, frames: np.ndarray):
         """Host: the upload sections of one masked write, or None when no
         row takes it."""
         rows = np.flatnonzero(pred)
@@ -580,7 +537,7 @@ class BatchedRequestExecutor:
         row takes and replaces the shard's live state."""
         rows_all = len(desc["n_adv"])
         n_max = int(desc["n_adv"].max())
-        up = _Upload()
+        up = Upload()
         pre = self._plan_write(up, desc["pre_save"], desc["pre_frame"])
         load = None
         if desc["do_load"].any():

@@ -43,6 +43,7 @@ import torch
 
 from ..core.config import Config, InputPredictor, PredictDefault
 from ..core.device import DeviceLike, resolve_device
+from ..ops.graphs import KeyedGraphs
 
 __all__ = [
     "BatchedDefault",
@@ -130,6 +131,14 @@ class DevicePredictionPlane:
         self.ticks = 0
         self.hits = 0
         self.fallbacks = 0
+        self._graphs: Optional[KeyedGraphs] = None
+
+    def graphs(self) -> Optional[KeyedGraphs]:
+        """The kernel's graphs on the plane's device, made at first use when
+        it is a CUDA device; None elsewhere (the eager route)."""
+        if self._graphs is None and self.device.type == "cuda":
+            self._graphs = KeyedGraphs(self.device)
+        return self._graphs
 
     # -- registration ---------------------------------------------------
 
@@ -161,8 +170,8 @@ class DevicePredictionPlane:
 
     def begin_tick(self) -> None:
         """Gather every registered queue's prediction base and run the
-        kernel: one upload, one kernel call, one read-back predict all
-        slots' missing inputs."""
+        kernel: one upload, one kernel call (a graph replay on the card),
+        one read-back predict all slots' missing inputs."""
         if not self._queues:
             self._table = None
             return
@@ -176,12 +185,25 @@ class DevicePredictionPlane:
                     continue
                 base[slot, player] = np.frombuffer(self._encode(prev.input), np.uint8)
                 valid[slot, player] = True
-        dev = torch.from_numpy(base).to(self.device)
-        table = self._predictor.kernel(dev)
         self._base = base
         self._valid = valid
-        self._table = table.to(torch.uint8).cpu().numpy()
+        self._table = self._predict(base)
         self.ticks += 1
+
+    def _predict(self, base: np.ndarray) -> np.ndarray:
+        """``kernel(base)`` as a host table: one graph replay between one
+        copy up and one copy down on a CUDA device, the kernel eagerly
+        elsewhere."""
+        kernel = self._predictor.kernel
+        g = self.graphs()
+        if g is None:
+            return kernel(torch.from_numpy(base).to(self.device)).to(torch.uint8).cpu().numpy()
+
+        def build(views, _):
+            table = torch.empty(base.shape, dtype=torch.uint8, device=g.device)
+            return lambda: table.copy_(kernel(views[0])), table
+
+        return g.replay(("kernel", base.shape), [base], None, build).cpu().numpy()
 
     def predict_at(self, slot: int, player: int, previous) -> Tuple[bool, Any]:
         """Serve one queue's prediction from the table.  Returns ``(True,

@@ -12,13 +12,16 @@ leaves), not as the plain version's ops.  Prints one JSON line per workload:
 ops per peer-0 rollback tick and plain tick, and per pooled tick, past the
 first ticks.
 
-Then the CUDA graphs of the request path: phase 5's executor drive
-(BoxGame(2) and ChipVM(2), SyncTest d = 7) and phase 12's pool at 64
-sessions run their graph route on the CPU, each capture replaced by a
-stand-in that runs the captured body at every replay, and the ops of one
-body are counted: the kernels a replay launches on the card, by graph key.
-It is a count, not a measurement: the card's numbers come from
-``chip_smoke.py``.
+The speculation counts are of the eager route (``chip_smoke.py``'s
+``EagerSpec`` twin on the card); on the graph route the same ops run inside
+one replay a tick, counted below.
+
+Then the CUDA graphs: phase 5's executor drive (BoxGame(2) and ChipVM(2),
+SyncTest d = 7), phase 12's pool at 64 sessions and phase 11's speculating
+peer run their graph route on the CPU, each capture replaced by a stand-in
+that runs the captured body at every replay, and the ops of one body are
+counted: the kernels a replay launches on the card, by graph key.  It is a
+count, not a measurement: the card's numbers come from ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import ggrs_tpu_torch.ops.checksum as checksum_mod  # noqa: E402
 import ggrs_tpu_torch.ops.executor as executor_mod  # noqa: E402
 import ggrs_tpu_torch.ops.graphs as graphs_mod  # noqa: E402
 import ggrs_tpu_torch.parallel.session_pool as pool_mod  # noqa: E402
+import ggrs_tpu_torch.parallel.spec_rollback as spec_mod  # noqa: E402
 from ggrs_tpu_torch.ops.digest import MAX_LEAVES  # noqa: E402
 
 VIEWS = {
@@ -160,7 +164,8 @@ class _CountedGraph:
 
 
 def graph_counts() -> None:
-    """Ops a replay of each request-path graph runs, on the CPU."""
+    """Ops a replay of each request-path and speculation graph runs, on the
+    CPU."""
     made: list = []
 
     def record(graphs, body):
@@ -207,6 +212,30 @@ def graph_counts() -> None:
                           "ops_per_replay": summary([n for g in replayed for n in g.ops], 0),
                           "by_graph": [{"replays": len(g.ops), "ops": g.ops[0]}
                                        for g in replayed]}), flush=True)
+
+        made.clear()
+        specs: list = []
+        real_graphs = spec_mod.SpeculativeRollback.graphs
+
+        def spec_graphs(self):
+            if self._graphs is None:
+                self._graphs = spec_mod.SpecGraphs(self)
+                specs.append(self._graphs)
+            return self._graphs
+
+        spec_mod.SpeculativeRollback.graphs = spec_graphs
+        try:
+            chip_smoke.drive_spec(True, "cpu")
+        finally:
+            spec_mod.SpeculativeRollback.graphs = real_graphs
+        keys = list(specs[0]._entries)
+        name = lambda k: (k[0] if k[0] in ("extend", "advance_and_extend")
+                          else f"{k[0]} n={k[1]} digest={k[2]} live={k[3]}")
+        print(json.dumps({"workload": "speculation graphs", "ticks": chip_smoke.SPEC_TICKS,
+                          "captures": len(made),
+                          "graphs": [{"key": name(k), "replays": len(g.ops),
+                                      "ops_per_replay": summary(g.ops, 0)}
+                                     for k, g in zip(keys, made)]}), flush=True)
     finally:
         graphs_mod._record = real_record
 
