@@ -9,10 +9,11 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
 
 1. build -- compile the CUDA kernels from ``ggrs_tpu_torch/csrc`` with nvcc
    (all sources at once) and report the build seconds and ptxas summary;
-   beside them, g++ builds the host library from the five sources of
-   ``native/`` (``codec.cpp``, ``endpoint.cpp``, ``sync_core.cpp``,
-   ``session_bank.cpp`` and ``net_batch.cpp``, one shared object: the bank
-   calls the others' entry points; its seconds are reported too).
+   beside them, g++ builds the host library from the port's five sources
+   in ``ggrs_tpu_torch/csrc/host/`` (``codec.cpp``, ``endpoint.cpp``,
+   ``sync_core.cpp``, ``session_bank.cpp`` and ``net_batch.cpp``, one
+   shared object: the bank calls the others' entry points; its seconds are
+   reported too).
 2. kernel -- the digest kernel against its plain PyTorch version on the
    card, bitwise, at every shape the port uses: through ``lane_sums_rows``
    (raw lanes of a word matrix) and through ``state_digest`` (whole batches
@@ -48,8 +49,8 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    graph drive and read just after it.
 5. executor (the request-list path) -- ``SessionBuilder`` -> host
    ``SyncTestSession`` (check_distance 7, max_prediction 8) ->
-   ``DeviceRequestExecutor`` on the card, for BoxGame(2) over 2,000 frames
-   and ChipVM(2) over 250.  Every ``executor.run`` runs under
+   ``DeviceRequestExecutor`` on the card, for BoxGame(2) over 1,000 frames
+   and ChipVM(2) over 160.  Every ``executor.run`` runs under
    ``torch.cuda.set_sync_debug_mode("error")``, so a device->host read
    there fails the run.  Every saved checksum and the final live state
    equal the same run on the CPU (BoxGame also the NumPy oracle), and the
@@ -335,14 +336,37 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    and ``-m ... --perfetto`` over phase 19's SIGKILL timelines (a trace
    that ``validate_chrome_trace`` accepts).  µs per advance step of each
    probe variant.
+24. soak -- ``scripts/port_soak.py``'s two legs on the card, no CPU
+   fallback.  (a) Two ``P2PSession`` peers over ``InMemoryNetwork(seed=1234,
+   loss=0.08, duplicate=0.04, reorder=0.04)``, desync detection at interval
+   100, the injected 16 ms clock, ``BoxGame(2)``, each peer fulfilled by a
+   ``DeviceRequestExecutor`` on its ``ExecutorGraphs`` (every ``run`` under
+   the sync debug mode "error"), for 20,000 frames (~156 input-ring and ~6
+   checksum-history wraps): 0 ``DesyncDetected``, the checksum reports sent
+   and compared, the last frame both peers settled bitwise equal between
+   them and to ``advance_np`` replayed over the confirmed inputs recorded
+   from the ``AdvanceFrame`` requests, its card checksum equal to the plain
+   digest of that state, digest launches equal to
+   ``predicted_digest_launches`` summed over the request lists.  (b)
+   ``pool_soak``: one ``BatchedRequestExecutor`` over 8 sessions (4
+   matches) on ``_ShardGraphs`` for 512 warm ticks then 20,000, at least 156
+   ring wraps (from the sessions' frames), every session at the horizon, and
+   each match's newest frame both its sessions confirmed read from the
+   pool's ring: bitwise equal between them and to ``advance_np`` replayed
+   over the inputs the schedules added.  Both legs sampled at 25, 50, 75
+   and 100 % of the horizon: no graph captured after the warmup (the legs'
+   graphs and ``GRAPH_COUNTS``), ``memory_reserved`` flat after the 25 %
+   sample, ``memory_allocated`` within ``SOAK_ALLOC_BOUND`` of it, RSS
+   within 64 MiB, the sessions' queue bounds.  Frames/s and session-ticks/s,
+   host ms a frame and a tick (p50, p99), the samples.
 
 After each phase, a line with its seconds and the CUDA graphs (the
 replay's, the scrub's, the executors', the pools', speculation's and the
 plane's) it captured and replayed in this process.
 Then the seconds each phase took, one ``{"kernels": [...]}`` line (phase
 21's launches as ``launches_sanitized_production`` and
-``launches_sanitized``, phases 22–23's as ``launches_examples`` and
-``launches_floor_probe``), the
+``launches_sanitized``, phases 22–24's as ``launches_examples``,
+``launches_floor_probe`` and ``launches_soak``), the
 card's name and power limit as nvidia-smi prints them, and, last,
 ``{"ok": true, "device": {...}}``.
 Exits non-zero with no result when CUDA is not available.
@@ -477,9 +501,12 @@ KERNEL_SHAPES = [  # (rows, width, offset)
 BIG_LEAF_WORDS = 1 << 26  # one 256 MiB leaf
 MAIN_CASE = "chipvm_live"
 EXEC_D, EXEC_MAX_PREDICTION = 7, 8
-# ChipVM's executor drive is cut from 500 frames to 250 to keep the whole
-# run near 5 minutes on a slow host now that phase 7 runs too
-EXEC_GAMES = [("BoxGame(2)", BoxGame(2), 2000, 16), ("ChipVM(2)", ChipVM(2), 250, 256)]
+# the executor drives are cut to keep the whole run near 810 s on a slow
+# host: ChipVM's from 500 frames to 250 when phase 7 came, then to 160 (past
+# the 128-slot input ring, which each drive must cross) and BoxGame's from
+# 2,000 to 1,000 when phase 24 came (its eager twin and CPU rerun are most of
+# the phase)
+EXEC_GAMES = [("BoxGame(2)", BoxGame(2), 1000, 16), ("ChipVM(2)", ChipVM(2), 160, 256)]
 EXEC_PROFILED = 8  # the last frames of a card drive, under the profiler
 CKPT_TICKS = 32
 CHIPVM_STATE_BYTES = 256 + 4 + 1
@@ -592,6 +619,16 @@ EX_MODULES = ("port_ex_game", "port_ex_game_synctest", "port_ex_game_server",
 PROBE_CUT = dict(ticks_per_dispatch=64, dispatches=2, repeats=2)
 PROFILE_ARGS = ("--matches", "64", "--ticks", "50", "--fulfil", "cuda")
 SCRIPT_MODULES = ("port_floor_probe", "port_fleet_top", "port_match_timeline")
+# phase 24: the soak legs on the card (scripts/port_soak.py): the P2P leg at
+# the horizon the JAX package's tier certifies on the CPU cut from 100,000 to
+# 20,000 frames (~156 input-ring wraps, ~6 checksum-history wraps), the pool
+# at the JAX test's 20,000 ticks after 512 ticks in which every graph key of
+# the population has its first tick
+SOAK_FRAMES = 20_000
+SOAK_TICKS = 20_000
+SOAK_POOL_WARM = 512
+SOAK_ALLOC_BOUND = 1 << 20  # bytes that memory_allocated may grow after 25 %
+SOAK_RSS_MB = 64.0
 
 
 class SmokeFailure(Exception):
@@ -830,7 +867,7 @@ def state_cases(rng):
 
 def phase_build(smi: str) -> None:
     """The CUDA kernels (one nvcc per source, all at once) and, beside them,
-    the host library of the native cores (g++ over native/*.cpp)."""
+    the host library of the native cores (g++ over csrc/host/*.cpp)."""
     host = {}
 
     def build_host():
@@ -4978,6 +5015,75 @@ def phase_scripts(fleet_docs: dict, proc_timelines: dict) -> int:
     return launches
 
 
+# -- phase 24: the soak tier ---------------------------------------------------------
+
+
+def soak_growth(leg: str, run: dict) -> dict:
+    """The growth a soak leg showed between its samples (25, 50, 75 and 100 %
+    of the horizon), checked: no graph captured after the warmup (the leg's
+    own graphs and ``GRAPH_COUNTS``), the allocator's reserved bytes flat
+    after the 25 % sample, allocated bytes within ``SOAK_ALLOC_BOUND`` of it,
+    RSS within ``SOAK_RSS_MB`` of it, and the sessions' queue bounds held at
+    every sample."""
+    samples = run["samples"]
+    first = samples[0]
+    growth = {
+        "captures_after_warmup": run["captures_after_warmup"],
+        "graph_counts_captures": [s["probe"] - first["probe"] for s in samples],
+        "reserved_growth": max(s["reserved"] for s in samples) - first["reserved"],
+        "allocated_growth": max(s["allocated"] for s in samples) - first["allocated"],
+        "rss_growth_mb": max(s["rss_mb"] for s in samples) - first["rss_mb"],
+        "violations": [v for s in samples for v in s["violations"]],
+    }
+    check(growth["captures_after_warmup"] == 0 and not any(growth["graph_counts_captures"]),
+          f"soak {leg}: graphs captured after the warmup: {growth}")
+    check(growth["reserved_growth"] <= 0, f"soak {leg}: reserved memory grew: {growth}")
+    check(growth["allocated_growth"] <= SOAK_ALLOC_BOUND,
+          f"soak {leg}: allocated memory grew past {SOAK_ALLOC_BOUND}: {growth}")
+    check(growth["rss_growth_mb"] < SOAK_RSS_MB and run.get("rss_drift_mb", 0.0) < SOAK_RSS_MB,
+          f"soak {leg}: RSS grew: {growth}, drift {run.get('rss_drift_mb')}")
+    check(not growth["violations"], f"soak {leg}: queue bounds: {growth['violations']}")
+    return growth
+
+
+def phase_soak() -> int:
+    """Phase 24: ``scripts/port_soak.py``'s two legs on the card's graph
+    routes.  Returns the P2P leg's digest launches."""
+    soak = repo_modules(("port_soak",), "scripts")["port_soak"]
+    probe = lambda: GRAPH_COUNTS["captures"]  # noqa: E731
+    legs = {}
+    for leg, run in (
+            ("p2p", lambda: soak.p2p_soak(SOAK_FRAMES, device="cuda", probe=probe)),
+            ("pool", lambda: soak.pool_soak(SOAK_TICKS, device="cuda", probe=probe,
+                                            warm_ticks=SOAK_POOL_WARM))):
+        t0 = time.perf_counter()
+        try:
+            legs[leg] = run()
+        except AssertionError as e:
+            check(False, f"soak {leg}: {e}")
+        legs[leg]["seconds"] = time.perf_counter() - t0
+        legs[leg]["growth"] = soak_growth(leg, legs[leg])
+    p2p, pool = legs["p2p"], legs["pool"]
+    check(p2p["desyncs"] == 0 and p2p["digest_launches"] == p2p["digest_predicted"],
+          f"soak p2p: {p2p['desyncs']} desyncs, {p2p['digest_launches']} digest launches, "
+          f"{p2p['digest_predicted']} predicted")
+    horizon = SOAK_POOL_WARM + SOAK_TICKS - 64
+    check(pool["sessions"] == 8 and pool["ring_wraps"] >= 156
+          and min(pool["frames"]) >= horizon and min(pool["settled_frames"]) >= horizon,
+          f"soak pool: {pool['sessions']} sessions, {pool['ring_wraps']} ring wraps, "
+          f"frames {pool['frames']}, settled {pool['settled_frames']}")
+    emit({"phase": "soak",
+          "p2p": {"frames": SOAK_FRAMES, **{k: p2p[k] for k in (
+              "fps", "host_ms", "desyncs", "compared", "checksum_reports",
+              "checksum_reports_sent", "settled_frame", "settled_checksum", "digest_launches",
+              "digest_predicted", "rss_drift_mb", "seconds", "growth", "samples")}},
+          "pool": {"ticks": SOAK_TICKS, "warm_ticks": SOAK_POOL_WARM, **{k: pool[k] for k in (
+              "session_ticks_per_sec", "host_ms", "sessions", "ring_wraps", "settled_frames",
+              "replays",
+              "seconds", "growth", "samples")}}})
+    return p2p["digest_launches"]
+
+
 # the CUDA graphs (ops.graphs) captured and replayed in this process,
 # counted from count_graphs() on
 GRAPH_COUNTS = {"captures": 0, "replays": 0}
@@ -5047,6 +5153,7 @@ def main() -> int:
     san = timed("sanitized", phase_sanitized)
     example_launches = timed("examples", phase_examples)
     probe_launches = timed("scripts", phase_scripts, fleet_docs, proc_timelines)
+    soak_launches = timed("soak", phase_soak)
     emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
     main_case = cases[MAIN_CASE]
     emit({"kernels": [{
@@ -5062,6 +5169,7 @@ def main() -> int:
         "launches_proc": proc_launches, "launches_sanitized_production": san["digest_launches"],
         "launches_sanitized": san["digest_launches_sanitized"],
         "launches_examples": example_launches, "launches_floor_probe": probe_launches,
+        "launches_soak": soak_launches,
         "max_abs_err": worst,
         "ms": main_case["device_us"] / 1e3, "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_us"] / 1e3, "bound_by": "bytes", "library_ms": None,

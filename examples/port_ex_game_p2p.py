@@ -79,7 +79,9 @@ def run_session(local_port: int, players, spectators, frames: int, render: bool,
             if type(ev).__name__ == "WaitRecommendation":
                 clock.skip(ev.skip_frames)
             print(f"[:{local_port}] event: {ev}")
-        for _ in range(clock.ready_frames()):
+        # a late loop may find several frames ready: run no more than the
+        # frames left, so the session stops at its budget
+        for _ in range(min(clock.ready_frames(), frames - frame)):
             for h in local_handles:
                 sess.add_local_input(h, game.bot_input(h, frame))
             try:

@@ -16,8 +16,9 @@ NVIDIA H100:
 - the P2P wire (``net``): the endpoint protocol, its messages and input
   codec byte for byte the JAX package's, UDP and in-memory sockets, so a
   port peer plays a JAX peer;
-- the native host cores the JAX package runs: the C++ input codec and
-  message framing, endpoint datapath and sync core of ``native/``, built by
+- the native host cores, the port's own copy of those the JAX package runs:
+  the C++ input codec and message framing, endpoint datapath and sync core
+  of ``csrc/host/``, built by
   ``g++`` at first use and bound with ctypes (``net/_native.py``), on by
   default for eligible configs;
 - device-batched input prediction (``predict``): a ``DevicePredictionPlane``

@@ -3,13 +3,22 @@ library.
 
 Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ``ctypes``.  The host
-library is the native host code the JAX package also runs (the input codec
-and message framing, the endpoint datapath, the sync core, the session bank
-and the batched socket datapath), compiled by ``g++`` from the repository's
-``native/codec.cpp``, ``endpoint.cpp``, ``sync_core.cpp``,
-``session_bank.cpp`` and ``net_batch.cpp`` as they are, into ONE library:
-the bank calls the endpoint, sync-core and socket entry points of the same
-shared object.  Builds happen at first use into
+library is the port's native host code (the input codec and message
+framing, the endpoint datapath, the sync core, the session bank and the
+batched socket datapath), compiled by ``g++`` from the package's own
+``csrc/host/codec.cpp``, ``endpoint.cpp``, ``sync_core.cpp``,
+``session_bank.cpp`` and ``net_batch.cpp`` (with ``wire_common.h``) into
+ONE library: the bank calls the endpoint, sync-core and socket entry
+points of the same shared object.  These sources began as copies of the
+JAX package's native tree, code unchanged, and are the port's to change:
+nothing checks that the two trees stay byte-equal.  The copy gives the port
+ownership of its sources, not an independent check of them: the
+cross-package tests (``tests/test_torch_native*.py``,
+``test_torch_host_bank.py``, ``test_torch_bank_faults.py``) hold a
+library compiled from these sources against the JAX package's library
+compiled from its own, on the same inputs, so while the code of the two
+trees is the same a fault in it shows on both sides and passes; those
+tests catch a change of behaviour once the trees diverge.  Builds happen at first use into
 ``_build/`` beside this file (listed in ``.gitignore``); each library's file
 name carries a hash of every source and header it is built from and of the
 flags, so an edited source is rebuilt and never mixed up with an old
@@ -41,7 +50,7 @@ from typing import Dict, Iterable, Optional
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG / "_build"
-NATIVE_DIR = _PKG.parent / "native"
+HOST_DIR = _PKG / "csrc" / "host"
 
 SOURCES: Dict[str, Path] = {
     "digest": _PKG / "csrc" / "digest.cu",
@@ -55,12 +64,12 @@ NVCC_FLAGS = (
 
 _NVCC_TIMEOUT_S = 600
 
-# the host library: every translation unit of native/ in one shared object
+# the host library: every translation unit of csrc/host/ in one shared object
 HOST_SOURCES = tuple(
-    NATIVE_DIR / n
+    HOST_DIR / n
     for n in ("codec.cpp", "endpoint.cpp", "sync_core.cpp", "session_bank.cpp", "net_batch.cpp")
 )
-HOST_HEADERS = (NATIVE_DIR / "wire_common.h",)
+HOST_HEADERS = (HOST_DIR / "wire_common.h",)
 HOST_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 HOST = "host"
 # the instrumented variants: file-name suffix and the flags in place of -O2
@@ -177,7 +186,7 @@ def build_host(sanitize: Optional[str] = None) -> float:
     if gxx is None:
         raise KernelBuildError(
             "g++ not found on PATH; the port's host library is built from "
-            "native/*.cpp at first use"
+            "csrc/host/*.cpp at first use"
         )
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()

@@ -11,9 +11,10 @@ either package, so it judges a tree that does not import.
 Three pillars, all source-level — they read the tree, not the process:
 
 - :mod:`.layout` — the cross-language ABI/layout checker.  Parses the
-  packed-format constants out of the native sources (``native/*.cpp``,
-  ``native/wire_common.h``, shared by both packages and read in place,
-  and the port's own kernel ``csrc/digest.cu``) and the Python decoders
+  packed-format constants out of the package's own native sources
+  (``csrc/host/*.cpp``, ``csrc/host/wire_common.h`` and the kernel
+  ``csrc/digest.cu``; a tree that keeps its host sources elsewhere is
+  judged with ``host=``) and the Python decoders
   (``net/_native.py``, ``net/messages.py``, ``net/sockets.py``,
   ``parallel/host_bank.py``, ``fleet/rpc.py``, ``ops/digest.py``) and
   proves the mirrored offsets/widths/flag bits/error codes/kernel

@@ -1,7 +1,7 @@
 """Static extraction of integer constants from the native C++ sources.
 
 The native fast paths declare their wire/ABI contract as ``constexpr``
-ints and plain enums (``native/wire_common.h``, ``session_bank.cpp``,
+ints and plain enums (``csrc/host/wire_common.h``, ``session_bank.cpp``,
 ``net_batch.cpp``, ...).  This parser recovers a ``{name: value}`` map
 from the *source text* — no compiler, no loaded library — which is what
 lets the layout checker run on a tree with no toolchain and still fail

@@ -182,163 +182,174 @@ _NP_WIDTH = {"u4": 4, "i4": 4, "u8": 8, "i8": 8, "u2": 2, "i2": 2,
              "u1": 1, "i1": 1}
 
 
+def host_sources(pkg: str = PKG) -> str:
+    """Where ``pkg`` keeps its C++ host sources, relative to the root:
+    the package's own ``csrc/host``.  A tree laid out otherwise (the JAX
+    package's) is judged by handing its folder to the checks as
+    ``host``."""
+    return f"{pkg}/csrc/host"
+
+
 def mirrored_constants(
     pkg: str = PKG,
+    host: Optional[str] = None,
 ) -> Tuple[Tuple[str, str, str, str], ...]:
     """Mirrored scalar constants, ``(cpp file, cpp symbol, py file, py
-    symbol)``: the C++ <-> Python pairs, the Python side (and the
-    port's own kernel source) rooted at ``pkg``; ``native/`` is shared
-    by both packages and read in place."""
+    symbol)``: the C++ <-> Python pairs, the Python side and the port's
+    own kernel source rooted at ``pkg``, the host sources at ``host``
+    (default ``host_sources(pkg)``)."""
+    if host is None:
+        host = host_sources(pkg)
     return (
         # wire_common.h <-> codec/compression caps and shared error codes
-        ("native/wire_common.h", "kMaxDecodedBytes",
+        (f"{host}/wire_common.h", "kMaxDecodedBytes",
          f"{pkg}/net/compression.py", "MAX_DECODED_BYTES"),
-        ("native/wire_common.h", "kMaxPlayersOnWire",
+        (f"{host}/wire_common.h", "kMaxPlayersOnWire",
          f"{pkg}/net/_native.py", "_MAX_PLAYERS_ON_WIRE"),
-        ("native/wire_common.h", "kErrBufferTooSmall",
+        (f"{host}/wire_common.h", "kErrBufferTooSmall",
          f"{pkg}/net/_native.py", "EP_ERR_BUFFER_TOO_SMALL"),
-        ("native/wire_common.h", "kErrTooManyInputs",
+        (f"{host}/wire_common.h", "kErrTooManyInputs",
          f"{pkg}/net/_native.py", "EP_ERR_TOO_MANY_INPUTS"),
         # message tags (wire_common.h MsgTag <-> messages.py)
-        ("native/wire_common.h", "kTagInput",
+        (f"{host}/wire_common.h", "kTagInput",
          f"{pkg}/net/messages.py", "_TAG_INPUT"),
-        ("native/wire_common.h", "kTagInputAck",
+        (f"{host}/wire_common.h", "kTagInputAck",
          f"{pkg}/net/messages.py", "_TAG_INPUT_ACK"),
-        ("native/wire_common.h", "kTagQualityReport",
+        (f"{host}/wire_common.h", "kTagQualityReport",
          f"{pkg}/net/messages.py", "_TAG_QUALITY_REPORT"),
-        ("native/wire_common.h", "kTagQualityReply",
+        (f"{host}/wire_common.h", "kTagQualityReply",
          f"{pkg}/net/messages.py", "_TAG_QUALITY_REPLY"),
-        ("native/wire_common.h", "kTagChecksumReport",
+        (f"{host}/wire_common.h", "kTagChecksumReport",
          f"{pkg}/net/messages.py", "_TAG_CHECKSUM_REPORT"),
-        ("native/wire_common.h", "kTagKeepAlive",
+        (f"{host}/wire_common.h", "kTagKeepAlive",
          f"{pkg}/net/messages.py", "_TAG_KEEP_ALIVE"),
-        ("native/wire_common.h", "kTagSyncRequest",
+        (f"{host}/wire_common.h", "kTagSyncRequest",
          f"{pkg}/net/messages.py", "_TAG_SYNC_REQUEST"),
-        ("native/wire_common.h", "kTagSyncReply",
+        (f"{host}/wire_common.h", "kTagSyncReply",
          f"{pkg}/net/messages.py", "_TAG_SYNC_REPLY"),
         # endpoint core verdicts
-        ("native/endpoint.cpp", "kEpDrop",
+        (f"{host}/endpoint.cpp", "kEpDrop",
          f"{pkg}/net/_native.py", "EP_DROP"),
-        ("native/endpoint.cpp", "kEpFallback",
+        (f"{host}/endpoint.cpp", "kEpFallback",
          f"{pkg}/net/_native.py", "EP_FALLBACK"),
-        ("native/endpoint.cpp", "kEpBadPendingHead",
+        (f"{host}/endpoint.cpp", "kEpBadPendingHead",
          f"{pkg}/net/_native.py", "EP_BAD_PENDING_HEAD"),
-        ("native/endpoint.cpp", "kNullFrame",
+        (f"{host}/endpoint.cpp", "kNullFrame",
          f"{pkg}/core/types.py", "NULL_FRAME"),
         # sync core error codes + ring capacity
-        ("native/sync_core.cpp", "kSyncOk",
+        (f"{host}/sync_core.cpp", "kSyncOk",
          f"{pkg}/net/_native.py", "SYNC_OK"),
-        ("native/sync_core.cpp", "kSyncErrPredictionPending",
+        (f"{host}/sync_core.cpp", "kSyncErrPredictionPending",
          f"{pkg}/net/_native.py", "SYNC_ERR_PREDICTION_PENDING"),
-        ("native/sync_core.cpp", "kSyncErrBeforeTail",
+        (f"{host}/sync_core.cpp", "kSyncErrBeforeTail",
          f"{pkg}/net/_native.py", "SYNC_ERR_BEFORE_TAIL"),
-        ("native/sync_core.cpp", "kSyncErrNoConfirmed",
+        (f"{host}/sync_core.cpp", "kSyncErrNoConfirmed",
          f"{pkg}/net/_native.py", "SYNC_ERR_NO_CONFIRMED"),
-        ("native/sync_core.cpp", "kSyncErrNonSequential",
+        (f"{host}/sync_core.cpp", "kSyncErrNonSequential",
          f"{pkg}/net/_native.py", "SYNC_ERR_NON_SEQUENTIAL"),
-        ("native/sync_core.cpp", "kSyncErrConfirmPastIncorrect",
+        (f"{host}/sync_core.cpp", "kSyncErrConfirmPastIncorrect",
          f"{pkg}/net/_native.py", "SYNC_ERR_CONFIRM_PAST_INCORRECT"),
-        ("native/sync_core.cpp", "kSyncErrBadArgs",
+        (f"{host}/sync_core.cpp", "kSyncErrBadArgs",
          f"{pkg}/net/_native.py", "SYNC_ERR_BAD_ARGS"),
-        ("native/sync_core.cpp", "kSyncErrQueueFull",
+        (f"{host}/sync_core.cpp", "kSyncErrQueueFull",
          f"{pkg}/net/_native.py", "SYNC_ERR_QUEUE_FULL"),
-        ("native/sync_core.cpp", "kQueueLen",
+        (f"{host}/sync_core.cpp", "kQueueLen",
          f"{pkg}/core/input_queue.py", "INPUT_QUEUE_LENGTH"),
         # session bank: slot fault codes, header flag bits, cmd flags
-        ("native/session_bank.cpp", "kBankOk",
+        (f"{host}/session_bank.cpp", "kBankOk",
          f"{pkg}/net/_native.py", "BANK_OK"),
-        ("native/session_bank.cpp", "kBankErrCmd",
+        (f"{host}/session_bank.cpp", "kBankErrCmd",
          f"{pkg}/net/_native.py", "BANK_ERR_CMD"),
-        ("native/session_bank.cpp", "kBankErrLandedSplit",
+        (f"{host}/session_bank.cpp", "kBankErrLandedSplit",
          f"{pkg}/net/_native.py", "BANK_ERR_LANDED_SPLIT"),
-        ("native/session_bank.cpp", "kBankErrSync",
+        (f"{host}/session_bank.cpp", "kBankErrSync",
          f"{pkg}/net/_native.py", "BANK_ERR_SYNC"),
-        ("native/session_bank.cpp", "kBankErrSyncInputs",
+        (f"{host}/session_bank.cpp", "kBankErrSyncInputs",
          f"{pkg}/net/_native.py", "BANK_ERR_SYNC_INPUTS"),
-        ("native/session_bank.cpp", "kBankErrConfirm",
+        (f"{host}/session_bank.cpp", "kBankErrConfirm",
          f"{pkg}/net/_native.py", "BANK_ERR_CONFIRM"),
-        ("native/session_bank.cpp", "kBankErrNoPlayers",
+        (f"{host}/session_bank.cpp", "kBankErrNoPlayers",
          f"{pkg}/net/_native.py", "BANK_ERR_NO_PLAYERS"),
-        ("native/session_bank.cpp", "kBankErrSequence",
+        (f"{host}/session_bank.cpp", "kBankErrSequence",
          f"{pkg}/net/_native.py", "BANK_ERR_SEQUENCE"),
-        ("native/session_bank.cpp", "kBankErrInjected",
+        (f"{host}/session_bank.cpp", "kBankErrInjected",
          f"{pkg}/net/_native.py", "BANK_ERR_INJECTED"),
-        ("native/session_bank.cpp", "kBankErrSpecStream",
+        (f"{host}/session_bank.cpp", "kBankErrSpecStream",
          f"{pkg}/net/_native.py", "BANK_ERR_SPEC_STREAM"),
-        ("native/session_bank.cpp", "kBankErrIo",
+        (f"{host}/session_bank.cpp", "kBankErrIo",
          f"{pkg}/net/_native.py", "BANK_ERR_IO"),
-        ("native/session_bank.cpp", "kHdrLive",
+        (f"{host}/session_bank.cpp", "kHdrLive",
          f"{pkg}/net/_native.py", "BANK_HDR_LIVE"),
-        ("native/session_bank.cpp", "kHdrQuiet",
+        (f"{host}/session_bank.cpp", "kHdrQuiet",
          f"{pkg}/net/_native.py", "BANK_HDR_QUIET"),
-        ("native/session_bank.cpp", "kHdrEvents",
+        (f"{host}/session_bank.cpp", "kHdrEvents",
          f"{pkg}/net/_native.py", "BANK_HDR_EVENTS"),
-        ("native/session_bank.cpp", "kHdrSpec",
+        (f"{host}/session_bank.cpp", "kHdrSpec",
          f"{pkg}/net/_native.py", "BANK_HDR_SPEC"),
-        ("native/session_bank.cpp", "kHdrConsensus",
+        (f"{host}/session_bank.cpp", "kHdrConsensus",
          f"{pkg}/net/_native.py", "BANK_HDR_CONSENSUS"),
-        ("native/session_bank.cpp", "kHdrDirty",
+        (f"{host}/session_bank.cpp", "kHdrDirty",
          f"{pkg}/net/_native.py", "BANK_HDR_DIRTY"),
-        ("native/session_bank.cpp", "kHdrOut",
+        (f"{host}/session_bank.cpp", "kHdrOut",
          f"{pkg}/net/_native.py", "BANK_HDR_OUT"),
-        ("native/session_bank.cpp", "kHdrSkip",
+        (f"{host}/session_bank.cpp", "kHdrSkip",
          f"{pkg}/net/_native.py", "BANK_HDR_SKIP"),
-        ("native/session_bank.cpp", "kHdrConf",
+        (f"{host}/session_bank.cpp", "kHdrConf",
          f"{pkg}/net/_native.py", "BANK_HDR_CONF"),
-        ("native/session_bank.cpp", "kFlagInputs",
+        (f"{host}/session_bank.cpp", "kFlagInputs",
          f"{pkg}/net/_native.py", "CMD_FLAG_INPUTS"),
-        ("native/session_bank.cpp", "kFlagSkip",
+        (f"{host}/session_bank.cpp", "kFlagSkip",
          f"{pkg}/net/_native.py", "CMD_FLAG_SKIP"),
-        ("native/session_bank.cpp", "kFlagStaged",
+        (f"{host}/session_bank.cpp", "kFlagStaged",
          f"{pkg}/net/_native.py", "CMD_FLAG_STAGED"),
         # descriptor plane (§21): staging / request-descriptor / send strides
         # and the request pattern codes
-        ("native/session_bank.cpp", "kStageStride",
+        (f"{host}/session_bank.cpp", "kStageStride",
          f"{pkg}/net/_native.py", "BANK_STAGE_STRIDE"),
-        ("native/session_bank.cpp", "kReqStride",
+        (f"{host}/session_bank.cpp", "kReqStride",
          f"{pkg}/net/_native.py", "BANK_REQ_STRIDE"),
-        ("native/session_bank.cpp", "kReqOther",
+        (f"{host}/session_bank.cpp", "kReqOther",
          f"{pkg}/net/_native.py", "REQ_OTHER"),
-        ("native/session_bank.cpp", "kReqQuiet",
+        (f"{host}/session_bank.cpp", "kReqQuiet",
          f"{pkg}/net/_native.py", "REQ_QUIET"),
-        ("native/session_bank.cpp", "kReqResim",
+        (f"{host}/session_bank.cpp", "kReqResim",
          f"{pkg}/net/_native.py", "REQ_RESIM"),
-        ("native/session_bank.cpp", "kReqSaveOnly",
+        (f"{host}/session_bank.cpp", "kReqSaveOnly",
          f"{pkg}/net/_native.py", "REQ_SAVE_ONLY"),
-        ("native/session_bank.cpp", "kReqEmpty",
+        (f"{host}/session_bank.cpp", "kReqEmpty",
          f"{pkg}/net/_native.py", "REQ_EMPTY"),
-        ("native/session_bank.cpp", "kReqFlagTrailingAdv",
+        (f"{host}/session_bank.cpp", "kReqFlagTrailingAdv",
          f"{pkg}/net/_native.py", "REQ_FLAG_TRAILING_ADV"),
-        ("native/net_batch.cpp", "kSendStride",
+        (f"{host}/net_batch.cpp", "kSendStride",
          f"{pkg}/net/_native.py", "NET_SEND_STRIDE"),
         # datapath gen 2 (§23): drain/route/fd strides, dispatch flag, stat
         # table widths
-        ("native/net_batch.cpp", "kRecvStride",
+        (f"{host}/net_batch.cpp", "kRecvStride",
          f"{pkg}/net/_native.py", "NET_RECV_STRIDE"),
-        ("native/net_batch.cpp", "kRouteStride",
+        (f"{host}/net_batch.cpp", "kRouteStride",
          f"{pkg}/net/_native.py", "NET_ROUTE_STRIDE"),
-        ("native/net_batch.cpp", "kFdStride",
+        (f"{host}/net_batch.cpp", "kFdStride",
          f"{pkg}/net/_native.py", "NET_FD_STRIDE"),
-        ("native/net_batch.cpp", "kSendFlagDispatch",
+        (f"{host}/net_batch.cpp", "kSendFlagDispatch",
          f"{pkg}/net/_native.py", "NET_SEND_FLAG_DISPATCH"),
-        ("native/net_batch.cpp", "kSendTableStats",
+        (f"{host}/net_batch.cpp", "kSendTableStats",
          f"{pkg}/net/_native.py", "NET_SEND_STATS"),
-        ("native/net_batch.cpp", "kRecvTableStats",
+        (f"{host}/net_batch.cpp", "kRecvTableStats",
          f"{pkg}/net/_native.py", "NET_RECV_TABLE_STATS"),
-        ("native/session_bank.cpp", "kFrameWindow",
+        (f"{host}/session_bank.cpp", "kFrameWindow",
          f"{pkg}/core/time_sync.py", "FRAME_WINDOW_SIZE"),
         # kernel-batched datapath verdicts + socket caps
-        ("native/net_batch.cpp", "kNetOk",
+        (f"{host}/net_batch.cpp", "kNetOk",
          f"{pkg}/net/_native.py", "NET_OK"),
-        ("native/net_batch.cpp", "kNetErrUnsupported",
+        (f"{host}/net_batch.cpp", "kNetErrUnsupported",
          f"{pkg}/net/_native.py", "NET_ERR_UNSUPPORTED"),
-        ("native/net_batch.cpp", "kNetErrFatal",
+        (f"{host}/net_batch.cpp", "kNetErrFatal",
          f"{pkg}/net/_native.py", "NET_ERR_FATAL"),
-        ("native/net_batch.cpp", "kNetErrBadArgs",
+        (f"{host}/net_batch.cpp", "kNetErrBadArgs",
          f"{pkg}/net/_native.py", "NET_ERR_BAD_ARGS"),
-        ("native/net_batch.cpp", "kRecvBufSize",
+        (f"{host}/net_batch.cpp", "kRecvBufSize",
          f"{pkg}/net/sockets.py", "RECV_BUFFER_SIZE"),
-        ("native/net_batch.cpp", "kIdealMaxUdp",
+        (f"{host}/net_batch.cpp", "kIdealMaxUdp",
          f"{pkg}/net/sockets.py", "IDEAL_MAX_UDP_PACKET_SIZE"),
         # the digest kernel's limits and lane primes (csrc/digest.cu) vs
         # its wrapper (ops/digest.py): the static twin of the limits
@@ -474,13 +485,16 @@ def _check_py_mirrors(
     return out
 
 
-def _check_header(root: Path, pkg: str = PKG) -> List[Finding]:
+def _check_header(
+    root: Path, pkg: str = PKG, host: Optional[str] = None,
+) -> List[Finding]:
     out: List[Finding] = []
-    native = parse_cpp_constants(root / "native/session_bank.cpp")
+    bank_cpp = f"{host or host_sources(pkg)}/session_bank.cpp"
+    native = parse_cpp_constants(root / bank_cpp)
     stride = native.get("kHdrStride")
     if stride != LAYOUT_HEADER_STRIDE:
         out.append(Finding(
-            "layout/header-stride", "native/session_bank.cpp", 0,
+            "layout/header-stride", bank_cpp, 0,
             f"kHdrStride = {stride}, contract says "
             f"{LAYOUT_HEADER_STRIDE}",
         ))
@@ -826,12 +840,15 @@ def _check_trace_context(root: Path, pkg: str = PKG) -> List[Finding]:
     return out
 
 
-def _check_stat_tables(root: Path, pkg: str = PKG) -> List[Finding]:
+def _check_stat_tables(
+    root: Path, pkg: str = PKG, host: Optional[str] = None,
+) -> List[Finding]:
     out: List[Finding] = []
     native_py = root / f"{pkg}/net/_native.py"
     tables = parse_py_field_tuples(native_py)
-    bank = parse_cpp_constants(root / "native/session_bank.cpp")
-    net = parse_cpp_constants(root / "native/net_batch.cpp")
+    host = host or host_sources(pkg)
+    bank = parse_cpp_constants(root / f"{host}/session_bank.cpp")
+    net = parse_cpp_constants(root / f"{host}/net_batch.cpp")
     ep_stats = tables.get("EP_STAT_FIELDS")
     if ep_stats is None:
         out.append(Finding(
@@ -860,7 +877,7 @@ def _check_stat_tables(root: Path, pkg: str = PKG) -> List[Finding]:
     n_stats_nb = net.get("kNumNetStats")
     if n_stats != n_stats_nb:
         out.append(Finding(
-            "layout/stat-table", "native/net_batch.cpp", 0,
+            "layout/stat-table", f"{host}/net_batch.cpp", 0,
             f"kNumNetStats disagrees across native TUs: "
             f"session_bank={n_stats} net_batch={n_stats_nb}",
         ))
@@ -949,23 +966,25 @@ def check_layout(
     root: Path,
     mirrors: Optional[Sequence[Tuple[str, str, str, str]]] = None,
     pkg: str = PKG,
+    host: Optional[str] = None,
 ) -> List[Finding]:
-    """Run every layout check over ``pkg``'s tree at ``root`` (the
-    mirror table defaults to ``mirrored_constants(pkg)``); returns the
+    """Run every layout check over ``pkg``'s tree at ``root``, its C++
+    host sources at ``host`` (default ``host_sources(pkg)``; the mirror
+    table defaults to ``mirrored_constants(pkg, host)``); returns the
     (ideally empty) finding list."""
     root = Path(root)
     if mirrors is None:
-        mirrors = mirrored_constants(pkg)
+        mirrors = mirrored_constants(pkg, host)
     findings: List[Finding] = []
     findings += _check_mirrors(root, mirrors)
     findings += _check_py_mirrors(root, pkg=pkg)
-    findings += _check_header(root, pkg)
+    findings += _check_header(root, pkg, host)
     findings += _check_descriptor_plane(root, pkg)
     findings += _check_body_prefix(root, pkg)
     findings += _check_rpc_framing(root, pkg)
     findings += _check_tcp_handshake(root, pkg)
     findings += _check_ingress_wire(root, pkg)
     findings += _check_trace_context(root, pkg)
-    findings += _check_stat_tables(root, pkg)
+    findings += _check_stat_tables(root, pkg, host)
     findings += _check_varrec(root, pkg)
     return findings

@@ -8,7 +8,7 @@ inverts: few players, many viewers.  The hub makes that shape bank-eligible:
 with a hub attached, ``HostSessionPool`` admits matches with spectators onto
 the native bank, where each slot assembles its confirmed-input broadcast
 payload once per tick and fans it to every registered viewer INSIDE the
-single tick crossing (native/session_bank.cpp's spectator tables; fan-out
+single tick crossing (csrc/host/session_bank.cpp's spectator tables; fan-out
 adds no crossing).
 
 The hub owns everything that is policy, mirroring the P2P split:

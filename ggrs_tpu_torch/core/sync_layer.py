@@ -8,7 +8,7 @@ state's tensors on the card (no copy) and a lazy checksum that is read back
 only when the ``checksum`` property is read.
 
 ``SyncLayer`` runs the input-queue and watermark mechanism on the native
-sync core (``native/sync_core.cpp``, one ctypes crossing per operation) by
+sync core (``csrc/host/sync_core.cpp``, one ctypes crossing per operation) by
 default for configs with a fixed-size injective encoding, repeat-last
 prediction and default equality, as the JAX package does; every other
 config, and any ``SyncLayer(use_native=False)`` or ``GGRS_TPU_NO_NATIVE=1``,
@@ -151,7 +151,7 @@ _NATIVE_STATUS = (
 
 
 class _NativeSyncCore:
-    """ctypes facade over ``native/sync_core.cpp``: the input-queue bank and
+    """ctypes facade over ``csrc/host/sync_core.cpp``: the input-queue bank and
     confirmed-frame watermark with ONE crossing per operation, storing
     Config-encoded fixed-size input bytes.  ``SyncLayer`` decides
     eligibility; the Python ``InputQueue`` bank is the reference."""

@@ -97,7 +97,11 @@ class BoxGame:
 
     def init_state_np(self) -> Dict[str, np.ndarray]:
         """Ships spaced around the playfield center, facing outward (in
-        float32 pixels and radians for the float variant)."""
+        float32 pixels and radians for the float variant).  The leaves come
+        in sorted key order, as the JAX package's ``init_state_np`` gives
+        them (``jax.tree_util`` rebuilds a dict sorted): a consumer that
+        walks the dict in order, such as a soak harness's digest, sees the
+        same bytes from both."""
         state = self._init_fixed_np()
         if self.variant == "float":
             state = {
@@ -105,7 +109,7 @@ class BoxGame:
                 "vel": np.zeros((self.num_players, 2), np.float32),
                 "rot": (state["rot"] * (2 * np.pi / _ROT_PERIOD)).astype(np.float32),
             }
-        return state
+        return dict(sorted(state.items()))
 
     def _init_fixed_np(self) -> Dict[str, np.ndarray]:
         p = self.num_players

@@ -1,17 +1,17 @@
 """ctypes bindings of the native host code: the input codec and message
-framing (``native/codec.cpp``), the endpoint datapath
-(``native/endpoint.cpp``), the sync core (``native/sync_core.cpp``), the
+framing (``csrc/host/codec.cpp``), the endpoint datapath
+(``csrc/host/endpoint.cpp``), the sync core (``csrc/host/sync_core.cpp``), the
 session bank with its spectator fan-out, confirmed-stream tap and socket pump
-(``native/session_bank.cpp``) and the kernel-batched socket datapath
-(``native/net_batch.cpp``: per-socket ``NetBatch`` recvmmsg/sendmmsg, the
+(``csrc/host/session_bank.cpp``) and the kernel-batched socket datapath
+(``csrc/host/net_batch.cpp``: per-socket ``NetBatch`` recvmmsg/sendmmsg, the
 one-crossing send and receive tables, GSO and GRO).
 
 The port's own copy of the bindings of ``ggrs_tpu/net/_native.py``, with the
 packed-table layouts the bank and the datapath speak (``BANK_HDR_FIELDS``,
 ``BANK_REQ_FIELDS``, ``BANK_STAGE_FIELDS``, ``NET_SEND_FIELDS``,
 ``NET_FD_FIELDS``, ``NET_ROUTE_FIELDS``, ``NET_RECV_FIELDS``); every stride is
-checked against the library when it loads, and a skew raises.  The sources are the repository's
-``native/*.cpp``, compiled as they are into one host library by
+checked against the library when it loads, and a skew raises.  The sources are the package's
+own ``csrc/host/*.cpp``, compiled into one host library by
 ``_build.build_host`` at first use (``g++``, into ``ggrs_tpu_torch/_build/``).
 A failed build raises: nothing here quietly serves the Python codec or cores
 instead.  ``GGRS_TPU_NO_NATIVE=1``, read as the JAX package reads it (before
@@ -69,7 +69,7 @@ _ERROR_NAMES = {
     -12: "too many inputs",
 }
 
-# must mirror struct GgrsMsg in native/codec.cpp field for field (ctypes
+# must mirror struct GgrsMsg in csrc/host/codec.cpp field for field (ctypes
 # reproduces the C compiler's alignment and padding for same-ordered fields)
 _MAX_PLAYERS_ON_WIRE = 64
 
@@ -109,14 +109,14 @@ _MSG_ERROR_NAMES = {
     -23: "trailing bytes after message",
 }
 
-# endpoint-datapath return codes (native/endpoint.cpp)
+# endpoint-datapath return codes (csrc/host/endpoint.cpp)
 EP_DROP = -30
 EP_FALLBACK = -31
 EP_BAD_PENDING_HEAD = -32
 EP_ERR_BUFFER_TOO_SMALL = -11
 EP_ERR_TOO_MANY_INPUTS = -12  # kErrTooManyInputs: > _MAX_PLAYERS_ON_WIRE
 
-# sync-core return codes (native/sync_core.cpp SyncRc)
+# sync-core return codes (csrc/host/sync_core.cpp SyncRc)
 SYNC_OK = 0
 SYNC_ERR_PREDICTION_PENDING = -40
 SYNC_ERR_BEFORE_TAIL = -41
@@ -126,7 +126,7 @@ SYNC_ERR_CONFIRM_PAST_INCORRECT = -44
 SYNC_ERR_BAD_ARGS = -45
 SYNC_ERR_QUEUE_FULL = -46  # kSyncErrQueueFull: 128-slot ring exhausted
 
-# session-bank return codes (mirror native/session_bank.cpp; the buffer
+# session-bank return codes (mirror csrc/host/session_bank.cpp; the buffer
 # code is wire_common.h's kErrBufferTooSmall, shared with the codec)
 BANK_ERR_BUFFER_TOO_SMALL = -11
 BANK_OK = 0
@@ -305,13 +305,13 @@ def _bind(lib: ctypes.CDLL) -> None:
     c_i64_p = ctypes.POINTER(ctypes.c_int64)
     vp, i64, sz, cp = ctypes.c_void_p, ctypes.c_int64, ctypes.c_size_t, ctypes.c_char_p
     cint = ctypes.c_int
-    # ---- codec and message framing (native/codec.cpp) ----
+    # ---- codec and message framing (csrc/host/codec.cpp) ----
     _sig(lib.ggrs_codec_encode_bound, sz, sz, sz)
     _sig(lib.ggrs_codec_encode, cint, cp, sz, cp, c_size_p, sz, cp, sz, c_size_p)
     _sig(lib.ggrs_codec_decode, cint, cp, sz, cp, sz, cp, sz, c_size_p, sz, c_size_p)
     _sig(lib.ggrs_msg_decode, cint, cp, sz, ctypes.POINTER(_GgrsMsg))
     _sig(lib.ggrs_msg_encode, cint, ctypes.POINTER(_GgrsMsg), cp, sz, cp, sz, c_size_p)
-    # ---- endpoint datapath (native/endpoint.cpp) ----
+    # ---- endpoint datapath (csrc/host/endpoint.cpp) ----
     _sig(lib.ggrs_ep_new, vp, cp, sz, cp, sz, i64)
     _sig(lib.ggrs_ep_free, None, vp)
     _sig(lib.ggrs_ep_pending_len, i64, vp)
@@ -335,7 +335,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     _sig(lib.ggrs_ep_rewind_send, None, vp, i64, cp, sz)
     _sig(lib.ggrs_ep_stats, None, vp, ctypes.POINTER(ctypes.c_uint64))
     _sig(lib.ggrs_ep_last_acked_frame, i64, vp)
-    # ---- sync core (native/sync_core.cpp) ----
+    # ---- sync core (csrc/host/sync_core.cpp) ----
     _sig(lib.ggrs_sync_new, vp, cint, cint)
     _sig(lib.ggrs_sync_free, None, vp)
     _sig(lib.ggrs_sync_set_frame_delay, None, vp, cint, cint)
@@ -352,7 +352,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     _sig(lib.ggrs_sync_confirmed_input, cint, vp, cint, i64, cp)
     _sig(lib.ggrs_sync_seed, cint, vp, cint, i64, ctypes.c_int32, cp)
     _sig(lib.ggrs_sync_tail_frame, i64, vp, cint)
-    # ---- session bank (native/session_bank.cpp) ----
+    # ---- session bank (csrc/host/session_bank.cpp) ----
     i32_p = ctypes.POINTER(ctypes.c_int32)
     _sig(lib.ggrs_bank_new, vp)
     _sig(lib.ggrs_bank_free, None, vp)
@@ -377,7 +377,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     _sig(lib.ggrs_bank_attach_socket, cint, vp, i64, vp)
     _sig(lib.ggrs_bank_detach_socket, cint, vp, i64)
     _sig(lib.ggrs_bank_map_addr, cint, vp, i64, cint, i64, ctypes.c_uint32, ctypes.c_uint16)
-    # ---- the kernel-batched socket datapath (native/net_batch.cpp) ----
+    # ---- the kernel-batched socket datapath (csrc/host/net_batch.cpp) ----
     u64_p = ctypes.POINTER(ctypes.c_uint64)
     _sig(lib.ggrs_net_supported, cint)
     _sig(lib.ggrs_net_attach, vp, cint, cint)
@@ -405,7 +405,7 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 def _check_layouts(lib: ctypes.CDLL) -> None:
     """The datapath's packed strides and stats lengths against this module's
-    tables: the library is built from the checkout's ``native/`` sources,
+    tables: the library is built from the checkout's ``csrc/host/`` sources,
     so a difference is a drift here, and it raises."""
     import numpy as np
 

@@ -13,7 +13,7 @@ Decode is hardened: any malformed or malicious byte string raises
 ``CodecError`` — never an unhandled exception, never unbounded allocation
 (reference hardening: compression.rs:83-182, proptest compression.rs:205-213).
 
-``encode`` and ``decode`` dispatch to the C++ codec (``native/codec.cpp``
+``encode`` and ``decode`` dispatch to the C++ codec (``csrc/host/codec.cpp``
 through ``net/_native.py``); the Python implementation is the semantic
 reference for both, and takes the packets beyond the native resource caps
 (an oversize packet is legal).

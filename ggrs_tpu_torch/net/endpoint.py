@@ -7,7 +7,7 @@ events, the state machine, connect-status merging.  The per-tick
 
 - ``PyEndpointCore``, the pure-Python semantic reference;
 - ``NativeEndpointCore``, the same state machine in C++
-  (``native/endpoint.cpp``, compiled by ``_build.build_host``) with ONE
+  (``csrc/host/endpoint.cpp``, compiled by ``_build.build_host``) with ONE
   ctypes crossing per send and per receive.
 
 Both cores own the unacked pending-output window with its last-acked delta
@@ -223,7 +223,7 @@ class PyEndpointCore:
 
 
 class NativeEndpointCore:
-    """C++-backed endpoint datapath (``native/endpoint.cpp`` via ctypes)."""
+    """C++-backed endpoint datapath (``csrc/host/endpoint.cpp`` via ctypes)."""
 
     # receive staging caps; a legal packet beyond these falls back to the
     # Python codec through the fetch_base/store_one escape hatches

@@ -8,7 +8,7 @@ purely by source address (reference: p2p_session.rs:433-440); it is kept for
 wire-format parity and debugging.
 
 ``Message.encode`` and ``Message.decode`` route through the native framing
-fast path (``native/codec.cpp``) as the JAX package's do; the Python writer
+fast path (``csrc/host/codec.cpp``) as the JAX package's do; the Python writer
 and reader here are that package's, byte for byte, and remain the reference
 and the path for packets whose varints exceed u64.  A JAX peer and a port
 peer read each other's datagrams.

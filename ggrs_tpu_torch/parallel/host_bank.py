@@ -4,7 +4,7 @@ mechanism in ONE ctypes crossing per pool tick (the port's copy of
 
 ``HostSessionPool`` drives every pooled session's tick (input enqueue,
 prediction and confirmation watermarks, endpoint timers, ack trim, outbound
-InputMessage assembly) through ``native/session_bank.cpp``, compiled into the
+InputMessage assembly) through ``csrc/host/session_bank.cpp``, compiled into the
 port's host library, off a single packed command buffer per tick.
 
 POLICY STAYS HERE, in Python: GgrsEvent emission, the disconnect consensus
@@ -59,7 +59,7 @@ returns ``P2PSession.network_stats``'s shape for native, quarantined and
 evicted slots alike.
 
 NATIVE I/O (docs/DESIGN.md §15, §23): with ``native_io=True`` each slot's
-UDP fd is attached to the kernel-batched datapath (native/net_batch.cpp) and
+UDP fd is attached to the kernel-batched datapath (csrc/host/net_batch.cpp) and
 the tick crossing becomes ``ggrs_bank_pump``: datagrams flow socket ->
 crossing -> socket through recvmmsg/sendmmsg with ZERO Python on the packet
 path, with the same wire bytes in the same send order, one receive drain and
@@ -1012,7 +1012,7 @@ class HostSessionPool:
             or int(lib.ggrs_bank_req_stride()) != _REQ_DTYPE.itemsize
             or int(lib.ggrs_bank_stage_stride()) != _STAGE_DTYPE.itemsize
         ):
-            # the library is built from this checkout's native/ sources, so
+            # the library is built from this checkout's csrc/host/ sources, so
             # a stride skew is a packed-table drift in this module
             raise RuntimeError(
                 "bank table strides (hdr %d, req %d, stage %d) differ from "

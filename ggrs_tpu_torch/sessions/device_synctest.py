@@ -105,6 +105,17 @@ class DeviceSyncTestSession:
     def current_frame(self) -> int:
         return self._ticks_run
 
+    @property
+    def resim_frames_per_tick(self) -> int:
+        """Resimulated (rolled-back) frames per steady tick."""
+        return self.check_distance
+
+    @property
+    def requests_per_tick(self) -> int:
+        """Request-list equivalents fused per steady tick (2d+2, the
+        reference's per-tick workload -- SURVEY §3.3)."""
+        return 2 * self.check_distance + 2
+
     def run_ticks(self, inputs: Any, check: bool = True) -> None:
         """Advance ``n`` frames with ``inputs`` (leading axis = ticks, then the
         per-frame input shape, e.g. ``(n, P)`` u8 for BoxGame; numpy arrays

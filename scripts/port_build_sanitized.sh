@@ -11,9 +11,9 @@
 #    60 s budget as the JAX leg.
 # 3. ASan+UBSan leg: GGRS_NATIVE_SANITIZE=1 makes ggrs_tpu_torch/_build.py
 #    build libggrs_host_san-<hash>.so (-O1 -g -fsanitize=address,undefined
-#    -fno-sanitize-recover=all) from native/*.cpp, and the port's host-side
-#    tests run on it, so any heap or UB fault in the bank, the datapath or
-#    the runner aborts the run.  ASan must be loaded before Python, hence
+#    -fno-sanitize-recover=all) from ggrs_tpu_torch/csrc/host/*.cpp, and
+#    the port's host-side tests run on it, so any heap or UB fault in the
+#    bank, the datapath or the runner aborts the run.  ASan must be loaded before Python, hence
 #    the LD_PRELOAD.  Shard-runner children inherit both variables, so the
 #    out-of-process serving loop runs the sanitized bank too.
 # 4. TSan leg: GGRS_NATIVE_SANITIZE=thread builds libggrs_host_tsan-<hash>.so

@@ -211,6 +211,20 @@ class TestPortExampleSmoke:
             assert frames == game.frames_run == 120
             assert not [e for e in events if type(e).__name__ == "DesyncDetected"], events
 
+    def test_p2p_stops_at_its_frame_budget(self, capsys, monkeypatch):
+        # C9: a frame clock that finds several frames ready at once (a late
+        # loop under load) must not carry a session past its budget
+        import port_ex_game
+
+        monkeypatch.setattr(port_ex_game.FrameClock, "ready_frames",
+                            lambda self, max_frames=5: max_frames)
+        ports = free_ports(2)
+        results = port_ex_game_p2p.run_both(62, ports=ports, device="cpu")
+        out = capsys.readouterr().out
+        for port, (game, sess, frames, events) in zip(ports, results):
+            assert f"[:{port}] done: 62 frames" in out
+            assert frames == game.frames_run == 62
+
     def test_p2p_with_spectator(self, launched):
         spec_out, host_out, peer_out = finish(launched["trio"])
         # the spectator must have followed its whole frame budget, not

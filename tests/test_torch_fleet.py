@@ -19,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import importlib
+import importlib.util
 import inspect
 import pickle
 import random
@@ -469,6 +470,86 @@ def test_public_names_cover_jax(sub):
     for name in sorted(want):
         assert hasattr(port_mod, name), name
         assert _kind(getattr(port_mod, name)) == _kind(getattr(jax_mod, name)), name
+
+
+# -- every module's public members (C6) --------------------------------------------
+
+# module-level functions and class members of the JAX package that the port
+# leaves out, each with its reason
+MEMBER_EXCLUDED = {
+    # jax.shard_map's check flags (parallel/batch.py:35): no torch counterpart
+    "ggrs_tpu.parallel.batch::shard_map_check_kwargs",
+}
+# JAX modules with no twin module: the Pallas kernel's, whose port is
+# csrc/digest.cu behind ops/digest.py's state_digest
+MODULE_EXCLUDED = {"ggrs_tpu.ops.pallas_checksum"}
+
+
+def _jax_modules():
+    import pkgutil
+
+    import ggrs_tpu
+
+    for info in pkgutil.walk_packages(ggrs_tpu.__path__, "ggrs_tpu."):
+        spec = importlib.util.find_spec(info.name)
+        # Python sources only: the package's built extension modules are not API
+        if spec.origin and spec.origin.endswith(".py") and info.name not in MODULE_EXCLUDED:
+            yield info.name
+
+
+def _public_members(cls) -> list:
+    """The public methods and properties of ``cls``, inherited ones too."""
+    out = []
+    for name in dir(cls):
+        if name.startswith("_"):
+            continue
+        raw = inspect.getattr_static(cls, name)
+        if isinstance(raw, (property, staticmethod, classmethod)) or callable(raw):
+            out.append(name)
+    return out
+
+
+def member_gaps(jax_name: str) -> list:
+    """What the port's twin of module ``jax_name`` lacks: public functions
+    defined in the module, and public methods and properties of the public
+    classes defined there, less ``MEMBER_EXCLUDED``."""
+    jax_mod = importlib.import_module(jax_name)
+    port_mod = importlib.import_module("ggrs_tpu_torch" + jax_name[len("ggrs_tpu"):])
+    gaps = []
+    for name, obj in vars(jax_mod).items():
+        if name.startswith("_") or getattr(obj, "__module__", None) != jax_name:
+            continue
+        if inspect.isfunction(obj):
+            wanted = [name]
+        elif inspect.isclass(obj):
+            twin = getattr(port_mod, name, None)
+            if not inspect.isclass(twin):
+                gaps.append(name)
+                continue
+            wanted = [f"{name}.{m}" for m in _public_members(obj)
+                      if not hasattr(twin, m)]
+            gaps += [w for w in wanted if f"{jax_name}::{w}" not in MEMBER_EXCLUDED]
+            continue
+        else:
+            continue
+        gaps += [w for w in wanted if not hasattr(port_mod, w)
+                 and f"{jax_name}::{w}" not in MEMBER_EXCLUDED]
+    return gaps
+
+
+@pytest.mark.parametrize("jax_name", sorted(_jax_modules()))
+def test_public_members_cover_jax(jax_name):
+    assert member_gaps(jax_name) == []
+
+
+def test_member_exclusions_are_still_needed():
+    # an exclusion the port has since added, or one the JAX package dropped,
+    # would hide nothing: keep the table honest
+    for entry in MEMBER_EXCLUDED:
+        mod, member = entry.split("::")
+        assert hasattr(importlib.import_module(mod), member), entry
+        port = importlib.import_module("ggrs_tpu_torch" + mod[len("ggrs_tpu"):])
+        assert not hasattr(port, member), entry
 
 
 def test_top_level_reexports_the_core():

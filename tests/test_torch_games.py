@@ -68,6 +68,17 @@ def test_init_states_match_jax():
             assert got[k].dtype == np.asarray(want[k]).dtype
 
 
+@pytest.mark.parametrize("players", [2, 3, 4])
+def test_init_state_np_matches_jax_key_order(players):
+    # C8: the soak harness digests a state's leaves in dict order, so the
+    # order is part of what the two packages must agree on
+    got, want = BoxGame(players).init_state_np(), JaxBoxGame(players).init_state_np()
+    assert list(got) == list(want)
+    assert list(ChipVM(2).init_state_np()) == list(JaxChipVM(2).init_state_np())
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+
+
 def test_boxgame_oracle_matches_jax_oracle():
     # the port keeps its own copy of the NumPy oracle: same numbers as the
     # JAX package's

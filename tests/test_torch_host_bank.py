@@ -3,8 +3,9 @@
 Mirrors ``tests/test_session_bank.py`` and ``tests/test_policy_plane.py``:
 the same seeded matches, on identically seeded fault networks, through the
 JAX package's native bank and the port's (``ggrs_tpu_torch.parallel.
-host_bank``, the same ``native/session_bank.cpp`` compiled into the port's
-host library) must send the same wire bytes and produce the same frames,
+host_bank``, over the port's own copy of the bank,
+``ggrs_tpu_torch/csrc/host/session_bank.cpp``, compiled into its host
+library) must send the same wire bytes and produce the same frames,
 events and request lists, tick by tick, under loss, duplication and
 reordering, with the descriptor plane on and with the reference decoder
 (``GGRS_TPU_NO_FASTPATH=1``).  The port's bank, its Python fallback and
@@ -521,7 +522,7 @@ def test_packed_tables_match_the_library():
     send = np.dtype(list(tnative.NET_SEND_FIELDS)).itemsize
     assert send == tnative.NET_SEND_STRIDE
     # net_batch.cpp has no stride probe for the send table: read its constant
-    src = (tnative._build.NATIVE_DIR / "net_batch.cpp").read_text()
+    src = (tnative._build.HOST_DIR / "net_batch.cpp").read_text()
     assert f"constexpr size_t kSendStride = {send};" in src
     assert tnative.BANK_REQ_STRIDE == lib.ggrs_bank_req_stride()
     assert tnative.BANK_STAGE_STRIDE == lib.ggrs_bank_stage_stride()

@@ -3,6 +3,7 @@ entry points never fall back to the CPU on their own."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -28,7 +29,7 @@ from ggrs_tpu_torch.core.device import resolve_device
 ROOT = Path(__file__).resolve().parents[1]
 EXAMPLES = sorted((ROOT / "examples").glob("port_ex_game*.py"))
 SCRIPTS = [ROOT / "scripts" / f"port_{name}.py"
-           for name in ("fleet_top", "match_timeline", "floor_probe", "profile_tick")]
+           for name in ("fleet_top", "match_timeline", "floor_probe", "profile_tick", "soak")]
 PORT_FILES = sorted((ROOT / "ggrs_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "port_shard_runner.py",
     ROOT / "scripts" / "port_verify.py"] + EXAMPLES + SCRIPTS
@@ -364,7 +365,7 @@ def test_examples_need_cuda_unless_told_cpu(argv, monkeypatch):
         mod.main()
 
 
-def test_default_device_is_cuda_and_raises_without_it():
+def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
         return
@@ -393,9 +394,117 @@ def test_default_device_is_cuda_and_raises_without_it():
                   lambda: ggrs_tpu_torch.DevicePredictionPlane(cfg, 2)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             entry()
+    # the soak harnesses, as the rest of the port, mean the card
+    monkeypatch.syspath_prepend(str(ROOT / "scripts"))
+    import port_soak
+
+    for harness in (lambda: port_soak.p2p_soak(1), lambda: port_soak.pool_soak(1),
+                    lambda: port_soak.pooled_matches_setup(1)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            harness()
     assert resolve_device("cpu") == torch.device("cpu")
 
 
 def test_public_surface():
     for name in ggrs_tpu_torch.__all__:
         assert hasattr(ggrs_tpu_torch, name), name
+
+
+# -- the port reads no file of the JAX side ---------------------------------------
+
+# every .py and .sh file of the port: the package, its scripts, its examples
+# and the smoke test
+PORT_SOURCES = sorted(
+    {*(ROOT / "ggrs_tpu_torch").rglob("*.py"), *(ROOT / "scripts").glob("port_*.py"),
+     *(ROOT / "scripts").glob("port_*.sh"), *EXAMPLES, ROOT / "chip_smoke.py"})
+# a path into the JAX side: its native tree or its package
+JAX_PATH = re.compile(r"(?<![\w.-])(?:native|ggrs_tpu)/")
+JAX_DIRS = ("native", "ggrs_tpu")
+
+
+def _docstrings(tree) -> set:
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+                out.add(id(body[0].value))
+    return out
+
+
+def _cited(tree) -> set:
+    """String constants that cite a JAX file rather than read it: the value
+    of a ``"replaces"`` key, the smoke test's "file:line of the TPU kernel"
+    that a port kernel replaces."""
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Dict):
+            for k, v in zip(node.keys, node.values):
+                if isinstance(k, ast.Constant) and k.value == "replaces":
+                    out.add(id(v))
+    return out
+
+
+def _is_jax_part(node) -> bool:
+    return (isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and node.value.strip("/").split("/")[0] in JAX_DIRS)
+
+
+def jax_path_uses(text: str, suffix: str) -> list:
+    """Where a port file names a path into ``native/`` or ``ggrs_tpu/`` in
+    code, or builds one (``parent / "native"``, ``os.path.join(root,
+    "ggrs_tpu")``, ``.joinpath("native")``).  Comments and docstrings that
+    cite the JAX counterpart by file are allowed, and so is a
+    ``"replaces"`` entry."""
+    if suffix == ".sh":
+        return [line for line in text.splitlines()
+                if JAX_PATH.search(line.split("#", 1)[0])]
+    tree = ast.parse(text)
+    skip = _docstrings(tree) | _cited(tree)
+    found = []
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in skip and JAX_PATH.search(node.value)):
+            found.append(f"line {node.lineno}: {node.value[:60]!r}")
+        elif isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div) \
+                and _is_jax_part(node.right):
+            found.append(f"line {node.lineno}: / {node.right.value!r}")
+        elif isinstance(node, ast.Call) and any(_is_jax_part(a) for a in node.args[1:]) \
+                and ast.unparse(node.func) in ("os.path.join", "path.join"):
+            found.append(f"line {node.lineno}: {ast.unparse(node)[:60]}")
+        elif isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute) \
+                and node.func.attr == "joinpath" and any(_is_jax_part(a) for a in node.args):
+            found.append(f"line {node.lineno}: {ast.unparse(node)[:60]}")
+    return found
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_path_into_the_jax_side(path):
+    assert jax_path_uses(path.read_text(), path.suffix) == []
+
+
+@pytest.mark.parametrize("snippet, suffix, hits", [
+    ('NATIVE_DIR = _PKG.parent / "native"\n', ".py", 1),
+    ('src = ROOT / "native/codec.cpp"\n', ".py", 2),
+    ('p = os.path.join(root, "ggrs_tpu", "ops")\n', ".py", 1),
+    ('p = root.joinpath("native")\n', ".py", 1),
+    ('x = f"{root}/ggrs_tpu/net/_native.py"\n', ".py", 1),
+    ('"""The port of ``ggrs_tpu/ops/replay.py``."""\n# mirrors native/codec.cpp\n', ".py", 0),
+    ('line = {"replaces": "ggrs_tpu/ops/pallas_checksum.py:66"}\n', ".py", 0),
+    ('p = root / "ggrs_tpu_torch" / "csrc/host"\nslot = "native"\n', ".py", 0),
+    ('g++ -shared -o lib.so native/*.cpp\n', ".sh", 1),
+    ('# built from native/*.cpp in the JAX tree\nmake -C csrc/host\n', ".sh", 0),
+], ids=["parent-div", "literal-and-div", "os-path-join", "joinpath", "f-string",
+        "docstring-and-comment", "replaces", "port-paths", "sh-command", "sh-comment"])
+def test_jax_path_check_finds_each_form(snippet, suffix, hits):
+    assert len(jax_path_uses(snippet, suffix)) == hits
+
+
+def test_host_library_is_built_from_the_package_sources():
+    from ggrs_tpu_torch import _build
+
+    host = ROOT / "ggrs_tpu_torch" / "csrc" / "host"
+    assert _build.HOST_DIR == host
+    assert {p.name for p in _build.HOST_SOURCES} == {p.name for p in host.glob("*.cpp")}
+    assert all(p.parent == host and p.exists() for p in _build.HOST_SOURCES + _build.HOST_HEADERS)
+    assert {p.name for p in _build.HOST_HEADERS} == {p.name for p in host.glob("*.h")}

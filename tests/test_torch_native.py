@@ -1,8 +1,13 @@
 """The port's native host cores against the JAX package's, on the CPU.
 
-The port compiles ``native/codec.cpp``, ``native/endpoint.cpp`` and
-``native/sync_core.cpp`` itself (``ggrs_tpu_torch/_build.py``) and binds them
-with its own ctypes copy (``ggrs_tpu_torch/net/_native.py``).  On the same
+The port compiles its own copies of the codec, endpoint and sync-core
+sources (``ggrs_tpu_torch/csrc/host/codec.cpp``, ``endpoint.cpp``,
+``sync_core.cpp``; ``ggrs_tpu_torch/_build.py``) and binds them with its own
+ctypes copy (``ggrs_tpu_torch/net/_native.py``); the JAX package compiles
+its ``native/`` tree, so the two native paths are two libraries built from
+two source trees whose code is still the same: a fault common to both
+passes here, and what these tests catch is a change of behaviour once the
+trees diverge.  On the same
 seeded inputs, three implementations must agree byte for byte:
 
 - the port's native path,
@@ -166,7 +171,7 @@ def test_ggrs_msg_layout_matches_the_compiler(tmp_path):
     fields = [name for name, _ in tnative._GgrsMsg._fields_]
     probe = tmp_path / "probe.cpp"
     probe.write_text(
-        f'#include "{ROOT / "native" / "codec.cpp"}"\n'
+        f'#include "{tnative._build.HOST_DIR / "codec.cpp"}"\n'
         "#include <cstddef>\n#include <cstdio>\n"
         "int main() {\n"
         '  std::printf("size %zu\\n", sizeof(GgrsMsg));\n'
@@ -213,17 +218,17 @@ def _cpp_constant(path: Path, symbol: str) -> int:
 
 
 def test_constants_match_the_cpp_sources():
-    from ggrs_tpu.analysis.layout import MIRRORED_CONSTANTS
+    from ggrs_tpu_torch.analysis.layout import MIRRORED_CONSTANTS
 
     ours = {"codec.cpp", "endpoint.cpp", "sync_core.cpp", "wire_common.h"}
     checked = 0
     for cpp, symbol, py, name in MIRRORED_CONSTANTS:
-        if py != "ggrs_tpu/net/_native.py" or Path(cpp).name not in ours:
+        if py != "ggrs_tpu_torch/net/_native.py" or Path(cpp).name not in ours:
             continue
         assert getattr(tnative, name) == _cpp_constant(ROOT / cpp, symbol), name
         checked += 1
     assert checked >= 13
-    assert tnative._MSG_FALLBACK == _cpp_constant(ROOT / "native/codec.cpp", "kMsgFallback")
+    assert tnative._MSG_FALLBACK == _cpp_constant(tnative._build.HOST_DIR / "codec.cpp", "kMsgFallback")
 
 
 # -- the codec ------------------------------------------------------------------------

@@ -4,7 +4,7 @@ CPU over loopback UDP.
 Mirrors ``tests/test_native_io.py``: with ``native_io=True`` every attached
 slot's datagrams flow socket -> ``ggrs_bank_pump`` -> socket through
 recvmmsg/sendmmsg.  The port's pool (``ggrs_tpu_torch.parallel.host_bank``,
-the same ``native/*.cpp`` compiled into the port's host library) and the JAX
+the port's own ``csrc/host/*.cpp`` compiled into its host library) and the JAX
 package's pool are driven with the same seeded matches, peers and seeded
 loss, duplication and reordering, and must capture the same wire bytes (the
 NetBatch capture tee, ephemeral ports mapped to roles), reach the same

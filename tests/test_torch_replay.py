@@ -60,6 +60,19 @@ def _session_pair(check_distance=2, players=2):
     return port, jx
 
 
+@pytest.mark.parametrize("d", [1, 4, 8])
+def test_workload_per_tick_matches_jax(d):
+    # the two numbers that turn the flagship's ticks into resimulated frames/s
+    port, jx = _session_pair(check_distance=d)
+    assert port.resim_frames_per_tick == jx.resim_frames_per_tick == d
+    assert port.requests_per_tick == jx.requests_per_tick == 2 * d + 2
+    inputs = _inputs(2 * d + 2, 2, seed=d)
+    port.run_ticks(inputs)
+    jx.run_ticks(inputs)
+    assert (port.resim_frames_per_tick, port.requests_per_tick) == \
+        (jx.resim_frames_per_tick, jx.requests_per_tick)
+
+
 @pytest.mark.parametrize("splits", [[7, 13, 29], [40]], ids=["across-warmup", "one-call"])
 def test_boxgame_session_carry_matches_jax(splits):
     inputs = _inputs(64, 2, seed=9)

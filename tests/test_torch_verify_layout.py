@@ -4,8 +4,9 @@ twin of tests/test_verify_layout.py, held against the JAX checker.
 Every case of the JAX file runs here on the port's checker, and where a
 case parses a snippet or a fixture tree the JAX checker is run on the same
 input and must give the same answer (fixture trees are written under both
-package prefixes; the port's checker is pointed at ``ggrs_tpu/`` with
-``pkg="ggrs_tpu"``).  Then the port-only holds: the same findings over the
+package prefixes and both host-source folders; the port's checker is
+pointed at ``ggrs_tpu/`` with ``pkg="ggrs_tpu"`` and at the JAX tree's
+``native/`` with ``host="native"``).  Then the port-only holds: the same findings over the
 JAX tree, the digest kernel's mirrors, the ``u`` suffix, the named struct
 format, mutations of a copy of the port's tree, and the runtime probes of
 the port's host library.
@@ -50,6 +51,9 @@ from ggrs_tpu_torch.net import _native
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = "ggrs_tpu_torch"
+# each package's C++ host sources: the port's own copies, the JAX tree's
+HOST = f"{PKG}/csrc/host"
+JAX_HOST = "native"
 
 
 def same(fn_name, *args):
@@ -168,11 +172,12 @@ class TestPySourceParser:
 
 def _mini_tree(tmp_path, native_py_text: str) -> Path:
     """A minimal fake repo holding just the files _check_header reads, under
-    both packages' prefixes."""
-    (tmp_path / "native").mkdir()
-    (tmp_path / "native/session_bank.cpp").write_text(
-        "constexpr size_t kHdrStride = 48;\n"
-    )
+    both packages' prefixes and host-source folders."""
+    for host in (HOST, JAX_HOST):
+        (tmp_path / host).mkdir(parents=True)
+        (tmp_path / host / "session_bank.cpp").write_text(
+            "constexpr size_t kHdrStride = 48;\n"
+        )
     write_both(tmp_path, "net/_native.py", native_py_text)
     return tmp_path
 
@@ -187,7 +192,7 @@ GOOD_FIELDS = (
 
 
 def _header(root):
-    assert _check_header(root, "ggrs_tpu") == JL._check_header(root)
+    assert _check_header(root, "ggrs_tpu", JAX_HOST) == JL._check_header(root)
     return _check_header(root)
 
 
@@ -224,9 +229,10 @@ class TestDeliberateSkew:
 
     def test_native_stride_drift_fires(self, tmp_path):
         root = _mini_tree(tmp_path, GOOD_FIELDS)
-        (root / "native/session_bank.cpp").write_text(
-            "constexpr size_t kHdrStride = 56;\n"
-        )
+        for host in (HOST, JAX_HOST):
+            (root / host / "session_bank.cpp").write_text(
+                "constexpr size_t kHdrStride = 56;\n"
+            )
         assert any(
             f.rule == "layout/header-stride" for f in _header(root)
         )
@@ -384,11 +390,11 @@ class TestTreeIsClean:
     def test_mirror_table_covers_all_bank_errors(self):
         """Every kBankErr*/kHdr* the native source declares is in the
         mirror table."""
-        native = parse_cpp_constants(REPO / "native/session_bank.cpp")
-        assert native == J.parse_cpp_constants(REPO / "native/session_bank.cpp")
+        native = parse_cpp_constants(REPO / HOST / "session_bank.cpp")
+        assert native == J.parse_cpp_constants(REPO / HOST / "session_bank.cpp")
         mirrored = {
             c for f, c, _, _ in MIRRORED_CONSTANTS
-            if f == "native/session_bank.cpp"
+            if f == f"{HOST}/session_bank.cpp"
         }
         declared = {
             k for k in native
@@ -454,7 +460,7 @@ class TestTreeIsClean:
             _native.NET_RECV_TABLE_STATS
 
     def test_cmd_flags_match_native_literals(self):
-        native = parse_cpp_constants(REPO / "native/session_bank.cpp")
+        native = parse_cpp_constants(REPO / HOST / "session_bank.cpp")
         assert _native.CMD_FLAG_INPUTS == native["kFlagInputs"]
         assert _native.CMD_FLAG_SKIP == native["kFlagSkip"]
 
@@ -785,16 +791,16 @@ DIGEST_MIRRORS = [
 
 class TestSameCheckerOnTheJaxTree:
     def test_port_checker_gives_the_jax_findings(self):
-        port = [tuple(f) for f in check_layout(REPO, pkg="ggrs_tpu")]
+        port = [tuple(f) for f in check_layout(REPO, pkg="ggrs_tpu", host=JAX_HOST)]
         jax = [tuple(f) for f in J.check_layout(REPO)]
         assert port == jax + [tuple(f) for f in JAX_TREE_EXTRAS]
 
     def test_tables_differ_only_in_prefix_and_the_digest_rows(self):
         jax_rows = list(JL.MIRRORED_CONSTANTS)
-        assert list(PL.mirrored_constants("ggrs_tpu"))[:len(jax_rows)] == jax_rows
+        assert list(PL.mirrored_constants("ggrs_tpu", JAX_HOST))[:len(jax_rows)] == jax_rows
         assert [(c, p) for _, c, _, p in MIRRORED_CONSTANTS[len(jax_rows):]] == DIGEST_MIRRORS
         for row in MIRRORED_CONSTANTS:
-            assert row[0].startswith(("native/", f"{PKG}/csrc/"))
+            assert row[0].startswith((f"{HOST}/", f"{PKG}/csrc/digest.cu"))
             assert row[2].startswith(f"{PKG}/")
 
     def test_contract_tables_equal_the_jax_ones(self):
@@ -876,9 +882,8 @@ class TestNamedStructFormat:
 
 @pytest.fixture(scope="module")
 def tree_copy(tmp_path_factory):
-    """A copy of the port's tree (with the shared native/ sources)."""
+    """A copy of the port's tree (its host sources included)."""
     root = tmp_path_factory.mktemp("port_tree")
-    shutil.copytree(REPO / "native", root / "native")
     shutil.copytree(REPO / PKG, root / PKG,
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     assert check_layout(root) == []
