@@ -1005,7 +1005,7 @@ def graph_stats(programs) -> dict:
             "replays": sum(g.replays for g in sets), "pool_bytes": pool_bytes}
 
 
-def profile_ticks(fn, ticks: int, span: str = "ggrs:replay_steady") -> dict:
+def profile_ticks(fn, ticks: int, span: str = "ggrs:tick.replay") -> dict:
     """One call of ``fn`` (``ticks`` steady ticks, or frames) under the
     profiler: the device kernels and busy ms a tick, and the host's CUDA
     calls that launch work (``LAUNCH_CALLS``) inside the ``span`` ranges

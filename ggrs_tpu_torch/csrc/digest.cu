@@ -571,3 +571,70 @@ extern "C" int ggrs_state_digest(const long long* leaves, int count, long long r
   }
   return (int)cudaGetLastError();
 }
+
+// Layer marks of the replay's steady tick.  Each is an empty kernel whose
+// only job is its name: a graph of the tick holds one before each stretch of
+// a layer's work, so a device trace tells the layers apart by the last mark
+// before each operation.  They replace no TPU kernel: a graph replay is one
+// launch, so no host range can split it.  extern "C" keeps the names
+// unmangled in a trace.
+// The marks are captured enabled; the port disables their nodes in the
+// instantiated graph and enables them only while a profiler runs, so an
+// untraced replay runs the tick's own kernels alone (a disabled node acts
+// as an empty node).
+extern "C" __global__ void ggrs_mark_ring() {}
+extern "C" __global__ void ggrs_mark_advance() {}
+extern "C" __global__ void ggrs_mark_digest() {}
+extern "C" __global__ void ggrs_mark_compare() {}
+
+// Launches layer `layer`'s mark (0 ring, 1 advance, 2 digest, 3 compare) on
+// `stream`.  Where the stream is being captured, *node receives the mark's
+// node in the graph being captured (the one node the capture's next work
+// will depend on); otherwise it is set to null.  Returns 0 or a CUDA error
+// code.
+extern "C" int ggrs_mark(int layer, void* stream, void** node) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  *node = nullptr;
+  switch (layer) {
+    case 0: ggrs_mark_ring<<<1, 1, 0, s>>>(); break;
+    case 1: ggrs_mark_advance<<<1, 1, 0, s>>>(); break;
+    case 2: ggrs_mark_digest<<<1, 1, 0, s>>>(); break;
+    case 3: ggrs_mark_compare<<<1, 1, 0, s>>>(); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  cudaStreamCaptureStatus status;
+  const cudaGraphNode_t* deps = nullptr;
+  size_t n = 0;
+#if CUDART_VERSION >= 13000
+  err = (int)cudaStreamGetCaptureInfo(s, &status, nullptr, nullptr, &deps, nullptr, &n);
+#else
+  err = (int)cudaStreamGetCaptureInfo(s, &status, nullptr, nullptr, &deps, &n);
+#endif
+  if (err != 0) return err;
+  if (status == cudaStreamCaptureStatusActive) {
+    if (n != 1) return (int)cudaErrorStreamCaptureUnjoined;
+    *node = static_cast<void*>(deps[0]);
+  }
+  return 0;
+}
+
+// Enables (1) or disables (0) `node`, a node of the graph `exec` was
+// instantiated from, in `exec`.  It takes effect from the next launch of
+// `exec`.  Returns 0 or a CUDA error code.
+extern "C" int ggrs_graph_node_set_enabled(void* exec, void* node, int enabled) {
+  return (int)cudaGraphNodeSetEnabled(static_cast<cudaGraphExec_t>(exec),
+                                      static_cast<cudaGraphNode_t>(node),
+                                      enabled ? 1u : 0u);
+}
+
+// *enabled receives 1 where `node` is enabled in `exec`, else 0.  Returns 0
+// or a CUDA error code.
+extern "C" int ggrs_graph_node_get_enabled(void* exec, void* node, int* enabled) {
+  unsigned on = 0;
+  int err = (int)cudaGraphNodeGetEnabled(static_cast<cudaGraphExec_t>(exec),
+                                         static_cast<cudaGraphNode_t>(node), &on);
+  *enabled = (int)on;
+  return err;
+}

@@ -245,7 +245,7 @@ class ExecutorGraphs:
     def __init__(self, programs: ExecutorPrograms, device: torch.device) -> None:
         self.programs = programs
         self.device = device
-        self.set = GraphSet(device)
+        self.set = GraphSet(device, "executor")
         self._entries: Dict[tuple, tuple] = {}
 
     @property

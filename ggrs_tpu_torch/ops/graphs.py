@@ -23,22 +23,49 @@ captures, and ``torch.cuda.graph`` synchronises the device before it
 begins.  So the process captures one graph at a time (``CAPTURE_LOCK``),
 and the package's own device synchronisations (``synchronize``) wait for a
 capture on another thread to end.
+
+A set built with ``marks=True`` takes layer marks (``utils/tracing.py::
+layer``, ``ops/marks.py``): its captures launch each layer's mark kernel
+into the graph and keep the marks' nodes, and ``Graph.replay`` keeps the
+marks disabled while no profiler runs, so an untraced replay runs the
+body's kernels alone, and enables them, one CUDA call a mark, the first
+time a graph replays under a profiler (``pin_marks`` holds them on or off
+whatever the profiler does).  Every set counts its captures and replays
+(``captures``, ``replays``) and adds them to the process registry's
+``ggrs_graph_captures_total`` and ``ggrs_graph_replays_total``, labelled
+with the set's ``program``; ``ggrs:graph.capture`` spans each capture.
 """
 
 from __future__ import annotations
 
+import gc
 import threading
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..convert import copy_into, from_numpy
+from ..obs.registry import default_registry
+from ..utils.tracing import marking, profiling, trace_span
 from ..utils.tree import tree_leaves, tree_map
+from . import marks as layer_marks
 from .digest import GraphLaunches
 
 # held for each capture, and by ``synchronize``
 CAPTURE_LOCK = threading.RLock()
+
+# captures and replays of every set, process-wide, by the program that owns
+# the set (``replay``, ``scrub``, ``executor``, ``pool``, ``speculation``,
+# ``predict``)
+_OBS_CAPTURES = default_registry().counter(
+    "ggrs_graph_captures_total", "CUDA graphs captured, by owning program",
+    labels=("program",),
+)
+_OBS_REPLAYS = default_registry().counter(
+    "ggrs_graph_replays_total", "CUDA graph replays, by owning program",
+    labels=("program",),
+)
 
 
 def synchronize(device: torch.device) -> None:
@@ -49,7 +76,9 @@ def synchronize(device: torch.device) -> None:
 
 
 def _record(graphs: "GraphSet", body: Callable[[], None]) -> torch.cuda.CUDAGraph:
-    """Capture ``body`` as a CUDA graph on the set's side stream and pool.
+    """Capture ``body`` as a CUDA graph on the set's side stream and pool,
+    instantiated; a set with marks keeps the captured graph, whose nodes
+    its marks are.
 
     "thread_local": only this thread is barred from the calls that are
     unsafe during a capture; threads launching on other streams are not."""
@@ -57,47 +86,111 @@ def _record(graphs: "GraphSet", body: Callable[[], None]) -> torch.cuda.CUDAGrap
     if graphs.stream is None:
         graphs.stream = torch.cuda.Stream(graphs.device)
     graphs.stream.wait_stream(current)
-    graph = torch.cuda.CUDAGraph()
-    with CAPTURE_LOCK, torch.cuda.graph(graph, pool=graphs.pool, stream=graphs.stream,
-                                        capture_error_mode="thread_local"):
-        body()
+    graph = torch.cuda.CUDAGraph(keep_graph=True) if graphs.marks else torch.cuda.CUDAGraph()
+    # no cyclic collection inside the capture: one could free a dead
+    # program's graphs, and destroying a graph while this thread captures
+    # is refused and ends the capture with an error
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with CAPTURE_LOCK, torch.cuda.graph(graph, pool=graphs.pool, stream=graphs.stream,
+                                            capture_error_mode="thread_local"):
+            body()
+    finally:
+        if collecting:
+            gc.enable()
     current.wait_stream(graphs.stream)
+    if graphs.marks:
+        graph.instantiate()
     if graphs.pool is None:
         graphs.pool = graph.pool()
     return graph
 
 
 class Graph:
-    """One captured graph of a ``GraphSet`` and the digest launches it holds."""
+    """One captured graph of a ``GraphSet``, the digest launches it holds
+    and the nodes of its layer marks (``marks``; enabled while
+    ``marks_on``)."""
 
-    def __init__(self, owner: "GraphSet", graph, launches: GraphLaunches) -> None:
+    def __init__(self, owner: "GraphSet", graph, launches: GraphLaunches,
+                 marks: Tuple[int, ...] = ()) -> None:
         self.owner = owner
         self.graph = graph
         self.launches = launches
+        self.marks = marks
+        self.marks_on = bool(marks)  # captured enabled
+        if marks:
+            self.set_marks(False)
+
+    def set_marks(self, on: bool) -> None:
+        """Enable or disable every layer mark of the graph, from its next
+        replay on."""
+        exec_handle = self.graph.raw_cuda_graph_exec()
+        for node in self.marks:
+            layer_marks.set_enabled(exec_handle, node, on)
+        self.marks_on = on
 
     def replay(self) -> None:
+        if self.marks:
+            want = self.owner.pin_marks
+            if want is None:
+                want = profiling()
+            if want != self.marks_on:
+                self.set_marks(want)
         self.graph.replay()
         self.launches.replayed()
         self.owner.replays += 1
+        self.owner._replayed.inc()
 
 
 class GraphSet:
     """The graphs of one device: a side stream, a private pool shared by
-    every capture, and the counts of captures and replays."""
+    every capture, and the counts of captures and replays.  ``program``
+    labels the set's counts in the registry; ``marks`` says whether its
+    captures take layer marks, and ``pin_marks`` (None: follow the
+    profiler) holds them on or off."""
 
-    def __init__(self, device: torch.device) -> None:
+    def __init__(self, device: torch.device, program: str, marks: bool = False) -> None:
         self.device = device
+        self.marks = marks
+        self.pin_marks: Optional[bool] = None
         self.stream = None
         self.pool = None
         self.captures = 0
         self.replays = 0
+        self._captured = _OBS_CAPTURES.labels(program=program)
+        self._replayed = _OBS_REPLAYS.labels(program=program)
 
     def capture(self, body: Callable[[], None]) -> Graph:
-        launches = GraphLaunches()
-        with launches.capturing():
-            graph = _record(self, body)
-        self.captures += 1
-        return Graph(self, graph, launches)
+        with trace_span("ggrs:graph.capture"):
+            launches = GraphLaunches()
+            nodes: List[int] = []
+            if self.marks:
+                layer_marks.prime(self.device)
+                body = _marked(body, nodes, self.device)
+            with launches.capturing():
+                graph = _record(self, body)
+            self.captures += 1
+            self._captured.inc()
+            return Graph(self, graph, launches, tuple(nodes))
+
+
+def _marked(body: Callable[[], None], nodes: List[int],
+            device: torch.device) -> Callable[[], None]:
+    """``body`` with each ``layer`` it enters launching that layer's mark
+    into the capture and its node appended to ``nodes``."""
+
+    def sink(name: str) -> None:
+        node = layer_marks.launch(name, device)
+        if node is None:
+            raise RuntimeError(f"layer mark {name!r} was launched outside a capture")
+        nodes.append(node)
+
+    def run() -> None:
+        with marking(sink):
+            body()
+
+    return run
 
 
 def torch_dtype(dt: np.dtype) -> torch.dtype:
@@ -197,11 +290,11 @@ class KeyedGraphs:
     Before the set's first capture, ``rehearse(body)`` runs once eagerly on
     the filled buffers: the body itself, unless a subclass says otherwise."""
 
-    def __init__(self, device: torch.device) -> None:
+    def __init__(self, device: torch.device, program: str) -> None:
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         self.device = device
-        self.set = GraphSet(device)
+        self.set = GraphSet(device, program)
         self._entries: Dict[tuple, list] = {}
         self._rehearsed = False
 

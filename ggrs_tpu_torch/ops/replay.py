@@ -56,7 +56,7 @@ import torch
 
 from ..convert import from_numpy
 from ..core.device import DeviceLike, resolve_device
-from ..utils.tracing import trace_span
+from ..utils.tracing import layer, trace_span
 from ..utils.tree import tree_leaves, tree_map
 from .checksum import CHECKSUM_LANES, checksum_device
 from .graphs import Graph, GraphSet
@@ -188,39 +188,53 @@ class ReplayPrograms:
         through ``frame % R``; every frame number written comes from
         ``carry["frame"]`` (``frame`` on entry, one more on exit).  So the
         body captured as a CUDA graph at one frame is the body at every
-        frame of its phase."""
+        frame of its phase.
+
+        Each stretch of one layer's work opens with ``layer`` (ring,
+        advance, digest, compare; nine a tick): a span when run eagerly, a
+        mark kernel inside the tick's graphs."""
         ring, d = self.ring, self.check_distance
-        inp = tree_map(lambda buf: buf[:, ring.slot(frame)], carry["inputs"])
-        st = ring.load(carry["ring"], frame - d)
-        # the window's d inputs, gathered once (at most two slices per leaf)
-        window_inputs = tree_map(
-            lambda buf: ring.read_window(buf, frame - d, d), carry["inputs"]
-        )
-        states = []
-        for j in range(d):
-            st = self.advance(st, _tick_slice(window_inputs, j))
-            states.append(st)
+        with layer("ring"):
+            inp = tree_map(lambda buf: buf[:, ring.slot(frame)], carry["inputs"])
+            st = ring.load(carry["ring"], frame - d)
+            # the window's d inputs, gathered once (at most two slices per leaf)
+            window_inputs = tree_map(
+                lambda buf: ring.read_window(buf, frame - d, d), carry["inputs"]
+            )
+        with layer("advance"):
+            states = []
+            for j in range(d):
+                st = self.advance(st, _tick_slice(window_inputs, j))
+                states.append(st)
         # the window F-d+1 .. F: one digest call over its B*d rows (a view of
         # the stack), one save_many
         first = frame - d + 1
-        window = tree_map(lambda *leaves: torch.stack(leaves, dim=1), *states)
-        rows = self.checksum(tree_map(lambda leaf: leaf.flatten(0, 1), window))
-        resim_cs = rows.reshape(-1, d, CHECKSUM_LANES)  # (B, d, 4)
-        frames = carry["frame"].unsqueeze(1) + torch.arange(
-            1 - d, 1, dtype=torch.int32, device=resim_cs.device
-        )  # (B, d): F-d+1 .. F
-        ring.save_many(carry["ring"], first, window, resim_cs, stamps=frames)
-        # every window frame has a first-seen digest (frame F's was recorded
-        # by the previous tick's live advance), so the whole window is checked
-        seen = ring.read_window(carry["hist"], first, d)
-        bad = (resim_cs != seen).any(dim=2)  # (B, d)
-        carry["mismatches"].add_(bad.sum(dim=1, dtype=torch.int32))
-        worst = torch.where(bad, frames, I32_MAX).amin(dim=1)
-        torch.minimum(carry["first_bad"], worst, out=carry["first_bad"])
-        new_live = self.advance(st, inp)  # st is the resimulated state at F
-        carry["hist"][:, ring.slot(frame + 1)] = self.checksum(new_live)
-        _copy_into(carry["live"], new_live)
-        carry["frame"].add_(1)
+        with layer("ring"):
+            window = tree_map(lambda *leaves: torch.stack(leaves, dim=1), *states)
+        with layer("digest"):
+            rows = self.checksum(tree_map(lambda leaf: leaf.flatten(0, 1), window))
+            resim_cs = rows.reshape(-1, d, CHECKSUM_LANES)  # (B, d, 4)
+        with layer("ring"):
+            frames = carry["frame"].unsqueeze(1) + torch.arange(
+                1 - d, 1, dtype=torch.int32, device=resim_cs.device
+            )  # (B, d): F-d+1 .. F
+            ring.save_many(carry["ring"], first, window, resim_cs, stamps=frames)
+            # every window frame has a first-seen digest (frame F's was recorded
+            # by the previous tick's live advance), so the whole window is checked
+            seen = ring.read_window(carry["hist"], first, d)
+        with layer("compare"):
+            bad = (resim_cs != seen).any(dim=2)  # (B, d)
+            carry["mismatches"].add_(bad.sum(dim=1, dtype=torch.int32))
+            worst = torch.where(bad, frames, I32_MAX).amin(dim=1)
+            torch.minimum(carry["first_bad"], worst, out=carry["first_bad"])
+        with layer("advance"):
+            new_live = self.advance(st, inp)  # st is the resimulated state at F
+        with layer("digest"):
+            cs = self.checksum(new_live)
+        with layer("ring"):
+            carry["hist"][:, ring.slot(frame + 1)] = cs
+            _copy_into(carry["live"], new_live)
+            carry["frame"].add_(1)
 
     def _run(self, tick: Callable, carry: Any, tick_inputs: Any, start_frame: int) -> Any:
         """``tick`` over the ticks axis (axis 1) of ``tick_inputs``, leaves
@@ -231,7 +245,7 @@ class ReplayPrograms:
         return carry
 
     def run_warmup(self, carry: Any, tick_inputs: Any, start_frame: int) -> Any:
-        with trace_span("ggrs:replay_warmup"):
+        with trace_span("ggrs:tick.warmup"):
             self._eager_on.add(carry["frame"].device)
             return self._run(self.warmup_tick, carry, tick_inputs, start_frame)
 
@@ -239,7 +253,7 @@ class ReplayPrograms:
         """The steady ticks: eager ``steady_tick``s on a CPU carry; on a
         CUDA carry, per tick one input copy and one replay of the phase's
         graph (``TickGraphs``)."""
-        with trace_span("ggrs:replay_steady"):
+        with trace_span("ggrs:tick.replay"):
             if carry["frame"].device.type != "cuda":
                 return self._run(self.steady_tick, carry, tick_inputs, start_frame)
             key = _carry_key(carry)
@@ -268,12 +282,15 @@ class TickGraphs:
     before it: the program's warmup ticks did, or, where the carry came
     from a checkpoint in a program that ran none on this device, an eager
     ``steady_body`` on a scratch copy of the carry does before the first
-    capture (its two digest launches ran and count)."""
+    capture (its two digest launches ran and count).
+
+    The set takes layer marks: each graph holds ``steady_body``'s nine
+    mark kernels, disabled while no profiler runs (``ops/graphs.py``)."""
 
     def __init__(self, programs: ReplayPrograms, carry: Any) -> None:
         self.programs = programs
         self.device = carry["frame"].device
-        self.set = GraphSet(self.device)
+        self.set = GraphSet(self.device, "replay", marks=True)
         self.graphs: Dict[int, Graph] = {}
 
     @property
@@ -342,7 +359,7 @@ class ScrubProgram:
     def __init__(self, advance: AdvanceFn, device: torch.device) -> None:
         self.advance = advance
         self.device = device
-        self.set = GraphSet(device)
+        self.set = GraphSet(device, "scrub")
         self._graphs: Dict[Tuple[str, str], Tuple[Graph, Any, Any, Any]] = {}
 
     @property

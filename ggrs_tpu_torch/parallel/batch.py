@@ -320,21 +320,23 @@ class BatchedSessions:
         if n == 0:
             return {"mismatches": 0, "first_bad": I32_MAX} if check else None
         n_warm = self._programs.split_at_warmup(self._ticks_run, n)
-        with trace_span("ggrs:batch_ticks"):
+        with trace_span("ggrs:tick"):
             for lo, dev, carry in self._shards:
                 with _on(dev):
-                    rows = from_numpy(tree_map(lambda a: a[lo:lo + self._rows], inputs), dev)
+                    with trace_span("ggrs:tick.upload"):
+                        rows = from_numpy(tree_map(lambda a: a[lo:lo + self._rows], inputs), dev)
                     if n_warm:
                         head = tree_map(lambda a: a[:, :n_warm], rows)
                         self._programs.run_warmup(carry, head, self._ticks_run)
                     if n > n_warm:
                         tail = tree_map(lambda a: a[:, n_warm:], rows)
                         self._programs.run_steady(carry, tail, self._ticks_run + n_warm)
-        self._ticks_run += n
-        self._last_stats = self._reduce()
-        if not check:
-            return None
-        return self.verify()
+            self._ticks_run += n
+            with trace_span("ggrs:tick.reduce"):
+                self._last_stats = self._reduce()
+            if not check:
+                return None
+            return self.verify()
 
     def _reduce(self) -> torch.Tensor:
         """(mismatches, first_bad) as int64 on the first device: per shard a
@@ -355,7 +357,8 @@ class BatchedSessions:
         """Fetch the deferred global stats (one transfer for both scalars)."""
         if self._last_stats is None:
             return {"mismatches": 0, "first_bad": I32_MAX}
-        mismatches, first_bad = self._last_stats.tolist()
+        with trace_span("ggrs:tick.read"):
+            mismatches, first_bad = self._last_stats.tolist()
         return {"mismatches": mismatches, "first_bad": first_bad}
 
     def _host_carry(self, pick: Callable[[Any], Any]) -> Any:

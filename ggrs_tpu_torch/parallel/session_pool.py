@@ -174,7 +174,7 @@ class _ShardGraphs:
     def __init__(self, pool: "BatchedRequestExecutor", shard: Dict[str, Any]) -> None:
         self.pool = pool
         self.shard = shard
-        self.set = GraphSet(shard["device"])
+        self.set = GraphSet(shard["device"], "pool")
         self._graphs: Dict[tuple, Graph] = {}
         blank = {k: v[:pool._rows] for k, v in pool._blank_desc().items()}
         up, _ = self.pack(blank)

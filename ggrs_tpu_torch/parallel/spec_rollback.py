@@ -624,7 +624,7 @@ class SpecGraphs(KeyedGraphs):
     counted."""
 
     def __init__(self, spec: SpeculativeRollback) -> None:
-        super().__init__(spec.device)
+        super().__init__(spec.device, "speculation")
         self.spec = spec
         self.states: Any = None  # (K, ...) branch states
 

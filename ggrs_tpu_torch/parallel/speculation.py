@@ -184,7 +184,7 @@ class BranchGraphs(KeyedGraphs):
     once (the game's device constants)."""
 
     def __init__(self, programs: BranchPrograms, device: torch.device) -> None:
-        super().__init__(device)
+        super().__init__(device, "speculation")
         self.programs = programs
 
     def _outs(self, tree: Any, lead: tuple = ()) -> Any:

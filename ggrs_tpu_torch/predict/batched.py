@@ -137,7 +137,7 @@ class DevicePredictionPlane:
         """The kernel's graphs on the plane's device, made at first use when
         it is a CUDA device; None elsewhere (the eager route)."""
         if self._graphs is None and self.device.type == "cuda":
-            self._graphs = KeyedGraphs(self.device)
+            self._graphs = KeyedGraphs(self.device, "predict")
         return self._graphs
 
     # -- registration ---------------------------------------------------

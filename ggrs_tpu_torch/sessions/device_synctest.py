@@ -125,22 +125,22 @@ class DeviceSyncTestSession:
         ``MismatchedChecksum`` if any resimulated frame diverged from its
         first-seen checksum.  ``check=False`` defers the check to
         ``verify()``: the call then reads nothing back from the device."""
-        inputs = tree_map(lambda a: a.unsqueeze(0), from_numpy(inputs, self.device))
-        n = tree_leaves(inputs)[0].shape[1]
-        if n == 0:
-            return
-        n_warm = self._programs.split_at_warmup(self._ticks_run, n)
-        if n_warm:
-            head = tree_map(lambda a: a[:, :n_warm], inputs)
-            with trace_span("ggrs:synctest_warmup"):
+        with trace_span("ggrs:tick"):
+            with trace_span("ggrs:tick.upload"):
+                inputs = tree_map(lambda a: a.unsqueeze(0), from_numpy(inputs, self.device))
+            n = tree_leaves(inputs)[0].shape[1]
+            if n == 0:
+                return
+            n_warm = self._programs.split_at_warmup(self._ticks_run, n)
+            if n_warm:
+                head = tree_map(lambda a: a[:, :n_warm], inputs)
                 self._programs.run_warmup(self._carry, head, self._ticks_run)
-        if n > n_warm:
-            tail = tree_map(lambda a: a[:, n_warm:], inputs)
-            with trace_span("ggrs:synctest_steady"):
+            if n > n_warm:
+                tail = tree_map(lambda a: a[:, n_warm:], inputs)
                 self._programs.run_steady(self._carry, tail, self._ticks_run + n_warm)
-        self._ticks_run += n
-        if check:
-            self._raise_on_mismatch()
+            self._ticks_run += n
+            if check:
+                self._raise_on_mismatch()
 
     def verify(self) -> None:
         """Raise ``MismatchedChecksum`` if any deferred ``run_ticks`` batch
@@ -160,9 +160,10 @@ class DeviceSyncTestSession:
 
     def _raise_on_mismatch(self) -> None:
         # one transfer for both scalars
-        mismatches, first_bad = torch.stack(
-            [self._carry["mismatches"][0], self._carry["first_bad"][0]]
-        ).tolist()
+        with trace_span("ggrs:tick.read"):
+            mismatches, first_bad = torch.stack(
+                [self._carry["mismatches"][0], self._carry["first_bad"][0]]
+            ).tolist()
         if mismatches:
             raise MismatchedChecksum(
                 self._ticks_run, self._window_mismatched_frames(first_bad)

@@ -1,32 +1,29 @@
 #!/usr/bin/env python3
-"""Where a tick's time goes in the PyTorch / CUDA port, on one card.
+"""Where a request-path frame's time goes in the PyTorch / CUDA port, on one card.
 
-    python3 scripts/port_tick_profile.py [--batch 16384] [--ticks 4]
     python3 scripts/port_tick_profile.py --executor [--frames 32]
 
-Runs the port's batched replay (ChipVM(2), B sessions, check_distance 8) and
-the flagship (BoxGame(2), one session, check_distance 8) past warmup and the
-captures of their steady ticks' CUDA graphs, then times a few steady ticks
-(graph replays) of each, then traces as many more with ``torch.profiler``.
-With ``--executor`` it does the same for frames of the request-list path
-instead: ``SessionBuilder`` -> ``SyncTestSession`` ->
-``DeviceRequestExecutor`` at check_distance 7 (max_prediction 8), for
-BoxGame(2) and ChipVM(2), past the warmup that captures the executor's
-graphs; a frame is ``advance_frame``, ``run`` (one burst graph replay once
-steady) and reading back the frame's saved checksums, as the session reads
-them next frame.
+Runs frames of the request-list path: ``SessionBuilder`` ->
+``SyncTestSession`` -> ``DeviceRequestExecutor`` at check_distance 7
+(max_prediction 8), for BoxGame(2) and ChipVM(2), past the warmup that
+captures the executor's graphs; a frame is ``advance_frame``, ``run`` (one
+burst graph replay once steady) and reading back the frame's saved
+checksums, as the session reads them next frame.  It times a few frames,
+then traces as many more with ``torch.profiler``.
 
-Prints one JSON line per workload: host wall time per tick or frame
-(untraced, and traced), device busy time (sum of kernel times; one stream,
-so kernels do not overlap), the device's idle share, kernel launches, the
-kernels that take the most device time, the digest kernel (found by name:
-it runs inside the graphs, so no range can be put around it), and the
-host's launch calls a tick or frame (``cudaGraphLaunch``, copies, kernel
-launches); for the executor also the host ms of ``advance_frame`` and of
-``run``, and its graphs' captures and replays.  If the profiler records no
-device time, the device numbers print as "not measured".
+Prints one JSON line per workload: host wall time per frame (untraced, and
+traced), device busy time (sum of kernel times; one stream, so kernels do
+not overlap), the device's idle share, kernel launches, the kernels that
+take the most device time, the digest kernel (found by name: it runs
+inside the graphs, so no range can be put around it), the host's launch
+calls a frame (``cudaGraphLaunch``, copies, kernel launches), the host ms
+of ``advance_frame`` and of ``run``, and the graphs' captures and replays.
+If the profiler records no device time, the device numbers print as "not
+measured".
 
-The host bank's own tick (the native crossing and its phases) is profiled by
+The SyncTest replay's steady tick is profiled, layer by layer, by the
+benchmark's traced run (``benchmark/run.py --trace 1``).  The host bank's
+own tick (the native crossing and its phases) is profiled by
 ``scripts/port_profile_tick.py``, the twin of ``scripts/profile_tick.py``;
 the two scripts share no code.
 """
@@ -47,17 +44,14 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from ggrs_tpu_torch import (  # noqa: E402
-    BatchedSessions,
     BoxGame,
     ChipVM,
     DeviceRequestExecutor,
-    DeviceSyncTestSession,
     SaveGameState,
     SessionBuilder,
     boxgame_config,
 )
 
-D = 8
 EXEC_D, EXEC_MAX_PREDICTION = 7, 8
 DIGEST_KERNELS = ("state_digest", "lane_sums_rows")  # the digest kernel, now and before its redesign
 # the host's CUDA calls the profiler names that launch work on the card
@@ -74,7 +68,7 @@ def _device_us(evt) -> float:
 
 
 def profile_ticks(name: str, run_tick, sync, ticks: int) -> dict:
-    """Time ``ticks`` steady ticks untraced (the wall the idle share is taken
+    """Time ``ticks`` frames untraced (the wall the idle share is taken
     against: tracing slows the host), then trace ``ticks`` more."""
     run_tick()
     sync()
@@ -178,14 +172,14 @@ def profile_executor(name: str, game, high: int, frames: int, sync) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batch", type=int, default=16384)
-    ap.add_argument("--ticks", type=int, default=4,
-                    help="ChipVM ticks per window; the flagship runs 32 times as many")
     ap.add_argument("--executor", action="store_true",
-                    help="profile frames of the request-list path instead")
+                    help="profile frames of the request-list path (the only mode)")
     ap.add_argument("--frames", type=int, default=32,
                     help="executor frames per window (ChipVM runs a quarter as many)")
     args = ap.parse_args()
+    if not args.executor:
+        ap.error("the SyncTest replay's tick is profiled by benchmark/run.py --trace 1; "
+                 "this script profiles request-path frames with --executor")
     if not torch.cuda.is_available():
         print("port_tick_profile: needs a CUDA card", file=sys.stderr)
         return 2
@@ -195,46 +189,11 @@ def main() -> int:
     ).stdout.strip()
     print(json.dumps({"card": smi}), flush=True)
     sync = torch.cuda.synchronize
-    if args.executor:
-        for name, game, high, frames in (("BoxGame(2)", BoxGame(2), 16, args.frames),
-                                         ("ChipVM(2)", ChipVM(2), 256, max(1, args.frames // 4))):
-            _, split = profile_executor(f"executor frame {name} d={EXEC_D}", game, high, frames, sync)
-            print(json.dumps({"workload": f"executor frame {name} d={EXEC_D}",
-                              "host_ms_per_frame": split}), flush=True)
-        return 0
-    rng = np.random.default_rng(5)
-
-    vm = ChipVM(2)
-    batch = BatchedSessions(vm.advance, vm.init_state_np(), np.zeros(2, np.uint8),
-                            batch_size=args.batch, check_distance=D, max_prediction=D)
-    # past the warmup and a ring period of steady ticks: every phase's CUDA
-    # graph is captured before the windows, which replay them (the digest
-    # runs inside the graphs, so it is found by name only)
-    warm = 2 * (D + 1)
-    n = warm + 1 + 2 * args.ticks
-    inputs = torch.from_numpy(
-        rng.integers(0, 256, size=(args.batch, n, 2)).astype(np.uint8)).cuda()
-    batch.run_ticks(inputs[:, :warm], check=False)
-    it = iter(range(warm, n))
-    profile_ticks(f"batched ChipVM(2) B={args.batch} d={D}",
-                  lambda: batch.run_ticks(inputs[:, next(it)].unsqueeze(1), check=False),
-                  sync, args.ticks)
-    if batch.verify()["mismatches"]:
-        print("port_tick_profile: batched run mismatched", file=sys.stderr)
-        return 1
-
-    game = BoxGame(2)
-    sess = DeviceSyncTestSession(game.advance, game.init_state_np(), np.zeros(2, np.uint8),
-                                 check_distance=D)
-    ticks = 32 * args.ticks
-    box_in = torch.from_numpy(
-        rng.integers(0, 16, size=(warm + 1 + 2 * ticks, 2)).astype(np.uint8)).cuda()
-    sess.run_ticks(box_in[:warm], check=False)
-    it2 = iter(range(warm, warm + 1 + 2 * ticks))
-    profile_ticks(f"flagship BoxGame(2) d={D}",
-                  lambda: sess.run_ticks(box_in[next(it2)].unsqueeze(0), check=False),
-                  sync, ticks)
-    sess.verify()
+    for name, game, high, frames in (("BoxGame(2)", BoxGame(2), 16, args.frames),
+                                     ("ChipVM(2)", ChipVM(2), 256, max(1, args.frames // 4))):
+        _, split = profile_executor(f"executor frame {name} d={EXEC_D}", game, high, frames, sync)
+        print(json.dumps({"workload": f"executor frame {name} d={EXEC_D}",
+                          "host_ms_per_frame": split}), flush=True)
     return 0
 
 

@@ -518,7 +518,7 @@ def test_plane_with_a_kernel_of_several_ops(stand_in, monkeypatch, fault):
 
     def graphs(self):
         if self._graphs is None:
-            self._graphs = KeyedGraphs(self.device)
+            self._graphs = KeyedGraphs(self.device, "predict")
             made.append(self._graphs)
         return self._graphs
 
