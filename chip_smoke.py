@@ -27,10 +27,17 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    around a CUDA graph of many launches (inputs rotated so the working set
    exceeds the L2 cache), host us per wrapper call, the plain version's
    time and the bytes bound.  The profiler checks that one CUDA
-   ``checksum_device`` runs exactly one kernel.
+   ``checksum_device`` runs exactly one kernel.  Then BoxGame's advance
+   kernel (``games/boxgame.py::_advance_kernel``) against the eager body
+   (``_advance_fixed``), bitwise, at the layouts the replay tick gives it:
+   1,769,472 contiguous sessions, a ring slot view with a slice of the
+   window's inputs, and one session; one launch a call, every leaf read in
+   place, device us a launch (CUDA graph), host us, the eager body's ms and
+   the bytes bound (82 B a row).
 3. flagship -- BoxGame(2) in a DeviceSyncTestSession at check_distance=8 on
    the card for 2048 ticks, 0 mismatches, bitwise equal to the same run on
-   the CPU and to the NumPy oracle, exactly 2 digest launches per tick.
+   the CPU and to the NumPy oracle, exactly 2 digest launches per tick and
+   one advance kernel launch a warmup tick and d + 1 a steady tick.
    Every steady tick is one input copy and one replay of its phase's CUDA
    graph (``ops.replay.TickGraphs``), under the sync debug mode "error"
    from the first steady tick (captures included).  The same drive through
@@ -363,7 +370,9 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
 After each phase, a line with its seconds and the CUDA graphs (the
 replay's, the scrub's, the executors', the pools', speculation's and the
 plane's) it captured and replayed in this process.
-Then the seconds each phase took, one ``{"kernels": [...]}`` line (phase
+Then the seconds each phase took, one ``{"kernels": [...]}`` line (the
+digest's and BoxGame's advance kernel's; the advance's launches are the
+flagship's graph drive, counted from 0 just before it; the digest's phase
 21's launches as ``launches_sanitized_production`` and
 ``launches_sanitized``, phases 22–24's as ``launches_examples``,
 ``launches_floor_probe`` and ``launches_soak``), the
@@ -470,6 +479,7 @@ from ggrs_tpu_torch.obs import (
     validate_chrome_trace,
     validate_exposition,
 )
+from ggrs_tpu_torch.games import boxgame as boxgame_mod
 from ggrs_tpu_torch.ops import graphs as graph_ops
 from ggrs_tpu_torch.ops.checksum import checksum_device, checksum_device_plain, checksum_to_u128
 from ggrs_tpu_torch.ops.digest import (
@@ -500,6 +510,10 @@ KERNEL_SHAPES = [  # (rows, width, offset)
 ]
 BIG_LEAF_WORDS = 1 << 26  # one 256 MiB leaf
 MAIN_CASE = "chipvm_live"
+# BoxGame's advance kernel at the host cell's batch: a BoxGame(2) row reads
+# and writes 20 B of state a player and reads one u8 input a player
+ADVANCE_SESSIONS = 1769472
+ADVANCE_ROW_BYTES = 2 * 20 * 2 + 2
 EXEC_D, EXEC_MAX_PREDICTION = 7, 8
 # the executor drives are cut to keep the whole run near 810 s on a slow
 # host: ChipVM's from 500 frames to 250 when phase 7 came, then to 160 (past
@@ -990,6 +1004,76 @@ def phase_state_digest(rng) -> dict:
     return records
 
 
+def advance_cases(rng):
+    """BoxGame(2) advances at the layouts the replay tick gives the kernel:
+    ``contiguous`` (the host cell's B sessions, the benchmark's lone
+    advance), ``ring_slot`` (a slot view of a (B, d + 1, ...) ring with a
+    slice of the window's inputs, as a tick's first resimulated advance reads
+    them) and ``one_session`` (B = 1, the client's tick)."""
+
+    def state(lead):
+        pos = np.stack([rng.integers(0, boxgame_mod.WINDOW_W, (*lead, 2)),
+                        rng.integers(0, boxgame_mod.WINDOW_H, (*lead, 2))], -1)
+        return {"pos": _card(pos.astype(np.int32)),
+                "vel": _card(rng.integers(-6 << 16, (6 << 16) + 1, (*lead, 2, 2)).astype(np.int32)),
+                "rot": _card(rng.integers(0, 256, (*lead, 2)).astype(np.int32))}
+
+    def inputs(lead):
+        return _card(rng.integers(0, 16, (*lead, 2)).astype(np.uint8))
+
+    b = ADVANCE_SESSIONS
+    yield "contiguous", lambda: (state((b,)), inputs((b,)))
+    yield "ring_slot", lambda: ({k: v[:, 3] for k, v in state((b, D + 1)).items()},
+                                inputs((b, D + 1))[:, 4])
+    yield "one_session", lambda: (state((1,)), inputs((1,)))
+
+
+def phase_boxgame_advance() -> dict:
+    """BoxGame's advance kernel (``boxgame._advance_kernel``) against the
+    eager body (``BoxGame._advance_fixed``) at each of ``advance_cases``:
+    bitwise equal, one launch a call, every leaf read in place; device us a
+    launch from CUDA events around a CUDA graph of many launches, host us a
+    call, the eager body's time and the bytes bound.  Returns the records."""
+    game = BoxGame(2)
+    kernel = boxgame_mod._advance_kernel
+    rng = np.random.default_rng(2**32 + 22)
+    records = {}
+    for name, make in advance_cases(rng):
+        st, inp = make()
+        rows = inp.shape[0]
+        read, _ = boxgame_mod._card_leaves(st, inp)
+        check(all(a.data_ptr() == x.data_ptr() and a.stride() == x.stride()
+                  for a, x in zip(read, (st["pos"], st["vel"], st["rot"], inp))),
+              f"boxgame advance {name}: a leaf was copied before the launch")
+        before = kernel.launches
+        got = kernel(st, inp)
+        launches = kernel.launches - before
+        want = game._advance_fixed(st, inp)
+        torch.cuda.synchronize()
+        check(launches == 1, f"boxgame advance {name}: {launches} launches, not 1")
+        check(list(got) == list(want) and all(torch.equal(got[k], want[k]) for k in want),
+              f"boxgame advance {name}: the kernel != the eager body")
+        nbytes = rows * ADVANCE_ROW_BYTES
+        copies = [(st, inp)] + [make() for _ in range(copies_for(nbytes) - 1)]
+        rec = {"phase": "kernel", "entry": "boxgame_advance", "case": name, "rows": rows,
+               "leaf_strides": {k: list(x.stride()) for k, x in
+                                (("pos", st["pos"]), ("vel", st["vel"]), ("rot", st["rot"]),
+                                 ("inputs", inp))},
+               "launches_per_call": launches, "read_in_place": True,
+               "bitwise_equal": True, "max_abs_err": 0,
+               "device_us": graph_us(lambda x: kernel(*x), copies),
+               "input_copies": len(copies),
+               "host_us": host_us(lambda: kernel(st, inp)),
+               "plain_ms": device_ms(lambda: game._advance_fixed(st, inp), iters=20, warmup=1),
+               "bound_us": nbytes / HBM_BYTES_PER_S * 1e6}
+        rec["share_of_bound"] = rec["bound_us"] / rec["device_us"]
+        emit(rec)
+        records[name] = rec
+        del st, inp, got, want, copies, read
+        torch.cuda.empty_cache()
+    return records
+
+
 # -- the replay's CUDA graphs (phases 3, 4, 6, 8, 9, 15) ------------------------
 
 
@@ -1038,10 +1122,11 @@ def graph_drive(sess, chunks: list, axis: int) -> dict:
     last one profiled, those between timed.  The warmup ticks run outside
     the sync debug mode (their first advance builds the game's device
     constants with a synchronizing copy); every steady tick, the graphs'
-    captures and replays, runs under "error".  Digest counts are zeroed
-    just before the drive and read just after."""
+    captures and replays, runs under "error".  Digest and BoxGame advance
+    kernel counts are zeroed just before the drive and read just after."""
     w = sess.programs.warmup_ticks
     state_digest.launches = lane_sums_rows.launches = 0
+    boxgame_mod._advance_kernel.launches = 0
     sess.run_ticks(chunks[0].narrow(axis, 0, w), check=False)
     sess.block_until_ready()
     t0 = time.perf_counter()
@@ -1065,7 +1150,7 @@ def graph_drive(sess, chunks: list, axis: int) -> dict:
     launches, around = state_digest.launches, lane_sums_rows.launches
     ms = elapsed / timed * 1e3
     return {"ms_per_tick": ms, "timed_ticks": timed, "captures_s": captures_s,
-            "digest_launches": launches,
+            "digest_launches": launches, "advance_launches": boxgame_mod._advance_kernel.launches,
             "around": around, "idle_share": 1 - prof["busy_ms_per_tick"] / ms, **prof}
 
 
@@ -1114,8 +1199,9 @@ def cards_equal(a, b) -> bool:
 
 def graph_vs_eager(name: str, sess, init, template, chunks: list, axis: int) -> dict:
     """``graph_drive`` of ``sess``, then ``eager_drive`` of the same ticks:
-    carries (mismatches and first_bad included) and digest launches bitwise
-    equal, 2 launches a tick on each path, one capture a phase (= R), one
+    carries (mismatches and first_bad included), digest launches and
+    BoxGame advance kernel launches equal, 2 digest launches a tick on each
+    path, one capture a phase (= R), one
     replay a steady tick, and in the profiled ticks one graph launch and at
     most one other launch (the input copy) a tick.  Emits the phase's
     graphs line and returns it."""
@@ -1125,12 +1211,17 @@ def graph_vs_eager(name: str, sess, init, template, chunks: list, axis: int) -> 
     g = graph_drive(sess, chunks, axis)
     stats = graph_stats(programs)
     batch = 1 if axis == 0 else chunks[0].shape[0]
+    boxgame_mod._advance_kernel.launches = 0
     carry, eager_ms, eager_launches = eager_drive(programs, init, template, batch, chunks, axis)
+    eager_advances = boxgame_mod._advance_kernel.launches
     graph_carry = sess.carry if axis == 1 else tree_map(lambda l: l.unsqueeze(0), sess.carry)
     check(g["around"] == 0, f"{name}: the digest went around state_digest")
     check(g["digest_launches"] == eager_launches == 2 * ticks,
           f"{name}: {g['digest_launches']} digest launches on the graphs, {eager_launches} eager, "
           f"not 2 x {ticks} ticks")
+    check(g["advance_launches"] == eager_advances,
+          f"{name}: {g['advance_launches']} advance kernel launches on the graphs, "
+          f"{eager_advances} eager")
     check(stats["captures"] == stats["carries"] * programs.ring.length
           and stats["replays"] == stats["carries"] * steady,
           f"{name}: {stats} for {steady} steady ticks of ring {programs.ring.length}")
@@ -1149,12 +1240,14 @@ def graph_vs_eager(name: str, sess, init, template, chunks: list, axis: int) -> 
             "digest_share_of_busy": g["digest_share_of_busy"],
             "digest_us_per_launch_in_graph": g["digest_us_per_tick"] / 2,
             "digest_launches": g["digest_launches"], "digest_launches_eager": eager_launches,
+            "advance_launches": g["advance_launches"], "advance_launches_eager": eager_advances,
             "graph_equal_to_eager": True, "sync_debug_mode": "error"}
     emit(line)
     return line
 
 
-def phase_flagship() -> None:
+def phase_flagship() -> int:
+    """Returns the BoxGame advance kernel's launches in the graph drive."""
     game = BoxGame(2)
     inputs = np.random.default_rng(7).integers(0, 16, size=(FLAGSHIP_TICKS, 2)).astype(np.uint8)
     card = torch.from_numpy(inputs).cuda()
@@ -1165,6 +1258,11 @@ def phase_flagship() -> None:
     )
     g = graph_vs_eager("flagship", sess, game.init_state_np(), np.zeros(2, np.uint8), chunks, 0)
     sess.verify()  # raises MismatchedChecksum on any desync
+    # one advance a warmup tick, d + 1 a steady tick: each a kernel launch
+    w = sess.programs.warmup_ticks
+    advances = w + (FLAGSHIP_TICKS - w) * (D + 1)
+    check(g["advance_launches"] == advances,
+          f"flagship: {g['advance_launches']} advance kernel launches, not {advances}")
 
     cpu = DeviceSyncTestSession(
         game.advance, game.init_state_np(), np.zeros(2, np.uint8), check_distance=D, device="cpu"
@@ -1184,7 +1282,9 @@ def phase_flagship() -> None:
           "ms_per_tick": g["graph_ms_per_tick"],
           "resim_frames_per_s": D * 1e3 / g["graph_ms_per_tick"],
           "digest_launches": g["digest_launches"],
-          "digest_launches_per_tick": g["digest_launches"] / FLAGSHIP_TICKS})
+          "digest_launches_per_tick": g["digest_launches"] / FLAGSHIP_TICKS,
+          "advance_launches": g["advance_launches"]})
+    return g["advance_launches"]
 
 
 def phase_batched() -> int:
@@ -5132,7 +5232,8 @@ def main() -> int:
     worst = timed("kernel_lane_sums", phase_lane_sums, rng)
     cases = timed("kernel_state_digest", phase_state_digest, rng)
     worst = max([worst] + [c["max_abs_err"] for c in cases.values()])
-    timed("flagship", phase_flagship)
+    advance = timed("kernel_boxgame_advance", phase_boxgame_advance)
+    advance_launches = timed("flagship", phase_flagship)
     launches = timed("batched", phase_batched)
     exec_launches = timed("executor", phase_executor)
     timed("checkpoint", phase_checkpoint)
@@ -5173,6 +5274,19 @@ def main() -> int:
         "max_abs_err": worst,
         "ms": main_case["device_us"] / 1e3, "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_us"] / 1e3, "bound_by": "bytes", "library_ms": None,
+    }, {
+        "name": "boxgame_advance", "route": "cuda", "source": "ggrs_tpu_torch/csrc/boxgame.cu",
+        "replaces": "ggrs_tpu/games/boxgame.py:106 (one jnp expression XLA fuses)",
+        "launches": advance_launches, "launches_per_steady_tick": D + 1,
+        "max_abs_err": max(r["max_abs_err"] for r in advance.values()),
+        "ms": advance["contiguous"]["device_us"] / 1e3,
+        "plain_ms": advance["contiguous"]["plain_ms"],
+        "bound_ms": advance["contiguous"]["bound_us"] / 1e3, "bound_by": "bytes",
+        "library_ms": None,
+        "ms_ring_slot": advance["ring_slot"]["device_us"] / 1e3,
+        "plain_ms_ring_slot": advance["ring_slot"]["plain_ms"],
+        "ms_one_session": advance["one_session"]["device_us"] / 1e3,
+        "plain_ms_one_session": advance["one_session"]["plain_ms"],
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,10 @@
 """Build step for the port's compiled code: the CUDA kernels and the host
 library.
 
-Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, loaded with ``ctypes``.  The host
-library is the port's native host code (the input codec and message
+Each CUDA source under ``csrc/`` (``digest.cu``, ``boxgame.cu``) is
+compiled by ``nvcc`` for ``sm_90a`` into a shared library with a plain C
+interface, loaded with ``ctypes``.  The host library is the port's native
+host code (the input codec and message
 framing, the endpoint datapath, the sync core, the session bank and the
 batched socket datapath), compiled by ``g++`` from the package's own
 ``csrc/host/codec.cpp``, ``endpoint.cpp``, ``sync_core.cpp``,
@@ -54,6 +55,7 @@ HOST_DIR = _PKG / "csrc" / "host"
 
 SOURCES: Dict[str, Path] = {
     "digest": _PKG / "csrc" / "digest.cu",
+    "boxgame": _PKG / "csrc" / "boxgame.cu",
 }
 
 NVCC_FLAGS = (
@@ -224,10 +226,12 @@ def load_host(sanitize: Optional[str] = None) -> ctypes.CDLL:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``name``, building it first if needed."""
+    """The loaded library for ``name``, building it first if needed: the
+    first build compiles every source that has no library yet, all at once,
+    so a process pays for one ``nvcc`` wall time, not one per library."""
     lib = _loaded.get(name)
     if lib is None:
-        build([name])
+        build()
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib

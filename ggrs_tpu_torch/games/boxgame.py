@@ -13,19 +13,39 @@ State is a dict of tensors vectorized over players and batched over
 sessions: ``{"pos": (B, P, 2), "vel": (B, P, 2), "rot": (B, P)}``, int32 or
 float32.  Inputs are one ``uint8`` bitmask per player, ``(B, P)``
 (up/down/left/right).
+
+On the card the fixed variant's step is one launch of a hand-written CUDA
+kernel a frame (``csrc/boxgame.cu``), which reads each leaf in place and
+writes the new state once.  The route follows the tensors alone: a call
+with a tensor on a CUDA card takes the kernel, or raises where the kernel
+cannot read it (leaves not int32, inputs not of an integer dtype, tensors on
+several devices, shapes other than ``(..., P, 2)`` / ``(..., P)`` of the same
+sessions, ``pos`` or
+``vel`` rows not 8-byte aligned); a leaf that is not evenly strided rows of
+contiguous inner dimensions is copied contiguous first.  CPU tensors and
+the float variant take the eager body, the same integers in 31 PyTorch
+operations.  The process registry's ``ggrs_game_advance_total`` (labels
+``game="boxgame"``, ``route="kernel"`` or ``"eager"``) counts the kernel's
+launches made from Python (a CUDA graph that captured one counts it once;
+its replays launch the kernel with no Python; an empty batch launches
+nothing) and the eager body's calls.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
+from .. import _build
 from ..convert import from_numpy
 from ..core.config import Config
 from ..core.device import DeviceLike
+from ..obs.registry import default_registry
+from ..ops.digest import _row_stride, count_launch, count_launches
 
 BOX_INPUT_UP = 1 << 0
 BOX_INPUT_DOWN = 1 << 1
@@ -81,6 +101,135 @@ def _decode_buttons(inputs: Any) -> Tuple[Any, Any]:
     return right - left, up - down
 
 
+# -- the kernel route (csrc/boxgame.cu) --------------------------------------
+
+_OBS_ADVANCES = default_registry().counter(
+    "ggrs_game_advance_total",
+    "Game advances by game and route: kernel launches made from Python, eager calls",
+    labels=("game", "route"),
+)
+_KERNEL_LAUNCHES = _OBS_ADVANCES.labels(game="boxgame", route="kernel")
+_EAGER_CALLS = _OBS_ADVANCES.labels(game="boxgame", route="eager")
+
+# the kernel's player counts and the input dtypes it reads (by the low byte)
+_KERNEL_PLAYERS = (2, 3, 4)
+_INPUT_DTYPES = frozenset({torch.uint8, torch.int8, torch.int16, torch.int32, torch.int64})
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("boxgame")
+    fn = lib.ggrs_boxgame_advance
+    if fn.argtypes is None:
+        consts = (ctypes.c_longlong * 8)()
+        lib.ggrs_boxgame_constants.argtypes = [ctypes.c_void_p]
+        lib.ggrs_boxgame_constants.restype = None
+        lib.ggrs_boxgame_constants(consts)
+        want = (_ROT_PERIOD, _FP, _ROT_STEP, _ACCEL, _MAX_SPEED, _FRICTION_NUM, WINDOW_W, WINDOW_H)
+        if tuple(consts) != want:
+            raise RuntimeError(f"boxgame library constants {tuple(consts)} differ from {want}")
+        fn.argtypes = [
+            ctypes.c_int, ctypes.c_int64,  # players, rows
+            ctypes.c_void_p, ctypes.c_int64,  # pos, its row stride in bytes
+            ctypes.c_void_p, ctypes.c_int64,  # vel
+            ctypes.c_void_p, ctypes.c_int64,  # rot
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,  # inputs, stride, item bytes
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # pos, vel, rot out
+            ctypes.c_void_p,  # sine table
+            ctypes.c_void_p,  # stream
+        ]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _on_card(state: Any, inputs: Any) -> bool:
+    """Whether the call has a tensor on a CUDA card (the kernel's route)."""
+    return any(isinstance(x, torch.Tensor) and x.is_cuda
+               for x in (inputs, state["pos"], state["vel"], state["rot"]))
+
+
+def _card_leaves(state: Any, inputs: Any) -> Tuple[Tuple[torch.Tensor, ...], Tuple[int, ...]]:
+    """``pos``, ``vel``, ``rot`` and ``inputs`` as the kernel reads them, and
+    the bytes from one session's row to the next of each: checked (int32
+    leaves and integer inputs on one card, the same sessions and P players
+    in each), and a leaf whose rows are not evenly strided rows of
+    contiguous inner dimensions made contiguous (a ring slot view, a slice
+    of the window's inputs and speculation's expanded branch rows are read
+    in place).  Raises where the kernel cannot read the call."""
+    pos, vel, rot, inp = leaves = (state["pos"], state["vel"], state["rot"], inputs)
+    if any(not isinstance(x, torch.Tensor) for x in leaves):
+        raise TypeError("BoxGame.advance on the card: state leaves and inputs must be tensors")
+    if not pos.device == vel.device == rot.device == inp.device:
+        devices = sorted({str(x.device) for x in leaves})
+        raise ValueError(f"BoxGame.advance: tensors on several devices {devices}")
+    if not pos.dtype == vel.dtype == rot.dtype == torch.int32:
+        raise TypeError(f"BoxGame.advance on the card: the fixed variant's leaves must be int32, "
+                        f"got {[str(x.dtype) for x in leaves[:3]]}")
+    if inp.dtype not in _INPUT_DTYPES:
+        raise TypeError(f"BoxGame.advance on the card: inputs of {inp.dtype}, not an integer dtype")
+    lead = inp.dim() - 1
+    if lead < 0 or inp.shape[-1] not in _KERNEL_PLAYERS or rot.shape != inp.shape \
+            or pos.shape != (*inp.shape, 2) or vel.shape != pos.shape:
+        raise ValueError(f"BoxGame.advance on the card: shapes pos {tuple(pos.shape)}, "
+                         f"vel {tuple(vel.shape)}, rot {tuple(rot.shape)}, inputs "
+                         f"{tuple(inp.shape)} are not (..., P, 2), (..., P, 2), (..., P), "
+                         f"(..., P) of the same sessions, for P in 2-4")
+    if inp.numel() == 0:  # no rows to read: an empty tensor's strides may be anything
+        return leaves, (0, 0, 0, 0)
+    out, strides = [], []
+    for x, stride in zip(leaves, _row_strides(tuple((x.shape, x.stride()) for x in leaves), lead)):
+        if stride is None:
+            x = x.contiguous()
+            stride = _row_stride(x.shape, x.stride(), lead)
+        out.append(x)
+        strides.append(stride * x.element_size())
+    if out[0].data_ptr() % 8 or out[1].data_ptr() % 8 or strides[0] % 8 or strides[1] % 8:
+        raise ValueError("BoxGame.advance on the card: pos and vel rows must be 8-byte aligned")
+    return tuple(out), tuple(strides)
+
+
+@functools.lru_cache(maxsize=256)
+def _row_strides(layouts: tuple, lead: int) -> tuple:
+    """``_row_stride`` of each ``(shape, strides)``, remembered: a replay's
+    warmup and captures give the same few layouts again and again."""
+    return tuple(_row_stride(shape, strides, lead) for shape, strides in layouts)
+
+
+def _advance_kernel(state: Any, inputs: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """One launch of the kernel on the inputs' card and current stream: the
+    new state in three tensors made here (``torch.empty``, inside a capture
+    too), written whole by the kernel; no launch for an empty batch.
+    ``_advance_kernel.launches`` counts the launches as the digest's
+    counters count theirs (``ops.digest.count_launches``: a graph's capture
+    moves its launches onto its replays), and the registry's
+    ``route="kernel"`` child counts the launches made from Python."""
+    (pos, vel, rot, inp), strides = _card_leaves(state, inputs)
+    dev = inp.device
+    out = {"pos": torch.empty(pos.shape, dtype=torch.int32, device=dev),
+           "vel": torch.empty(vel.shape, dtype=torch.int32, device=dev),
+           "rot": torch.empty(rot.shape, dtype=torch.int32, device=dev)}
+    players = inp.shape[-1]
+    rows = inp.numel() // players
+    if rows == 0:
+        return out
+    lut, _ = _device_consts(dev)
+    args = (
+        players, rows, pos.data_ptr(), strides[0], vel.data_ptr(), strides[1],
+        rot.data_ptr(), strides[2], inp.data_ptr(), strides[3], inp.element_size(),
+        out["pos"].data_ptr(), out["vel"].data_ptr(), out["rot"].data_ptr(), lut.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    with torch.cuda.device(dev):  # the library launches on the current device
+        err = _lib().ggrs_boxgame_advance(*args)
+    if err != 0:
+        raise RuntimeError(f"boxgame advance kernel launch failed: CUDA error {err}")
+    count_launch(_advance_kernel)
+    _KERNEL_LAUNCHES.inc()
+    return out
+
+
+count_launches(_advance_kernel)
+
+
 class BoxGame:
     """``init_state`` / batch-native ``advance`` in torch, and the NumPy
     oracle ``init_state_np`` / ``advance_np`` (one unbatched state)."""
@@ -134,9 +283,19 @@ class BoxGame:
     # -- advance: torch, batch-native ------------------------------------
 
     def advance(self, state: Any, inputs: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """One simulation step for B sessions.  ``inputs``: (B, P) uint8."""
+        """One simulation step for B sessions.  ``inputs``: (B, P) uint8.
+        The fixed variant on the card is the kernel, else the eager body
+        (module docstring); both give the same integers."""
+        if self.variant == "fixed" and _on_card(state, inputs):
+            return _advance_kernel(state, inputs)
+        _EAGER_CALLS.inc()
         if self.variant == "float":
             return self._advance_float(state, inputs)
+        return self._advance_fixed(state, inputs)
+
+    def _advance_fixed(self, state: Any, inputs: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The fixed-point step as eager PyTorch: the CPU route and the plain
+        version the kernel is held to."""
         lut, window = _device_consts(inputs.device)
         turn, thrust = _decode_buttons(inputs)
         rot = torch.remainder(state["rot"] + turn * _ROT_STEP, _ROT_PERIOD)

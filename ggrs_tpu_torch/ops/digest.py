@@ -28,12 +28,13 @@ CUDA tensor to the kernel (or the call raises).  There is no switch and no
 size threshold.
 
 ``state_digest.launches`` and ``lane_sums_rows.launches`` count the
-kernel's launches on the card.  A wrapper called while a CUDA graph is
-captured launches nothing yet, and each replay of the graph launches again
-without calling it: ``GraphLaunches`` moves the capture's count onto the
-replays, so the counts keep meaning kernels the card ran.  A capture takes
-only its own thread's launches: what other threads launch meanwhile stays
-on the counters.
+kernel's launches on the card, as does the ``launches`` of every other
+wrapper given to ``count_launches`` (BoxGame's advance kernel).  A wrapper
+called while a CUDA graph is captured launches nothing yet, and each replay
+of the graph launches again without calling it: ``GraphLaunches`` moves the
+capture's count onto the replays, so the counts keep meaning kernels the
+card ran.  A capture takes only its own thread's launches: what other
+threads launch meanwhile stays on the counters.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ import ctypes
 import functools
 import math
 import threading
-from typing import Dict, Iterator, List, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Sequence, Tuple
 
 import torch
 
@@ -328,7 +329,7 @@ def state_digest(
         table = [(leaf.data_ptr(), stride, nbytes, off) for leaf, stride, nbytes, off in entries]
         out = _launch(table, rows, width, dev, salt_mix, 0, raw=False)
         if rows:
-            _count(state_digest)
+            count_launch(state_digest)
         return out
     acc = None
     for g in range(0, len(entries), MAX_LEAVES):
@@ -339,12 +340,11 @@ def state_digest(
         lanes = _launch(table, rows, end - start, dev, salt_mix, start, raw=True).to(torch.int64)
         acc = lanes if acc is None else acc + lanes
         if rows:
-            _count(state_digest)
+            count_launch(state_digest)
     acc = (acc + _mix_tensor(tuple(salt_mix), acc.device)) & MASK32
     return u32_to_i32(acc ^ (acc >> 15))
 
 
-state_digest.launches = 0
 
 
 def _check(words: torch.Tensor) -> None:
@@ -370,47 +370,56 @@ def lane_sums_rows(words: torch.Tensor, offset: int = 0) -> torch.Tensor:
     entries, rows, width = leaf_table([words])
     out = _launch(entries, rows, width, dev, (0, 0, 0, 0), offset, raw=True)
     if rows:
-        _count(lane_sums_rows)
+        count_launch(lane_sums_rows)
     return out
 
 
-lane_sums_rows.launches = 0
 
 
+# the wrappers whose ``launches`` follow their kernels into CUDA graphs
+_COUNTED: List[Any] = []
 # the capture in progress on each thread (by thread id), if any
 _captures: Dict[int, "GraphLaunches"] = {}
 
 
-def _count(wrapper) -> None:
-    """One launch of ``wrapper``'s kernel (``state_digest`` or
-    ``lane_sums_rows``).  While another thread captures a graph, the launch
-    is noted as foreign to that capture, which then leaves it counted."""
+def count_launches(wrapper: Any) -> Any:
+    """Give ``wrapper`` a ``launches`` count, from 0, that ``count_launch``
+    adds to and ``GraphLaunches`` moves from a graph's capture onto its
+    replays; returns ``wrapper``."""
+    wrapper.launches = 0
+    _COUNTED.append(wrapper)
+    return wrapper
+
+
+def count_launch(wrapper: Any) -> None:
+    """One launch of ``wrapper``'s kernel.  While another thread captures a
+    graph, the launch is noted as foreign to that capture, which then leaves
+    it counted."""
     wrapper.launches += 1
     if _captures:
         me = threading.get_ident()
-        k = 0 if wrapper is state_digest else 1
         for tid, graph in list(_captures.items()):
-            if tid != me:
-                graph.foreign[k] += 1
+            if tid != me and wrapper in graph.foreign:
+                graph.foreign[wrapper] += 1
 
 
 class GraphLaunches:
-    """The digest launches one CUDA graph holds.
+    """The counted launches one CUDA graph holds.
 
-    ``capturing()`` wraps the graph's capture: it records how much the two
-    counters grew on this thread (the launches the graph captured) and sets
-    them back, since a capture runs no kernel; launches that other threads
+    ``capturing()`` wraps the graph's capture: it records how much each
+    counter grew on this thread (the launches the graph captured) and sets
+    it back, since a capture runs no kernel; launches that other threads
     counted meanwhile (``foreign``) stay counted.  ``replayed()`` adds the
-    graph's count to the counters, once for each replay of the graph."""
+    graph's counts to the counters, once for each replay of the graph."""
 
     def __init__(self) -> None:
-        self.counts = (0, 0)
-        self.foreign = [0, 0]
+        self.counts: Dict[Any, int] = {}
+        self.foreign: Dict[Any, int] = {}
 
     @contextlib.contextmanager
     def capturing(self) -> Iterator[None]:
-        before = (state_digest.launches, lane_sums_rows.launches)
-        self.foreign = [0, 0]
+        before = {w: w.launches for w in _COUNTED}
+        self.foreign = dict.fromkeys(before, 0)
         tid = threading.get_ident()
         outer = _captures.get(tid)
         _captures[tid] = self
@@ -422,10 +431,14 @@ class GraphLaunches:
             else:
                 _captures[tid] = outer
             f = self.foreign
-            self.counts = (state_digest.launches - before[0] - f[0],
-                           lane_sums_rows.launches - before[1] - f[1])
-            state_digest.launches, lane_sums_rows.launches = before[0] + f[0], before[1] + f[1]
+            self.counts = {w: w.launches - n - f[w] for w, n in before.items()}
+            for w, n in before.items():
+                w.launches = n + f[w]
 
     def replayed(self) -> None:
-        state_digest.launches += self.counts[0]
-        lane_sums_rows.launches += self.counts[1]
+        for w, n in self.counts.items():
+            w.launches += n
+
+
+count_launches(state_digest)
+count_launches(lane_sums_rows)

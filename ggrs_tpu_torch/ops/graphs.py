@@ -9,9 +9,10 @@ so nothing a capture allocates outlives it, and the graphs of a set can
 replay in any order.  ``GraphSet.capture(body)`` records ``body`` (a
 function of no arguments over those buffers) as a ``Graph``; its
 ``replay`` runs the recorded kernels again on whatever the buffers then
-hold.  The digest launches the capture recorded move onto the replays
-(``digest.GraphLaunches``), so ``state_digest.launches`` keeps counting
-kernels the card ran.
+hold.  The counted launches the capture recorded (the digest's and
+BoxGame's advance kernel's) move onto the replays
+(``digest.GraphLaunches``), so their ``launches`` keep counting kernels
+the card ran.
 
 A capture runs nothing, so whatever ``body`` does once lazily (a game's
 device constants, the digest library's first launch) must have run eagerly
@@ -108,7 +109,7 @@ def _record(graphs: "GraphSet", body: Callable[[], None]) -> torch.cuda.CUDAGrap
 
 
 class Graph:
-    """One captured graph of a ``GraphSet``, the digest launches it holds
+    """One captured graph of a ``GraphSet``, the counted launches it holds
     and the nodes of its layer marks (``marks``; enabled while
     ``marks_on``)."""
 

@@ -189,7 +189,7 @@ def test_graph_launches_move_from_the_capture_onto_each_replay(b, d, monkeypatch
     launches = tdg.GraphLaunches()
     with launches.capturing():
         progs.steady_body(carry, d + 1)
-    assert launches.counts == (2, 0)
+    assert (launches.counts[tdg.state_digest], launches.counts[tdg.lane_sums_rows]) == (2, 0)
     assert calls[-2:] == [b * d, b]  # the window's rows, then the live advance's
     assert (tdg.state_digest.launches, tdg.lane_sums_rows.launches) == before
     for _ in range(5):
@@ -206,7 +206,7 @@ def test_a_failed_capture_leaves_the_counters_as_they_were():
             tdg.state_digest.launches += 1
             raise RuntimeError("capture failed")
     assert tdg.state_digest.launches == before
-    assert launches.counts == (1, 0)
+    assert (launches.counts[tdg.state_digest], launches.counts[tdg.lane_sums_rows]) == (1, 0)
 
 
 # -- checkpoints load into the carry's own buffers ---------------------------
