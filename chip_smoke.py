@@ -33,7 +33,15 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    1,769,472 contiguous sessions, a ring slot view with a slice of the
    window's inputs, and one session; one launch a call, every leaf read in
    place, device us a launch (CUDA graph), host us, the eager body's ms and
-   the bytes bound (82 B a row).
+   the bytes bound (82 B a row).  Then VectorWar's advance kernel
+   (``games/vectorwar.py::_advance_kernel``) against its eager body
+   (``_advance_eager``) the same way, at the ``vectorwar4-d8-host`` cell's
+   sessions (``benchmark/traffic/closed-vectorwar4-host.json``), a ring
+   slot view with a window slice, and one session (5,060 B a row); and a
+   ``BatchedSessions`` drive of 4,096 VectorWar sessions over 48 ticks on
+   the kernel route, bitwise the same drive on the eager body's, with one
+   kernel launch a warmup tick and d + 1 a steady tick, counted at the
+   launch site from 0 just before the drive.
 3. flagship -- BoxGame(2) in a DeviceSyncTestSession at check_distance=8 on
    the card for 2048 ticks, 0 mismatches, bitwise equal to the same run on
    the CPU and to the NumPy oracle, exactly 2 digest launches per tick and
@@ -371,8 +379,9 @@ After each phase, a line with its seconds and the CUDA graphs (the
 replay's, the scrub's, the executors', the pools', speculation's and the
 plane's) it captured and replayed in this process.
 Then the seconds each phase took, one ``{"kernels": [...]}`` line (the
-digest's and BoxGame's advance kernel's; the advance's launches are the
-flagship's graph drive, counted from 0 just before it; the digest's phase
+digest's and the two advance kernels': BoxGame's launches are the
+flagship's graph drive and VectorWar's its ``BatchedSessions`` drive in
+phase 2, each counted from 0 just before it; the digest's phase
 21's launches as ``launches_sanitized_production`` and
 ``launches_sanitized``, phases 22–24's as ``launches_examples``,
 ``launches_floor_probe`` and ``launches_soak``), the
@@ -480,6 +489,8 @@ from ggrs_tpu_torch.obs import (
     validate_exposition,
 )
 from ggrs_tpu_torch.games import boxgame as boxgame_mod
+from ggrs_tpu_torch.games import vectorwar as vectorwar_mod
+from ggrs_tpu_torch.games.vectorwar import VectorWar
 from ggrs_tpu_torch.ops import graphs as graph_ops
 from ggrs_tpu_torch.ops.checksum import checksum_device, checksum_device_plain, checksum_to_u128
 from ggrs_tpu_torch.ops.digest import (
@@ -514,6 +525,13 @@ MAIN_CASE = "chipvm_live"
 # and writes 20 B of state a player and reads one u8 input a player
 ADVANCE_SESSIONS = 1769472
 ADVANCE_ROW_BYTES = 2 * 20 * 2 + 2
+# VectorWar's advance kernel at the vectorwar4-d8-host cell's batch: a row
+# reads and writes 2,528 B of state and reads one u8 input a ship; its
+# drive is a BatchedSessions of VW_DRIVE_SESSIONS over VW_DRIVE_TICKS ticks
+with open(os.path.join(ROOT, "benchmark", "traffic", "closed-vectorwar4-host.json")) as _f:
+    VW_SESSIONS = json.load(_f)["sessions"]
+VW_ROW_BYTES = 2 * 2528 + 4
+VW_DRIVE_SESSIONS, VW_DRIVE_TICKS = 4096, 48
 EXEC_D, EXEC_MAX_PREDICTION = 7, 8
 # the executor drives are cut to keep the whole run near 810 s on a slow
 # host: ChipVM's from 500 frames to 250 when phase 7 came, then to 160 (past
@@ -1072,6 +1090,136 @@ def phase_boxgame_advance() -> dict:
         del st, inp, got, want, copies, read
         torch.cuda.empty_cache()
     return records
+
+
+def vectorwar_state(gen, lead: tuple) -> dict:
+    """Seeded VectorWar states on the card: ships over the playfield and past
+    its walls, speeds up to 5 px, about a third of the bullet slots live,
+    half the bullets within 30 px of a ship (so that hits, the speed limit
+    and wall bounces all occur)."""
+    one, p, s = 1 << 16, vectorwar_mod.SHIPS, vectorwar_mod.SLOTS
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, (*lead, *shape), generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    pos = torch.stack([ints(0, 640 * one, p), ints(0, 480 * one, p)], -1)
+    ship = ints(0, p, p * s).long().unsqueeze(-1).expand(*lead, p * s, 2)
+    near = torch.gather(pos, -2, ship).view(*lead, p, s, 2) + ints(-30 * one, 30 * one, p, s, 2)
+    far = torch.stack([ints(-20 * one, 660 * one, p, s), ints(-20 * one, 500 * one, p, s)], -1)
+    return {
+        "bullet_active": (ints(0, 3, p, s) == 0).to(torch.int32),
+        "bullet_pos": torch.where(ints(0, 2, p, s, 1) == 0, near, far),
+        "bullet_vel": ints(-10 * one, 10 * one, p, s, 2),
+        "cooldown": ints(0, 9, p),
+        "heading": ints(0, 360, p),
+        "health": ints(-500, 101, p),
+        "pos": pos,
+        "score": ints(0, 1000, p),
+        "vel": ints(-5 * one, 5 * one, p, 2),
+    }
+
+
+def vectorwar_cases(gen):
+    """VectorWar advances at the layouts the replay tick gives the kernel:
+    ``contiguous`` (the host cell's B sessions, the benchmark's lone
+    advance), ``ring_slot`` (a slot view of a (B, d + 1, ...) ring with a
+    slice of the window's inputs) and ``one_session`` (B = 1)."""
+
+    def inputs(lead):
+        return torch.randint(0, 64, (*lead, vectorwar_mod.SHIPS), generator=gen, device="cuda",
+                             dtype=torch.uint8)
+
+    b = VW_SESSIONS
+    yield "contiguous", lambda: (vectorwar_state(gen, (b,)), inputs((b,)))
+    yield "ring_slot", lambda: ({k: v[:, 3] for k, v in vectorwar_state(gen, (b, D + 1)).items()},
+                                inputs((b, D + 1))[:, 4])
+    yield "one_session", lambda: (vectorwar_state(gen, (1,)), inputs((1,)))
+
+
+def vectorwar_drive(inputs: np.ndarray, kernel: bool) -> tuple:
+    """A ``BatchedSessions`` of VectorWar on the card over ``inputs``
+    (B, T, 4), one tick a call with ``check=True``, on the kernel route or
+    (``kernel`` False) on the eager body's: the carry, and the advance
+    kernel's launches counted from 0 just before the drive."""
+    game = VectorWar()
+    on_card = vectorwar_mod._on_card
+    if not kernel:
+        vectorwar_mod._on_card = lambda state, inputs: False
+    try:
+        sess = BatchedSessions(game.advance, game.init_state_np(), np.zeros(4, np.uint8),
+                               batch_size=inputs.shape[0], check_distance=D, max_prediction=D)
+        vectorwar_mod._advance_kernel.launches = 0
+        for t in range(inputs.shape[1]):
+            stats = sess.run_ticks(np.ascontiguousarray(inputs[:, t:t + 1]), check=True)
+            check(stats["mismatches"] == 0, f"vectorwar drive: a mismatch at tick {t}")
+        torch.cuda.synchronize()
+        return sess.carry, vectorwar_mod._advance_kernel.launches, sess.programs.warmup_ticks
+    finally:
+        vectorwar_mod._on_card = on_card
+
+
+def phase_vectorwar_advance() -> dict:
+    """VectorWar's advance kernel (``vectorwar._advance_kernel``) against the
+    eager body (``VectorWar._advance_eager``) at each of
+    ``vectorwar_cases``: bitwise equal, one launch a call, every leaf read
+    in place; device us a launch from CUDA events around a CUDA graph of
+    many launches, host us a call, the eager body's time and the bytes
+    bound.  Then a ``BatchedSessions`` drive on the kernel route against the
+    same drive on the eager body's: carries bitwise equal, and the kernel's
+    launches, counted at the launch site from 0 just before the drive, one
+    a warmup tick and d + 1 a steady tick.  Returns the records and the
+    drive's launches."""
+    game = VectorWar()
+    kernel = vectorwar_mod._advance_kernel
+    gen = torch.Generator(device="cuda").manual_seed(2**32 + 23)
+    records = {}
+    for name, make in vectorwar_cases(gen):
+        st, inp = make()
+        rows = inp.shape[0]
+        read, _ = vectorwar_mod._card_leaves(st, inp)
+        given = (*(st[k] for k in vectorwar_mod.LEAVES), inp)
+        check(all(a.data_ptr() == x.data_ptr() and a.stride() == x.stride()
+                  for a, x in zip(read, given)),
+              f"vectorwar advance {name}: a leaf was copied before the launch")
+        before = kernel.launches
+        got = kernel(st, inp)
+        launches = kernel.launches - before
+        want = game._advance_eager(st, inp)
+        torch.cuda.synchronize()
+        check(launches == 1, f"vectorwar advance {name}: {launches} launches, not 1")
+        check(sorted(got) == sorted(want) and all(torch.equal(got[k], want[k]) for k in want),
+              f"vectorwar advance {name}: the kernel != the eager body")
+        nbytes = rows * VW_ROW_BYTES
+        copies = [(st, inp)] + [make() for _ in range(copies_for(nbytes) - 1)]
+        rec = {"phase": "kernel", "entry": "vectorwar_advance", "case": name, "rows": rows,
+               "leaf_strides": {k: list(x.stride()) for k, x in
+                                zip((*vectorwar_mod.LEAVES, "inputs"), given)},
+               "launches_per_call": launches, "read_in_place": True,
+               "bitwise_equal": True, "max_abs_err": 0,
+               "device_us": graph_us(lambda x: kernel(*x), copies),
+               "input_copies": len(copies),
+               "host_us": host_us(lambda: kernel(st, inp)),
+               "plain_ms": device_ms(lambda: game._advance_eager(st, inp), iters=5, warmup=1),
+               "bound_us": nbytes / HBM_BYTES_PER_S * 1e6}
+        rec["share_of_bound"] = rec["bound_us"] / rec["device_us"]
+        emit(rec)
+        records[name] = rec
+        del st, inp, got, want, copies, read, given
+        torch.cuda.empty_cache()
+    inputs = np.random.default_rng(2**32 + 230).integers(
+        0, 32, (VW_DRIVE_SESSIONS, VW_DRIVE_TICKS, vectorwar_mod.SHIPS)).astype(np.uint8)
+    carry, launches, w = vectorwar_drive(inputs, kernel=True)
+    eager_carry, eager_launches, _ = vectorwar_drive(inputs, kernel=False)
+    advances = w + (VW_DRIVE_TICKS - w) * (D + 1)
+    check(launches == advances,
+          f"vectorwar drive: {launches} advance kernel launches, not {advances}")
+    check(eager_launches == 0, f"vectorwar drive: {eager_launches} kernel launches on the eager route")
+    check(cards_equal(carry, eager_carry), "vectorwar drive: the kernel's carry != the eager carry")
+    emit({"phase": "vectorwar_drive", "sessions": VW_DRIVE_SESSIONS, "ticks": VW_DRIVE_TICKS,
+          "check_distance": D, "warmup_ticks": w, "advance_launches": launches,
+          "predicted": advances, "equal_to_eager": True, "mismatches": 0})
+    return records, launches
 
 
 # -- the replay's CUDA graphs (phases 3, 4, 6, 8, 9, 15) ------------------------
@@ -5233,6 +5381,7 @@ def main() -> int:
     cases = timed("kernel_state_digest", phase_state_digest, rng)
     worst = max([worst] + [c["max_abs_err"] for c in cases.values()])
     advance = timed("kernel_boxgame_advance", phase_boxgame_advance)
+    vw_advance, vw_launches = timed("kernel_vectorwar_advance", phase_vectorwar_advance)
     advance_launches = timed("flagship", phase_flagship)
     launches = timed("batched", phase_batched)
     exec_launches = timed("executor", phase_executor)
@@ -5287,6 +5436,19 @@ def main() -> int:
         "plain_ms_ring_slot": advance["ring_slot"]["plain_ms"],
         "ms_one_session": advance["one_session"]["device_us"] / 1e3,
         "plain_ms_one_session": advance["one_session"]["plain_ms"],
+    }, {
+        "name": "vectorwar_advance", "route": "cuda", "source": "ggrs_tpu_torch/csrc/vectorwar.cu",
+        "replaces": "none (the JAX package has no VectorWar; the eager body)",
+        "launches": vw_launches, "launches_per_steady_tick": D + 1,
+        "max_abs_err": max(r["max_abs_err"] for r in vw_advance.values()),
+        "ms": vw_advance["contiguous"]["device_us"] / 1e3,
+        "plain_ms": vw_advance["contiguous"]["plain_ms"],
+        "bound_ms": vw_advance["contiguous"]["bound_us"] / 1e3, "bound_by": "bytes",
+        "library_ms": None,
+        "ms_ring_slot": vw_advance["ring_slot"]["device_us"] / 1e3,
+        "plain_ms_ring_slot": vw_advance["ring_slot"]["plain_ms"],
+        "ms_one_session": vw_advance["one_session"]["device_us"] / 1e3,
+        "plain_ms_one_session": vw_advance["one_session"]["plain_ms"],
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,7 +28,8 @@ NVIDIA H100:
   ``make_mesh2d``, ``make_distributed_mesh``), with the health reduction
   through ``torch.distributed`` across processes;
 - the games: BoxGame (fixed-point and float), ChipVM, EcsWorld (an entity
-  component world) and RtsCmd (command streams in varrec envelopes);
+  component world), RtsCmd (command streams in varrec envelopes) and, in
+  ``games``, VectorWar (the GGPO SDK's sample game);
 - match journals (``broadcast``): a ``JournalTap`` records a live
   ``P2PSession`` into a ``MatchJournal``, and ``ReplaySession`` plays it back
   frame by frame or fast-forwards it on the card (``build_scrub_program``);

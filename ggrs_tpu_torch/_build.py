@@ -1,12 +1,12 @@
 """Build step for the port's compiled code: the CUDA kernels and the host
 library.
 
-Each CUDA source under ``csrc/`` (``digest.cu``, ``boxgame.cu``) is
-compiled by ``nvcc`` for ``sm_90a`` into a shared library with a plain C
-interface, loaded with ``ctypes``.  The host library is the port's native
-host code (the input codec and message
-framing, the endpoint datapath, the sync core, the session bank and the
-batched socket datapath), compiled by ``g++`` from the package's own
+Each CUDA source under ``csrc/`` (``digest.cu``, ``boxgame.cu``,
+``vectorwar.cu``) is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface, loaded with ``ctypes``.  The host library
+is the port's native host code (the input codec and message framing, the
+endpoint datapath, the sync core, the session bank and the batched socket
+datapath), compiled by ``g++`` from the package's own
 ``csrc/host/codec.cpp``, ``endpoint.cpp``, ``sync_core.cpp``,
 ``session_bank.cpp`` and ``net_batch.cpp`` (with ``wire_common.h``) into
 ONE library: the bank calls the endpoint, sync-core and socket entry
@@ -56,6 +56,7 @@ HOST_DIR = _PKG / "csrc" / "host"
 SOURCES: Dict[str, Path] = {
     "digest": _PKG / "csrc" / "digest.cu",
     "boxgame": _PKG / "csrc" / "boxgame.cu",
+    "vectorwar": _PKG / "csrc" / "vectorwar.cu",
 }
 
 NVCC_FLAGS = (

@@ -9,6 +9,7 @@ from .boxgame import (
 from .chipvm import ChipVM
 from .ecs_world import EcsWorld
 from .rtscmd import RtsCmd, RtsCmdGame, decode_commands, encode_commands
+from .vectorwar import VectorWar
 
 __all__ = [
     "BOX_INPUT_UP",
@@ -20,6 +21,7 @@ __all__ = [
     "EcsWorld",
     "RtsCmd",
     "RtsCmdGame",
+    "VectorWar",
     "boxgame_config",
     "decode_commands",
     "encode_commands",

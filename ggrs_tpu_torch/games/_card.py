@@ -1,0 +1,110 @@
+"""What the games' hand-written advance kernels share: the route's test, the
+checks of a call on the card, the leaves' layout as a kernel reads it, the
+launch with its counts, and the advance counter.
+
+A game's kernel reads each state leaf and the inputs in place at their own
+session stride, so a ring slot view, a slice of the window's inputs and
+speculation's expanded branch rows need no copy.  ``check_call`` refuses
+what no kernel reads (leaves that are not int32 tensors, inputs that are
+not integers, tensors on several devices); ``read_in_place`` gives each
+tensor's row stride in bytes, copying a tensor contiguous where its rows are
+not evenly strided rows of contiguous inner dimensions, and refuses rows
+that a kernel loads in 8-byte pairs where they are not 8-byte aligned;
+``outputs`` makes the new state's tensors and ``launch`` calls the library,
+raises on a CUDA error and counts the launch.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Any, Callable, Dict, Sequence, Tuple
+
+import torch
+
+from ..obs.registry import default_registry
+from ..ops.digest import _row_stride, count_launch
+
+ADVANCES = default_registry().counter(
+    "ggrs_game_advance_total",
+    "Game advances by game and route: kernel launches made from Python, eager calls",
+    labels=("game", "route"),
+)
+
+# the input dtypes a kernel reads (by the low byte)
+INPUT_DTYPES = frozenset({torch.uint8, torch.int8, torch.int16, torch.int32, torch.int64})
+
+
+def on_card(*tensors: Any) -> bool:
+    """Whether any of ``tensors`` is a tensor on a CUDA card (a kernel's
+    route)."""
+    return any(isinstance(x, torch.Tensor) and x.is_cuda for x in tensors)
+
+
+def check_call(game: str, leaves: Sequence[Any], inputs: Any) -> None:
+    """Raises where no kernel reads the call: ``leaves`` and ``inputs`` must
+    be tensors on one device, the leaves int32 and the inputs of an integer
+    dtype."""
+    every = (*leaves, inputs)
+    if any(not isinstance(x, torch.Tensor) for x in every):
+        raise TypeError(f"{game}.advance on the card: state leaves and inputs must be tensors")
+    if len({x.device for x in every}) > 1:
+        devices = sorted({str(x.device) for x in every})
+        raise ValueError(f"{game}.advance: tensors on several devices {devices}")
+    if any(x.dtype != torch.int32 for x in leaves):
+        raise TypeError(f"{game}.advance on the card: the state's leaves must be int32, "
+                        f"got {[str(x.dtype) for x in leaves]}")
+    if inputs.dtype not in INPUT_DTYPES:
+        raise TypeError(f"{game}.advance on the card: inputs of {inputs.dtype}, not an integer dtype")
+
+
+def read_in_place(game: str, tensors: Sequence[torch.Tensor], lead: int,
+                  paired: Sequence[int] = (), paired_names: str = "") -> Tuple[tuple, tuple]:
+    """``tensors`` as a kernel reads them, and the bytes from one session's
+    row to the next of each; ``lead`` is the number of session axes.  A
+    tensor whose rows are not evenly strided rows of contiguous inner
+    dimensions is made contiguous.  The tensors at the indices ``paired``
+    (``paired_names`` in the error) are loaded in 8-byte pairs: raises where
+    their rows are not 8-byte aligned."""
+    out, strides = [], []
+    layouts = tuple((x.shape, x.stride()) for x in tensors)
+    for x, stride in zip(tensors, _row_strides(layouts, lead)):
+        if stride is None:
+            x = x.contiguous()
+            stride = _row_stride(x.shape, x.stride(), lead)
+        out.append(x)
+        strides.append(stride * x.element_size())
+    if any(out[i].data_ptr() % 8 or strides[i] % 8 for i in paired):
+        raise ValueError(f"{game}.advance on the card: {paired_names} rows must be 8-byte aligned")
+    return tuple(out), tuple(strides)
+
+
+@functools.lru_cache(maxsize=256)
+def _row_strides(layouts: tuple, lead: int) -> tuple:
+    """``_row_stride`` of each ``(shape, strides)``, remembered: a replay's
+    warmup and captures give the same few layouts again and again."""
+    return tuple(_row_stride(shape, strides, lead) for shape, strides in layouts)
+
+
+def outputs(names: Sequence[str], leaves: Sequence[torch.Tensor],
+            device: torch.device) -> Dict[str, torch.Tensor]:
+    """The new state: an int32 tensor of each leaf's shape on ``device``,
+    made here (``torch.empty``, inside a capture too) for the kernel to
+    write whole."""
+    return {k: torch.empty(x.shape, dtype=torch.int32, device=device)
+            for k, x in zip(names, leaves)}
+
+
+def launch(game: str, fn: Callable[..., int], args: Sequence[Any], device: torch.device,
+           counted: Callable, child: Any) -> None:
+    """One launch of a game's kernel: the library's ``fn(*args, stream)`` on
+    ``device``'s current stream (the library launches on the current
+    device); raises on a CUDA error, else counts it in the wrapper
+    ``counted``'s ``launches`` (``ops.digest.count_launch``: a graph's
+    capture moves its launches onto its replays) and in the registry's
+    ``child``."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{game} advance kernel launch failed: CUDA error {err}")
+    count_launch(counted)
+    child.inc()

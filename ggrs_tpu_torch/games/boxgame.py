@@ -44,8 +44,8 @@ from .. import _build
 from ..convert import from_numpy
 from ..core.config import Config
 from ..core.device import DeviceLike
-from ..obs.registry import default_registry
-from ..ops.digest import _row_stride, count_launch, count_launches
+from ..ops.digest import count_launches
+from ._card import ADVANCES, check_call, launch, on_card, outputs, read_in_place
 
 BOX_INPUT_UP = 1 << 0
 BOX_INPUT_DOWN = 1 << 1
@@ -103,17 +103,11 @@ def _decode_buttons(inputs: Any) -> Tuple[Any, Any]:
 
 # -- the kernel route (csrc/boxgame.cu) --------------------------------------
 
-_OBS_ADVANCES = default_registry().counter(
-    "ggrs_game_advance_total",
-    "Game advances by game and route: kernel launches made from Python, eager calls",
-    labels=("game", "route"),
-)
-_KERNEL_LAUNCHES = _OBS_ADVANCES.labels(game="boxgame", route="kernel")
-_EAGER_CALLS = _OBS_ADVANCES.labels(game="boxgame", route="eager")
+_KERNEL_LAUNCHES = ADVANCES.labels(game="boxgame", route="kernel")
+_EAGER_CALLS = ADVANCES.labels(game="boxgame", route="eager")
 
-# the kernel's player counts and the input dtypes it reads (by the low byte)
+# the kernel's player counts
 _KERNEL_PLAYERS = (2, 3, 4)
-_INPUT_DTYPES = frozenset({torch.uint8, torch.int8, torch.int16, torch.int32, torch.int64})
 
 
 def _lib() -> ctypes.CDLL:
@@ -143,8 +137,7 @@ def _lib() -> ctypes.CDLL:
 
 def _on_card(state: Any, inputs: Any) -> bool:
     """Whether the call has a tensor on a CUDA card (the kernel's route)."""
-    return any(isinstance(x, torch.Tensor) and x.is_cuda
-               for x in (inputs, state["pos"], state["vel"], state["rot"]))
+    return on_card(inputs, state["pos"], state["vel"], state["rot"])
 
 
 def _card_leaves(state: Any, inputs: Any) -> Tuple[Tuple[torch.Tensor, ...], Tuple[int, ...]]:
@@ -152,20 +145,10 @@ def _card_leaves(state: Any, inputs: Any) -> Tuple[Tuple[torch.Tensor, ...], Tup
     the bytes from one session's row to the next of each: checked (int32
     leaves and integer inputs on one card, the same sessions and P players
     in each), and a leaf whose rows are not evenly strided rows of
-    contiguous inner dimensions made contiguous (a ring slot view, a slice
-    of the window's inputs and speculation's expanded branch rows are read
-    in place).  Raises where the kernel cannot read the call."""
+    contiguous inner dimensions made contiguous (``games/_card.py``).
+    Raises where the kernel cannot read the call."""
     pos, vel, rot, inp = leaves = (state["pos"], state["vel"], state["rot"], inputs)
-    if any(not isinstance(x, torch.Tensor) for x in leaves):
-        raise TypeError("BoxGame.advance on the card: state leaves and inputs must be tensors")
-    if not pos.device == vel.device == rot.device == inp.device:
-        devices = sorted({str(x.device) for x in leaves})
-        raise ValueError(f"BoxGame.advance: tensors on several devices {devices}")
-    if not pos.dtype == vel.dtype == rot.dtype == torch.int32:
-        raise TypeError(f"BoxGame.advance on the card: the fixed variant's leaves must be int32, "
-                        f"got {[str(x.dtype) for x in leaves[:3]]}")
-    if inp.dtype not in _INPUT_DTYPES:
-        raise TypeError(f"BoxGame.advance on the card: inputs of {inp.dtype}, not an integer dtype")
+    check_call("BoxGame", leaves[:3], inp)
     lead = inp.dim() - 1
     if lead < 0 or inp.shape[-1] not in _KERNEL_PLAYERS or rot.shape != inp.shape \
             or pos.shape != (*inp.shape, 2) or vel.shape != pos.shape:
@@ -175,23 +158,7 @@ def _card_leaves(state: Any, inputs: Any) -> Tuple[Tuple[torch.Tensor, ...], Tup
                          f"(..., P) of the same sessions, for P in 2-4")
     if inp.numel() == 0:  # no rows to read: an empty tensor's strides may be anything
         return leaves, (0, 0, 0, 0)
-    out, strides = [], []
-    for x, stride in zip(leaves, _row_strides(tuple((x.shape, x.stride()) for x in leaves), lead)):
-        if stride is None:
-            x = x.contiguous()
-            stride = _row_stride(x.shape, x.stride(), lead)
-        out.append(x)
-        strides.append(stride * x.element_size())
-    if out[0].data_ptr() % 8 or out[1].data_ptr() % 8 or strides[0] % 8 or strides[1] % 8:
-        raise ValueError("BoxGame.advance on the card: pos and vel rows must be 8-byte aligned")
-    return tuple(out), tuple(strides)
-
-
-@functools.lru_cache(maxsize=256)
-def _row_strides(layouts: tuple, lead: int) -> tuple:
-    """``_row_stride`` of each ``(shape, strides)``, remembered: a replay's
-    warmup and captures give the same few layouts again and again."""
-    return tuple(_row_stride(shape, strides, lead) for shape, strides in layouts)
+    return read_in_place("BoxGame", leaves, lead, paired=(0, 1), paired_names="pos and vel")
 
 
 def _advance_kernel(state: Any, inputs: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -204,9 +171,7 @@ def _advance_kernel(state: Any, inputs: torch.Tensor) -> Dict[str, torch.Tensor]
     ``route="kernel"`` child counts the launches made from Python."""
     (pos, vel, rot, inp), strides = _card_leaves(state, inputs)
     dev = inp.device
-    out = {"pos": torch.empty(pos.shape, dtype=torch.int32, device=dev),
-           "vel": torch.empty(vel.shape, dtype=torch.int32, device=dev),
-           "rot": torch.empty(rot.shape, dtype=torch.int32, device=dev)}
+    out = outputs(("pos", "vel", "rot"), (pos, vel, rot), dev)
     players = inp.shape[-1]
     rows = inp.numel() // players
     if rows == 0:
@@ -216,14 +181,8 @@ def _advance_kernel(state: Any, inputs: torch.Tensor) -> Dict[str, torch.Tensor]
         players, rows, pos.data_ptr(), strides[0], vel.data_ptr(), strides[1],
         rot.data_ptr(), strides[2], inp.data_ptr(), strides[3], inp.element_size(),
         out["pos"].data_ptr(), out["vel"].data_ptr(), out["rot"].data_ptr(), lut.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
     )
-    with torch.cuda.device(dev):  # the library launches on the current device
-        err = _lib().ggrs_boxgame_advance(*args)
-    if err != 0:
-        raise RuntimeError(f"boxgame advance kernel launch failed: CUDA error {err}")
-    count_launch(_advance_kernel)
-    _KERNEL_LAUNCHES.inc()
+    launch("boxgame", _lib().ggrs_boxgame_advance, args, dev, _advance_kernel, _KERNEL_LAUNCHES)
     return out
 
 
