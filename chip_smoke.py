@@ -44,8 +44,11 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    launch site from 0 just before the drive.
 3. flagship -- BoxGame(2) in a DeviceSyncTestSession at check_distance=8 on
    the card for 2048 ticks, 0 mismatches, bitwise equal to the same run on
-   the CPU and to the NumPy oracle, exactly 2 digest launches per tick and
-   one advance kernel launch a warmup tick and d + 1 a steady tick.
+   the CPU and to the NumPy oracle, exactly the digest launches its ticks
+   predict (``ReplayPrograms.digest_calls``: 2 a warmup tick; a steady
+   tick one a contiguous span of its window's ring slots, 1 or 2, and the
+   live state's) and one advance kernel launch a warmup tick and d + 1 a
+   steady tick.
    Every steady tick is one input copy and one replay of its phase's CUDA
    graph (``ops.replay.TickGraphs``), under the sync debug mode "error"
    from the first steady tick (captures included).  The same drive through
@@ -59,8 +62,8 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
 4. batched (the main path at real scale) -- ChipVM(2), B = 16,384 sessions,
    d = 8, 64 ticks, on the graphs and eager as phase 3 (18 untimed ticks:
    the warmup and every capture; 4 profiled): 0 mismatches; sessions 0-7
-   rerun on the CPU bitwise equal; exactly 2 digest launches per tick,
-   counted per replay.  Kernel launch counts are zeroed just before the
+   rerun on the CPU bitwise equal; exactly the digest launches its ticks
+   predict (as phase 3), counted per replay.  Kernel launch counts are zeroed just before the
    graph drive and read just after it.
 5. executor (the request-list path) -- ``SessionBuilder`` -> host
    ``SyncTestSession`` (check_distance 7, max_prediction 8) ->
@@ -107,16 +110,17 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
 8. ecs (BASELINE config 4) -- ``EcsWorld(4, 32)`` (128 units, 3,104 B of
    int32 state) in a ``DeviceSyncTestSession`` at check_distance 16 on the
    card for 768 ticks: 0 mismatches, bitwise equal to the same run on the
-   CPU and to the NumPy oracle, exactly 2 digest launches per tick.  Then
+   CPU and to the NumPy oracle, exactly the digest launches its ticks
+   predict (as phase 3).  Then
    B = 4,096 worlds in ``BatchedSessions`` at d = 16 for 64 ticks, started
    from a world in melee (units in contact): 0 mismatches, sessions 0-7
-   rerun on the CPU bitwise equal, 2 digest launches per tick.  Both on the
+   rerun on the CPU bitwise equal, the digest launches its ticks predict.  Both on the
    graphs (17 a carry) and eager as phase 3, with its line.  ms per tick,
    resim frames/s, kernels per advance and per tick, the digest's share of
    device time.
 9. float -- ``BoxGame(2, "float")`` in a ``DeviceSyncTestSession`` at d = 8
    for 1,024 ticks: 0 mismatches on the card (its resimulations repeat
-   bitwise), 2 digest launches per tick, on the graphs bitwise its eager
+   bitwise), the digest launches its ticks predict, on the graphs bitwise its eager
    card run (phase 3's line), and the max abs error per leaf against the
    same run on the CPU within ``FLOAT_ATOL`` (positions and angles measured
    on their torus).
@@ -203,7 +207,8 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    destroyed at the end): 256 sessions and 16,384 for 24 ticks each, every
    leg on the graphs under the sync debug mode "error" (18 untimed ticks,
    2 profiled), the unsharded batch bitwise its eager twin, each mesh's
-   carry bitwise the unsharded batch, 2 digest launches per tick per shard;
+   carry bitwise the unsharded batch, the digest launches its ticks predict
+   on every shard;
    a corrupted session found through the group's all-reduce; a checkpoint
    saved from the mesh resumed unsharded (its first capture after an eager
    rehearsal of the tick), equal to the uninterrupted run.  ms per tick,
@@ -338,7 +343,7 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    spectator at their full frame counts with 0 ``DesyncDetected``; digest
    launches equal to the prediction (each game's warmup, each request list
    by ``predicted_digest_launches``, each pooled tick from its descriptor,
-   two a device-session tick).  Then each example once through its command
+   each device-session tick by ``ReplayPrograms.digest_calls``).  Then each example once through its command
    line on the card, all seven processes side by side: exit 0 and its marker
    lines.  Frames/s past the build, host ms of ``run`` a frame, the server's
    session-ticks/s, each command's seconds.
@@ -1339,6 +1344,12 @@ def eager_drive(programs, init, template, batch: int, chunks: list, axis: int):
     return carry, elapsed / timed * 1e3, state_digest.launches
 
 
+def replay_digests(programs, frames) -> int:
+    """The digest launches of ``programs``' ticks at ``frames`` on one carry
+    (``ReplayPrograms.digest_calls``)."""
+    return sum(programs.digest_calls(f) for f in frames)
+
+
 def cards_equal(a, b) -> bool:
     la, lb = tree_leaves(a), tree_leaves(b)
     return len(la) == len(lb) and all(
@@ -1348,8 +1359,8 @@ def cards_equal(a, b) -> bool:
 def graph_vs_eager(name: str, sess, init, template, chunks: list, axis: int) -> dict:
     """``graph_drive`` of ``sess``, then ``eager_drive`` of the same ticks:
     carries (mismatches and first_bad included), digest launches and
-    BoxGame advance kernel launches equal, 2 digest launches a tick on each
-    path, one capture a phase (= R), one
+    BoxGame advance kernel launches equal, the digest launches the ticks
+    predict (``replay_digests``) on each path, one capture a phase (= R), one
     replay a steady tick, and in the profiled ticks one graph launch and at
     most one other launch (the input copy) a tick.  Emits the phase's
     graphs line and returns it."""
@@ -1364,9 +1375,10 @@ def graph_vs_eager(name: str, sess, init, template, chunks: list, axis: int) -> 
     eager_advances = boxgame_mod._advance_kernel.launches
     graph_carry = sess.carry if axis == 1 else tree_map(lambda l: l.unsqueeze(0), sess.carry)
     check(g["around"] == 0, f"{name}: the digest went around state_digest")
-    check(g["digest_launches"] == eager_launches == 2 * ticks,
+    predicted = replay_digests(programs, range(ticks))
+    check(g["digest_launches"] == eager_launches == predicted,
           f"{name}: {g['digest_launches']} digest launches on the graphs, {eager_launches} eager, "
-          f"not 2 x {ticks} ticks")
+          f"not the {predicted} its {ticks} ticks predict")
     check(g["advance_launches"] == eager_advances,
           f"{name}: {g['advance_launches']} advance kernel launches on the graphs, "
           f"{eager_advances} eager")
@@ -1386,7 +1398,8 @@ def graph_vs_eager(name: str, sess, init, template, chunks: list, axis: int) -> 
             "host_launches_per_tick": host, "kernels_per_tick": g["kernels_per_tick"],
             "device_busy_ms_per_tick": g["busy_ms_per_tick"], "idle_share": g["idle_share"],
             "digest_share_of_busy": g["digest_share_of_busy"],
-            "digest_us_per_launch_in_graph": g["digest_us_per_tick"] / 2,
+            "digest_us_per_launch_in_graph": g["digest_us_per_tick"] * chunks[-1].shape[axis]
+            / replay_digests(programs, range(ticks - chunks[-1].shape[axis], ticks)),
             "digest_launches": g["digest_launches"], "digest_launches_eager": eager_launches,
             "advance_launches": g["advance_launches"], "advance_launches_eager": eager_advances,
             "graph_equal_to_eager": True, "sync_debug_mode": "error"}
@@ -3165,7 +3178,8 @@ def phase_mesh() -> int:
                 carry, eager_ms, eager_launches = eager_drive(
                     flat.programs, vm.init_state_np(), np.zeros(2, np.uint8), sessions,
                     mesh_chunks(inputs), 1)
-                check(cards_equal(flat.carry, carry) and eager_launches == 2 * ticks,
+                check(cards_equal(flat.carry, carry)
+                      and eager_launches == replay_digests(flat.programs, range(ticks)),
                       f"mesh at {sessions}: the unsharded graphs' carry != the eager carry")
                 del carry
                 want = to_numpy(flat.carry)
@@ -3174,8 +3188,10 @@ def phase_mesh() -> int:
                     batch, rec = mesh_leg(mesh, sessions, inputs)
                     launches = rec["digest_launches"]
                     check(batch.verify()["mismatches"] == 0, f"mesh {name}: mismatches")
-                    check(launches == 2 * ticks * mesh.size,
-                          f"mesh {name}: {launches} digest launches, not 2 per tick per shard")
+                    predicted = replay_digests(batch.programs, range(ticks)) * mesh.size
+                    check(launches == predicted,
+                          f"mesh {name}: {launches} digest launches, not the {predicted} its "
+                          "ticks predict on every shard")
                     check(trees_equal(to_numpy(batch.carry), want),
                           f"mesh {name} at {sessions}: carry != the unsharded batch")
                     legs[name] = rec
@@ -5121,7 +5137,9 @@ def phase_examples() -> int:
         runs["trio"] = game_times([r[0] for r in trio.values()], time.perf_counter() - t0,
                                   EX_TRIO_FRAMES)
     launches, around = state_digest.launches, lane_sums_rows.launches
-    predicted = rec["predicted"] + 2 * EX_SYNCTEST_FRAMES  # the device session: 2 a tick
+    # the device session: its ticks' digest calls, 2 a warmup tick, the
+    # window's spans and the live state's a steady tick
+    predicted = rec["predicted"] + replay_digests(dsess.programs, range(EX_SYNCTEST_FRAMES))
     check(launches == predicted and around == 0,
           f"examples: {launches} digest launches, predicted {predicted}, {around} around")
     check(desyncs == 0, f"examples: the server desynced {desyncs} matches")
@@ -5177,13 +5195,19 @@ def run_script_main(mod, argv: list):
     return rc, out.getvalue()
 
 
-def floor_probe_predicted(ticks_per_dispatch: int, dispatches: int, repeats: int) -> int:
-    """Digest launches of ``port_floor_probe.main``: one a step in the digest
-    and ring variants and two a flagship tick, over the warmup pass (two for
-    the flagship) and the timed passes."""
+def floor_probe_predicted(probe, ticks_per_dispatch: int, dispatches: int,
+                          repeats: int) -> int:
+    """Digest launches of ``probe.main`` (``port_floor_probe``): one a step
+    in the digest and ring variants, over the warmup pass and the timed
+    passes, and the flagship session's ticks (two warmup passes and the
+    timed ones, frames in order on one carry), each tick's as its
+    ``ReplayPrograms.digest_calls`` counts them."""
     passes = repeats * dispatches
-    steps = (D + 1) * ticks_per_dispatch
-    return 2 * (1 + passes) * steps + 2 * ticks_per_dispatch * (2 + passes)
+    steps = (probe.D + 1) * ticks_per_dispatch
+    flagship = build_replay_programs(BoxGame(probe.PLAYERS).advance,
+                                     probe.D + 1, probe.D)  # the session's ring: max(d, d) + 1
+    return 2 * (1 + passes) * steps + replay_digests(
+        flagship, range(ticks_per_dispatch * (2 + passes)))
 
 
 def phase_scripts(fleet_docs: dict, proc_timelines: dict) -> int:
@@ -5198,7 +5222,7 @@ def phase_scripts(fleet_docs: dict, proc_timelines: dict) -> int:
         best = probe.main(**PROBE_CUT)
     probe_s = time.perf_counter() - t0
     launches, around = state_digest.launches, lane_sums_rows.launches
-    predicted = floor_probe_predicted(**PROBE_CUT)
+    predicted = floor_probe_predicted(probe, **PROBE_CUT)
     check(launches == predicted and around == 0,
           f"scripts: floor probe {launches} digest launches, predicted {predicted}, "
           f"{around} around")

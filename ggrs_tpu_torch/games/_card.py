@@ -10,14 +10,15 @@ not integers, tensors on several devices); ``read_in_place`` gives each
 tensor's row stride in bytes, copying a tensor contiguous where its rows are
 not evenly strided rows of contiguous inner dimensions, and refuses rows
 that a kernel loads in 8-byte pairs where they are not 8-byte aligned;
-``outputs`` makes the new state's tensors and ``launch`` calls the library,
-raises on a CUDA error and counts the launch.
+``outputs`` makes the new state's tensors, or checks the caller's ``out``
+(a ring slot the replay hands the advance to write into), and ``launch``
+calls the library, raises on a CUDA error and counts the launch.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, Dict, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -27,6 +28,13 @@ from ..ops.digest import _row_stride, count_launch
 ADVANCES = default_registry().counter(
     "ggrs_game_advance_total",
     "Game advances by game and route: kernel launches made from Python, eager calls",
+    labels=("game", "route"),
+)
+
+IN_PLACE = default_registry().counter(
+    "ggrs_game_advance_in_place_total",
+    "Game advances that wrote into the caller's out, by game and route: kernel launches made "
+    "from Python, eager calls",
     labels=("game", "route"),
 )
 
@@ -85,26 +93,57 @@ def _row_strides(layouts: tuple, lead: int) -> tuple:
     return tuple(_row_stride(shape, strides, lead) for shape, strides in layouts)
 
 
-def outputs(names: Sequence[str], leaves: Sequence[torch.Tensor],
-            device: torch.device) -> Dict[str, torch.Tensor]:
-    """The new state: an int32 tensor of each leaf's shape on ``device``,
-    made here (``torch.empty``, inside a capture too) for the kernel to
-    write whole."""
-    return {k: torch.empty(x.shape, dtype=torch.int32, device=device)
-            for k, x in zip(names, leaves)}
+def _extent(x: torch.Tensor) -> Tuple[int, int]:
+    """The bytes ``[start, end)`` that a non-empty tensor's elements span."""
+    last = sum((n - 1) * st for n, st in zip(x.shape, x.stride()))
+    return x.data_ptr(), x.data_ptr() + (last + 1) * x.element_size()
+
+
+def outputs(game: str, names: Sequence[str], leaves: Sequence[torch.Tensor],
+            device: torch.device, out: Optional[Any] = None,
+            read: Sequence[torch.Tensor] = ()) -> Dict[str, torch.Tensor]:
+    """The new state for the kernel to write whole: an int32 tensor of each
+    leaf's shape on ``device``, made here (``torch.empty``, inside a capture
+    too); or, where the caller gives ``out`` (a dict of the leaves by
+    ``names``), its tensors.  Raises where an ``out`` leaf is not a
+    contiguous int32 tensor of its leaf's shape on ``device``, or overlaps
+    a tensor of ``read`` (the state and inputs the kernel reads): the
+    kernel writes rows back to back while it reads."""
+    if out is None:
+        return {k: torch.empty(x.shape, dtype=torch.int32, device=device)
+                for k, x in zip(names, leaves)}
+    got = {k: out[k] for k in names}
+    for k, x in zip(names, leaves):
+        o = got[k]
+        if not isinstance(o, torch.Tensor) or o.dtype != torch.int32 or o.shape != x.shape \
+                or o.device != device:
+            raise ValueError(f"{game}.advance on the card: out[{k!r}] must be an int32 tensor of "
+                             f"shape {tuple(x.shape)} on {device}")
+        if not o.is_contiguous():
+            raise ValueError(f"{game}.advance on the card: out[{k!r}] of strides {o.stride()} "
+                             "is not contiguous rows")
+    spans = [_extent(x) for x in read if x.numel()]
+    for k, o in got.items():
+        if o.numel():
+            lo, hi = _extent(o)
+            if any(lo < end and start < hi for start, end in spans):
+                raise ValueError(f"{game}.advance on the card: out[{k!r}] overlaps the state or "
+                                 "inputs it reads")
+    return got
 
 
 def launch(game: str, fn: Callable[..., int], args: Sequence[Any], device: torch.device,
-           counted: Callable, child: Any) -> None:
+           counted: Callable, children: Sequence[Any]) -> None:
     """One launch of a game's kernel: the library's ``fn(*args, stream)`` on
     ``device``'s current stream (the library launches on the current
     device); raises on a CUDA error, else counts it in the wrapper
     ``counted``'s ``launches`` (``ops.digest.count_launch``: a graph's
-    capture moves its launches onto its replays) and in the registry's
-    ``child``."""
+    capture moves its launches onto its replays) and in each of the
+    registry's ``children``."""
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{game} advance kernel launch failed: CUDA error {err}")
     count_launch(counted)
-    child.inc()
+    for child in children:
+        child.inc()

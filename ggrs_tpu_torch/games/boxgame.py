@@ -28,14 +28,15 @@ operations.  The process registry's ``ggrs_game_advance_total`` (labels
 ``game="boxgame"``, ``route="kernel"`` or ``"eager"``) counts the kernel's
 launches made from Python (a CUDA graph that captured one counts it once;
 its replays launch the kernel with no Python; an empty batch launches
-nothing) and the eager body's calls.
+nothing) and the eager body's calls; ``ggrs_game_advance_in_place_total``
+(the same labels) counts those of them that wrote into a caller's ``out``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,7 +46,8 @@ from ..convert import from_numpy
 from ..core.config import Config
 from ..core.device import DeviceLike
 from ..ops.digest import count_launches
-from ._card import ADVANCES, check_call, launch, on_card, outputs, read_in_place
+from ..utils.tree import tree_copy_
+from ._card import ADVANCES, IN_PLACE, check_call, launch, on_card, outputs, read_in_place
 
 BOX_INPUT_UP = 1 << 0
 BOX_INPUT_DOWN = 1 << 1
@@ -105,6 +107,8 @@ def _decode_buttons(inputs: Any) -> Tuple[Any, Any]:
 
 _KERNEL_LAUNCHES = ADVANCES.labels(game="boxgame", route="kernel")
 _EAGER_CALLS = ADVANCES.labels(game="boxgame", route="eager")
+_KERNEL_IN_PLACE = IN_PLACE.labels(game="boxgame", route="kernel")
+_EAGER_IN_PLACE = IN_PLACE.labels(game="boxgame", route="eager")
 
 # the kernel's player counts
 _KERNEL_PLAYERS = (2, 3, 4)
@@ -161,29 +165,34 @@ def _card_leaves(state: Any, inputs: Any) -> Tuple[Tuple[torch.Tensor, ...], Tup
     return read_in_place("BoxGame", leaves, lead, paired=(0, 1), paired_names="pos and vel")
 
 
-def _advance_kernel(state: Any, inputs: torch.Tensor) -> Dict[str, torch.Tensor]:
+def _advance_kernel(state: Any, inputs: torch.Tensor,
+                    out: Optional[Any] = None) -> Dict[str, torch.Tensor]:
     """One launch of the kernel on the inputs' card and current stream: the
     new state in three tensors made here (``torch.empty``, inside a capture
-    too), written whole by the kernel; no launch for an empty batch.
+    too), or in ``out``'s where given (``games/_card.py::outputs`` checks
+    them), written whole by the kernel; no launch for an empty batch.
     ``_advance_kernel.launches`` counts the launches as the digest's
     counters count theirs (``ops.digest.count_launches``: a graph's capture
     moves its launches onto its replays), and the registry's
-    ``route="kernel"`` child counts the launches made from Python."""
+    ``route="kernel"`` children count the launches made from Python, those
+    into an ``out`` in ``ggrs_game_advance_in_place_total`` too."""
     (pos, vel, rot, inp), strides = _card_leaves(state, inputs)
     dev = inp.device
-    out = outputs(("pos", "vel", "rot"), (pos, vel, rot), dev)
+    children = (_KERNEL_LAUNCHES,) if out is None else (_KERNEL_LAUNCHES, _KERNEL_IN_PLACE)
+    new = outputs("BoxGame", ("pos", "vel", "rot"), (pos, vel, rot), dev, out,
+                  read=(pos, vel, rot, inp))
     players = inp.shape[-1]
     rows = inp.numel() // players
     if rows == 0:
-        return out
+        return new
     lut, _ = _device_consts(dev)
     args = (
         players, rows, pos.data_ptr(), strides[0], vel.data_ptr(), strides[1],
         rot.data_ptr(), strides[2], inp.data_ptr(), strides[3], inp.element_size(),
-        out["pos"].data_ptr(), out["vel"].data_ptr(), out["rot"].data_ptr(), lut.data_ptr(),
+        new["pos"].data_ptr(), new["vel"].data_ptr(), new["rot"].data_ptr(), lut.data_ptr(),
     )
-    launch("boxgame", _lib().ggrs_boxgame_advance, args, dev, _advance_kernel, _KERNEL_LAUNCHES)
-    return out
+    launch("boxgame", _lib().ggrs_boxgame_advance, args, dev, _advance_kernel, children)
+    return new
 
 
 count_launches(_advance_kernel)
@@ -241,16 +250,26 @@ class BoxGame:
 
     # -- advance: torch, batch-native ------------------------------------
 
-    def advance(self, state: Any, inputs: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def advance(self, state: Any, inputs: torch.Tensor,
+                out: Optional[Any] = None) -> Dict[str, torch.Tensor]:
         """One simulation step for B sessions.  ``inputs``: (B, P) uint8.
         The fixed variant on the card is the kernel, else the eager body
-        (module docstring); both give the same integers."""
+        (module docstring); both give the same integers.  Where ``out`` is
+        given (leaves of the state's shapes, e.g. a ring slot) the new state
+        is written there and ``out`` returned: the kernel writes it directly
+        (contiguous int32 leaves that overlap nothing it reads, or it
+        raises), the eager body's result is copied in."""
         if self.variant == "fixed" and _on_card(state, inputs):
-            return _advance_kernel(state, inputs)
+            return _advance_kernel(state, inputs, out)
         _EAGER_CALLS.inc()
         if self.variant == "float":
-            return self._advance_float(state, inputs)
-        return self._advance_fixed(state, inputs)
+            new = self._advance_float(state, inputs)
+        else:
+            new = self._advance_fixed(state, inputs)
+        if out is None:
+            return new
+        _EAGER_IN_PLACE.inc()
+        return tree_copy_(out, new)
 
     def _advance_fixed(self, state: Any, inputs: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The fixed-point step as eager PyTorch: the CPU route and the plain

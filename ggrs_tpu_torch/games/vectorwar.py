@@ -36,14 +36,16 @@ integers on every state whose positions and velocities lie within
 The process registry's ``ggrs_game_advance_total`` (labels
 ``game="vectorwar"``, ``route="kernel"`` or ``"eager"``) counts the kernel's
 launches made from Python (a CUDA graph that captured one counts it once; an
-empty batch launches nothing) and the eager body's calls.
+empty batch launches nothing) and the eager body's calls;
+``ggrs_game_advance_in_place_total`` (the same labels) counts those of them
+that wrote into a caller's ``out``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,7 +54,8 @@ from .. import _build
 from ..convert import from_numpy
 from ..core.device import DeviceLike
 from ..ops.digest import count_launches
-from ._card import ADVANCES, check_call, launch, on_card, outputs, read_in_place
+from ..utils.tree import tree_copy_
+from ._card import ADVANCES, IN_PLACE, check_call, launch, on_card, outputs, read_in_place
 
 INPUT_THRUST = 1 << 0
 INPUT_BRAKE = 1 << 1
@@ -102,6 +105,8 @@ def _device_consts(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor, to
 
 _KERNEL_LAUNCHES = ADVANCES.labels(game="vectorwar", route="kernel")
 _EAGER_CALLS = ADVANCES.labels(game="vectorwar", route="eager")
+_KERNEL_IN_PLACE = IN_PLACE.labels(game="vectorwar", route="kernel")
+_EAGER_IN_PLACE = IN_PLACE.labels(game="vectorwar", route="eager")
 # the leaves the kernel loads in 8-byte pairs
 _PAIRED = tuple(i for i, k in enumerate(LEAVES) if k in ("bullet_pos", "bullet_vel", "pos", "vel"))
 
@@ -155,30 +160,33 @@ def _card_leaves(state: Any, inputs: Any) -> Tuple[Tuple[torch.Tensor, ...], Tup
                          paired_names="bullet_pos, bullet_vel, pos and vel")
 
 
-def _advance_kernel(state: Any, inputs: torch.Tensor) -> Dict[str, torch.Tensor]:
+def _advance_kernel(state: Any, inputs: torch.Tensor,
+                    out: Optional[Any] = None) -> Dict[str, torch.Tensor]:
     """One launch of the kernel on the inputs' card and current stream: the
     new state in nine tensors made here (``torch.empty``, inside a capture
-    too), written whole by the kernel; no launch for an empty batch.
+    too), or in ``out``'s where given (``games/_card.py::outputs`` checks
+    them), written whole by the kernel; no launch for an empty batch.
     ``_advance_kernel.launches`` counts the launches as the digest's
     counters count theirs (``ops.digest.count_launches``), and the
-    registry's ``route="kernel"`` child counts the launches made from
-    Python."""
+    registry's ``route="kernel"`` children count the launches made from
+    Python, those into an ``out`` in ``ggrs_game_advance_in_place_total``
+    too."""
     every, strides = _card_leaves(state, inputs)
     leaves, inp = every[:-1], every[-1]
     dev = inp.device
-    out = outputs(LEAVES, leaves, dev)
+    children = (_KERNEL_LAUNCHES,) if out is None else (_KERNEL_LAUNCHES, _KERNEL_IN_PLACE)
+    new = outputs("VectorWar", LEAVES, leaves, dev, out, read=every)
     rows = inp.numel() // SHIPS
     if rows == 0:
-        return out
+        return new
     lut, _, _ = _device_consts(dev)
     ptrs = (ctypes.c_void_p * len(LEAVES))(*(x.data_ptr() for x in leaves))
     row_bytes = (ctypes.c_int64 * len(LEAVES))(*strides[:-1])
-    outs = (ctypes.c_void_p * len(LEAVES))(*(out[k].data_ptr() for k in LEAVES))
+    outs = (ctypes.c_void_p * len(LEAVES))(*(new[k].data_ptr() for k in LEAVES))
     args = (rows, ptrs, row_bytes, inp.data_ptr(), strides[-1], inp.element_size(), outs,
             lut.data_ptr())
-    launch("vectorwar", _lib().ggrs_vectorwar_advance, args, dev, _advance_kernel,
-           _KERNEL_LAUNCHES)
-    return out
+    launch("vectorwar", _lib().ggrs_vectorwar_advance, args, dev, _advance_kernel, children)
+    return new
 
 
 count_launches(_advance_kernel)
@@ -222,14 +230,23 @@ class VectorWar:
 
     # -- advance: torch, batch-native ------------------------------------
 
-    def advance(self, state: Any, inputs: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def advance(self, state: Any, inputs: torch.Tensor,
+                out: Optional[Any] = None) -> Dict[str, torch.Tensor]:
         """One frame for B sessions.  ``inputs``: (B, P) uint8.  On the card
         the kernel, else the eager body (module docstring); both give the
-        same integers."""
+        same integers.  Where ``out`` is given (leaves of the state's
+        shapes, e.g. a ring slot) the new state is written there and ``out``
+        returned: the kernel writes it directly (contiguous int32 leaves
+        that overlap nothing it reads, or it raises), the eager body's
+        result is copied in."""
         if _on_card(state, inputs):
-            return _advance_kernel(state, inputs)
+            return _advance_kernel(state, inputs, out)
         _EAGER_CALLS.inc()
-        return self._advance_eager(state, inputs)
+        new = self._advance_eager(state, inputs)
+        if out is None:
+            return new
+        _EAGER_IN_PLACE.inc()
+        return tree_copy_(out, new)
 
     def _advance_eager(self, state: Any, inputs: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The step as eager PyTorch, every ship at once: the CPU route and

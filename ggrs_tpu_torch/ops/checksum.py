@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..core.device import DeviceLike, resolve_device
-from ..utils.tree import tree_leaves, tree_map
+from ..utils.tree import tree_leaves, tree_map, writing_into
 from .digest import (
     MASK32,
     PRIME_B,
@@ -104,15 +104,21 @@ def _salt_mix(structure: Tuple) -> Tuple[int, int, int, int]:
     return tuple((int(s) * _GOLDEN) & MASK32 for s in salt)
 
 
-def _digest(state: Any, device: DeviceLike, digest) -> torch.Tensor:
+def _digest(state: Any, device: DeviceLike, digest,
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
     leaves = tree_leaves(state)
     if not leaves:
         init = torch.tensor(_INIT_LANES, dtype=torch.int64, device=resolve_device(device))
-        return u32_to_i32(init).reshape(1, CHECKSUM_LANES)
-    return digest(leaves, _salt_mix(tuple(_leaf_shape_key(l) for l in leaves)))
+        init = u32_to_i32(init).reshape(1, CHECKSUM_LANES)
+        return init if out is None else out.copy_(init)
+    mix = _salt_mix(tuple(_leaf_shape_key(l) for l in leaves))
+    if out is None:
+        return digest(leaves, mix)
+    return writing_into(digest)(leaves, mix, out=out)
 
 
-def checksum_device(state: Any, device: DeviceLike = None) -> torch.Tensor:
+def checksum_device(state: Any, device: DeviceLike = None,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Digest a batch of states into ``(B, 4)`` int32 lanes, on device.
 
     Leaves are ``(B, ...)`` tensors, one state per session; row ``b`` equals
@@ -122,8 +128,11 @@ def checksum_device(state: Any, device: DeviceLike = None) -> torch.Tensor:
     leaves, each evenly strided with contiguous bytes (any contiguous leaf,
     or a ring slot view ``buf[:, i]``); see ``digest.state_digest`` for the
     rest.  The empty pytree digests to ``_INIT_LANES`` as a ``(1, 4)``
-    tensor on ``device`` (the only case that reads ``device``)."""
-    return _digest(state, device, state_digest)
+    tensor on ``device`` (the only case that reads ``device``).  Where
+    ``out`` is given (a contiguous ``(B, 4)`` int32 tensor) the digests are
+    written there, on the card by the kernel itself, and ``out`` is
+    returned."""
+    return _digest(state, device, state_digest, out)
 
 
 def checksum_device_plain(state: Any, device: DeviceLike = None) -> torch.Tensor:

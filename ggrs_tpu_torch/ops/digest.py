@@ -44,7 +44,7 @@ import ctypes
 import functools
 import math
 import threading
-from typing import Any, Dict, Iterator, List, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -244,11 +244,17 @@ def _lib() -> ctypes.CDLL:
 
 def _launch(
     entries: List[LeafEntry], rows: int, width: int, device: torch.device,
-    mix: Sequence[int], offset: int, raw: bool,
+    mix: Sequence[int], offset: int, raw: bool, out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One kernel launch over the table (two where rows span several
-    segments); the (rows, 4) int32 result, written whole by the kernel."""
-    out = torch.empty((rows, 4), dtype=torch.int32, device=device)
+    segments); the (rows, 4) int32 result, written whole by the kernel into
+    ``out`` where given, else into a tensor made here."""
+    if out is None:
+        out = torch.empty((rows, 4), dtype=torch.int32, device=device)
+    elif out.dtype != torch.int32 or tuple(out.shape) != (rows, 4) or out.device != device \
+            or not out.is_contiguous():
+        raise ValueError(f"state_digest: out must be a contiguous ({rows}, 4) int32 tensor on "
+                         f"{device}, got {tuple(out.shape)} {out.dtype} on {out.device}")
     if rows == 0:
         return out
     segs = -(-width // SEG_WORDS) if width > GROUP_MAX_WORDS else 0
@@ -288,11 +294,16 @@ def _mix_tensor(mix: Tuple[int, int, int, int], device: torch.device) -> torch.T
 
 
 def state_digest(
-    leaves: Sequence[torch.Tensor], salt_mix: Sequence[int], batch_dims: int = 1
+    leaves: Sequence[torch.Tensor], salt_mix: Sequence[int], batch_dims: int = 1,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Salted digests ``(R, 4)`` int32 of a batch of states given as their
     leaves; see the module docstring.  ``salt_mix`` is the structure salt
-    times 2654435761, four ints in [0, 2^32).
+    times 2654435761, four ints in [0, 2^32).  Where ``out`` is given (a
+    contiguous ``(R, 4)`` int32 tensor on the leaves' device) the digests
+    are written there and ``out`` is returned: on the card the kernel
+    writes it whole, so a span of a ring's checksum slots takes them with
+    no copy.
 
     CPU leaves go to the plain version, whatever their number and layout.
     On the card the kernel reads the leaves in place, in one launch, where
@@ -314,7 +325,8 @@ def state_digest(
         raise ValueError("state_digest: a state needs at least one leaf")
     dev = _device_of(leaves, "state_digest")
     if dev.type == "cpu":
-        return state_digest_plain(leaves, salt_mix, batch_dims)
+        plain = state_digest_plain(leaves, salt_mix, batch_dims)
+        return plain if out is None else out.copy_(plain)
     rows, width, plan = _plan(
         batch_dims, tuple((x.shape, x.stride(), x.element_size()) for x in leaves)
     )
@@ -327,7 +339,7 @@ def state_digest(
         entries.append((leaf, stride, nbytes, off))
     if len(entries) <= MAX_LEAVES:
         table = [(leaf.data_ptr(), stride, nbytes, off) for leaf, stride, nbytes, off in entries]
-        out = _launch(table, rows, width, dev, salt_mix, 0, raw=False)
+        out = _launch(table, rows, width, dev, salt_mix, 0, raw=False, out=out)
         if rows:
             count_launch(state_digest)
         return out
@@ -342,7 +354,8 @@ def state_digest(
         if rows:
             count_launch(state_digest)
     acc = (acc + _mix_tensor(tuple(salt_mix), acc.device)) & MASK32
-    return u32_to_i32(acc ^ (acc >> 15))
+    digests = u32_to_i32(acc ^ (acc >> 15))
+    return digests if out is None else out.copy_(digests)
 
 
 

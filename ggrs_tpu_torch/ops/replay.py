@@ -11,7 +11,7 @@ device and reach the host only when asked.
 
 Where the JAX package donates the carry, the port updates the carry's
 preallocated tensors IN PLACE (nothing is returned that the caller did not
-pass in).  The carry is batched over sessions; its layout is the JAX
+pass in).  The carry is batched over sessions; its shapes are the JAX
 package's with a leading session axis, as ``BatchedSessions`` stacks it::
 
     ring       -- DeviceStateRing buffers (states / checksums / frames)
@@ -21,6 +21,20 @@ package's with a leading session axis, as ``BatchedSessions`` stacks it::
     frame      -- (B,) int32, the sessions' current frame
     mismatches -- (B,) int32 count of resimulated frames whose digest diverged
     first_bad  -- (B,) int32 earliest mismatched frame (INT32_MAX if none)
+
+Every ring-indexed buffer (the state ring, its checksums and frames, the
+input ring, ``hist``) is STORED slot-major: a ``(R, B, ...)`` tensor that
+the carry holds as its ``transpose(0, 1)``, a ``(B, R, ...)`` view.  Whatever
+reads the carry sees the shapes above; a slot ``buf[:, i]`` is one
+contiguous ``(B, ...)`` block, and k consecutive slots one ``(k*B, ...)``
+block.  So the steady tick advances each resimulated frame straight into
+its ring slot, digests the window where it lies, one launch a contiguous
+span of slots, straight into the checksums' span, and compares the digests
+with the history in their slots: no stack, no concatenation and no copy of
+the window.  A window of d frames wraps the ring at most once, so a steady
+tick makes two digest calls, or three where the window wraps
+(``digest_calls``); the JAX scan digests each step inside its body.  Every
+digest is per row, so the values are bitwise the same.
 
 Digests are int32 tensors holding u32 bit patterns.  Slots are host ints
 (sessions tick in lockstep), so every ring access is a shared-index slice;
@@ -39,12 +53,6 @@ eager ``steady_tick`` is the graph's plain version and what a CPU carry
 runs.  The warmup ticks stay eager: d + 1 of them per session, each in
 another phase.  ``build_scrub_program`` graphs a window of advances the
 same way.
-
-The d resimulated states are digested together: the stacked ``(B, d, ...)``
-window that ``save_many`` writes is digested as B*d rows in ONE
-``checksum`` call (one kernel launch on the card), where the JAX scan digests
-each step inside its body.  Every digest is per row, so the values are
-bitwise the same.  A tick, warmup or steady, makes two digest calls.
 """
 
 from __future__ import annotations
@@ -57,7 +65,7 @@ import torch
 from ..convert import from_numpy
 from ..core.device import DeviceLike, resolve_device
 from ..utils.tracing import layer, trace_span
-from ..utils.tree import tree_leaves, tree_map
+from ..utils.tree import tree_copy_, tree_leaves, tree_map, writing_into
 from .checksum import CHECKSUM_LANES, checksum_device
 from .graphs import Graph, GraphSet
 from .ring import DeviceStateRing
@@ -68,12 +76,28 @@ AdvanceFn = Callable[[Any, Any], Any]  # (states (B, ...), inputs (B, ...)) -> s
 ChecksumFn = Callable[[Any], torch.Tensor]  # states (B, ...) -> (B, 4) int32
 
 
-def _copy_into(dst: Any, src: Any) -> None:
-    tree_map(lambda d, s: d.copy_(s), dst, src)
-
-
 def _tick_slice(tick_inputs: Any, t: int) -> Any:
     return tree_map(lambda a: a[:, t], tick_inputs)
+
+
+def _slot_major(r: int, leaf: torch.Tensor) -> torch.Tensor:
+    """``leaf`` (B, ...) in each of R slots, stored slot-major: the
+    ``(B, R, ...)`` view of a contiguous ``(R, B, ...)`` tensor."""
+    return leaf.unsqueeze(0).expand(r, *leaf.shape).clone(
+        memory_format=torch.contiguous_format).transpose(0, 1)
+
+
+def _slots(buf: torch.Tensor, rs: slice) -> torch.Tensor:
+    """Slots ``rs`` of a slot-major ``(B, R, ...)`` buffer as ``(k, B,
+    ...)``: the contiguous block that stores them."""
+    return buf.transpose(0, 1)[rs]
+
+
+def _rows(buf: torch.Tensor, rs: slice) -> torch.Tensor:
+    """Slots ``rs`` as ``(k*B, ...)`` rows in slot order, a view (raises
+    rather than copy, so a write lands in the ring)."""
+    block = _slots(buf, rs)
+    return block.view(-1, *block.shape[2:])
 
 
 def _carry_key(carry: Any) -> tuple:
@@ -88,7 +112,11 @@ class ReplayPrograms:
 
     ``advance`` is batch-native and pure: it takes state leaves ``(B, ...)``
     and inputs ``(B, ...)`` and returns new tensors without writing its
-    arguments (the loaded state is a view of the ring)."""
+    arguments (the loaded state is a view of the ring).  Where it takes an
+    ``out`` (every bundled game's does: the leaves to write) the steady
+    tick hands it the ring slot or live state to write; otherwise its result
+    is copied there.  ``checksum`` likewise, with ``out`` the digests'
+    rows."""
 
     ring: DeviceStateRing
     check_distance: int
@@ -101,6 +129,13 @@ class ReplayPrograms:
     # devices on which this program has run a tick eagerly (run_warmup, or
     # TickGraphs' rehearsal before a first capture)
     _eager_on: Set[torch.device] = field(default_factory=set, init=False, repr=False, compare=False)
+    # advance and checksum as calls that write into ``out`` (``writing_into``)
+    _advance_into: Callable[..., Any] = field(init=False, repr=False, compare=False)
+    _checksum_into: Callable[..., Any] = field(init=False, repr=False, compare=False)
+
+    def __post_init__(self) -> None:
+        object.__setattr__(self, "_advance_into", writing_into(self.advance))
+        object.__setattr__(self, "_checksum_into", writing_into(self.checksum))
 
     @property
     def warmup_ticks(self) -> int:
@@ -112,6 +147,15 @@ class ReplayPrograms:
         """How many of the next ``n`` ticks must go through the warmup program
         given ``ticks_run`` ticks already executed."""
         return min(max(0, self.warmup_ticks - ticks_run), n)
+
+    def digest_calls(self, frame: int) -> int:
+        """The ``checksum`` calls of the tick at ``frame`` (one digest launch
+        each on the card): a warmup tick's two; a steady tick's one a
+        contiguous span of its window's slots (one, or two where the window
+        wraps the ring), and the live state's."""
+        if frame < self.warmup_ticks:
+            return 2
+        return len(self.ring.spans(frame - self.check_distance + 1, self.check_distance)) + 1
 
     @property
     def tick_graphs(self) -> List["TickGraphs"]:
@@ -131,22 +175,29 @@ class ReplayPrograms:
         """Carry for ``batch_size`` sessions starting at frame 0, each with
         (a copy of) ``init_state``.  ``init_state`` and ``input_template``
         (one frame's inputs, e.g. a (P,) u8 array) are unbatched numpy arrays
-        or tensors."""
+        or tensors.  The ring-indexed buffers are stored slot-major (module
+        docstring); the ring's slots start as the initial state with frame
+        NULL_FRAME = -1, as ``DeviceStateRing.init`` makes them."""
         dev = resolve_device(device)
         b, r = batch_size, self.ring.length
 
         def batched(leaf: torch.Tensor) -> torch.Tensor:
             return leaf.unsqueeze(0).expand(b, *leaf.shape).clone()
 
+        def ring_of(leaf: torch.Tensor) -> torch.Tensor:
+            return _slot_major(r, leaf)
+
         live = tree_map(batched, from_numpy(init_state, dev))
-        inputs = tree_map(
-            lambda leaf: torch.zeros((b, r, *leaf.shape), dtype=leaf.dtype, device=dev),
-            from_numpy(input_template, dev),
-        )
+        digests = torch.zeros((b, CHECKSUM_LANES), dtype=torch.int32, device=dev)
         return {
-            "ring": self.ring.init(live),
-            "inputs": inputs,
-            "hist": torch.zeros((b, r, CHECKSUM_LANES), dtype=torch.int32, device=dev),
+            "ring": {
+                "states": tree_map(ring_of, live),
+                "checksums": ring_of(digests),
+                "frames": ring_of(torch.full((b,), -1, dtype=torch.int32, device=dev)),
+            },
+            "inputs": tree_map(lambda leaf: ring_of(leaf.new_zeros((b, *leaf.shape))),
+                               from_numpy(input_template, dev)),
+            "hist": ring_of(digests),
             "live": live,
             "frame": torch.zeros((b,), dtype=torch.int32, device=dev),
             "mismatches": torch.zeros((b,), dtype=torch.int32, device=dev),
@@ -171,7 +222,7 @@ class ReplayPrograms:
         # first-seen digest for frame+1 comes from this live advance; later
         # resimulations of that frame are compared against it
         hist[:, ring.slot(frame + 1)] = self.checksum(new_live)
-        _copy_into(live, new_live)
+        tree_copy_(live, new_live)
         carry["frame"].add_(1)
 
     def steady_tick(self, carry: Any, inp: Any, frame: int) -> None:
@@ -190,50 +241,44 @@ class ReplayPrograms:
         body captured as a CUDA graph at one frame is the body at every
         frame of its phase.
 
-        Each stretch of one layer's work opens with ``layer`` (ring,
-        advance, digest, compare; nine a tick): a span when run eagerly, a
-        mark kernel inside the tick's graphs."""
+        Frame F - d is loaded from its slot and frames F - d + 1 .. F are
+        resimulated each into its own slot, reading each frame's input in
+        its slot; the window is digested and compared span by span where it
+        lies, its frame numbers stamped; the live advance writes
+        ``carry["live"]`` and its digest goes into ``hist``'s slot F + 1.
+        Each stretch of one layer's work opens with ``layer`` (advance,
+        digest, ring, compare, advance, digest, ring; seven a tick): a span
+        when run eagerly, a mark kernel inside the tick's graphs."""
         ring, d = self.ring, self.check_distance
-        with layer("ring"):
-            inp = tree_map(lambda buf: buf[:, ring.slot(frame)], carry["inputs"])
-            st = ring.load(carry["ring"], frame - d)
-            # the window's d inputs, gathered once (at most two slices per leaf)
-            window_inputs = tree_map(
-                lambda buf: ring.read_window(buf, frame - d, d), carry["inputs"]
-            )
+        saved, inputs, hist = carry["ring"], carry["inputs"], carry["hist"]
+        spans = ring.spans(frame - d + 1, d)  # the window F-d+1 .. F
         with layer("advance"):
-            states = []
-            for j in range(d):
-                st = self.advance(st, _tick_slice(window_inputs, j))
-                states.append(st)
-        # the window F-d+1 .. F: one digest call over its B*d rows (a view of
-        # the stack), one save_many
-        first = frame - d + 1
-        with layer("ring"):
-            window = tree_map(lambda *leaves: torch.stack(leaves, dim=1), *states)
+            st = ring.load(saved, frame - d)
+            for f in range(frame - d, frame):
+                st = self._advance_into(st, _tick_slice(inputs, ring.slot(f)),
+                                        out=ring.load(saved, f + 1))
         with layer("digest"):
-            rows = self.checksum(tree_map(lambda leaf: leaf.flatten(0, 1), window))
-            resim_cs = rows.reshape(-1, d, CHECKSUM_LANES)  # (B, d, 4)
+            for rs, _ in spans:
+                self._checksum_into(tree_map(lambda buf: _rows(buf, rs), saved["states"]),
+                                    out=_rows(saved["checksums"], rs))
         with layer("ring"):
-            frames = carry["frame"].unsqueeze(1) + torch.arange(
-                1 - d, 1, dtype=torch.int32, device=resim_cs.device
-            )  # (B, d): F-d+1 .. F
-            ring.save_many(carry["ring"], first, window, resim_cs, stamps=frames)
+            back = torch.arange(1 - d, 1, dtype=torch.int32, device=carry["frame"].device)
+            for rs, ws in spans:
+                torch.add(carry["frame"], back[ws].unsqueeze(1), out=_slots(saved["frames"], rs))
+        with layer("compare"):
             # every window frame has a first-seen digest (frame F's was recorded
             # by the previous tick's live advance), so the whole window is checked
-            seen = ring.read_window(carry["hist"], first, d)
-        with layer("compare"):
-            bad = (resim_cs != seen).any(dim=2)  # (B, d)
-            carry["mismatches"].add_(bad.sum(dim=1, dtype=torch.int32))
-            worst = torch.where(bad, frames, I32_MAX).amin(dim=1)
-            torch.minimum(carry["first_bad"], worst, out=carry["first_bad"])
+            for rs, _ in spans:
+                bad = (_slots(saved["checksums"], rs) != _slots(hist, rs)).any(dim=2)  # (k, B)
+                carry["mismatches"].add_(bad.sum(dim=0, dtype=torch.int32))
+                worst = torch.where(bad, _slots(saved["frames"], rs), I32_MAX).amin(dim=0)
+                torch.minimum(carry["first_bad"], worst, out=carry["first_bad"])
         with layer("advance"):
-            new_live = self.advance(st, inp)  # st is the resimulated state at F
+            # st is the resimulated state at F, in its slot
+            self._advance_into(st, _tick_slice(inputs, ring.slot(frame)), out=carry["live"])
         with layer("digest"):
-            cs = self.checksum(new_live)
+            self._checksum_into(carry["live"], out=hist[:, ring.slot(frame + 1)])
         with layer("ring"):
-            carry["hist"][:, ring.slot(frame + 1)] = cs
-            _copy_into(carry["live"], new_live)
             carry["frame"].add_(1)
 
     def _run(self, tick: Callable, carry: Any, tick_inputs: Any, start_frame: int) -> Any:
@@ -282,9 +327,9 @@ class TickGraphs:
     before it: the program's warmup ticks did, or, where the carry came
     from a checkpoint in a program that ran none on this device, an eager
     ``steady_body`` on a scratch copy of the carry does before the first
-    capture (its two digest launches ran and count).
+    capture (its digest launches ran and count).
 
-    The set takes layer marks: each graph holds ``steady_body``'s nine
+    The set takes layer marks: each graph holds ``steady_body``'s seven
     mark kernels, disabled while no profiler runs (``ops/graphs.py``)."""
 
     def __init__(self, programs: ReplayPrograms, carry: Any) -> None:
@@ -389,8 +434,8 @@ class ScrubProgram:
             if key not in self._graphs:
                 self._graphs[key] = self._capture(st, inputs)
             graph, static_st, static_inputs, out = self._graphs[key]
-            _copy_into(static_st, st)
-            _copy_into(static_inputs, inputs)
+            tree_copy_(static_st, st)
+            tree_copy_(static_inputs, inputs)
             graph.replay()
             return tree_map(lambda leaf: leaf[0].clone(), out)
 

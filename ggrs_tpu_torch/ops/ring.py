@@ -8,13 +8,17 @@ preallocated tensors updated IN PLACE::
      "frames": (B, R) int32}
 
 with the session axis first, as ``BatchedSessions`` stacks the JAX carry.
+Those are the shapes; the storage behind them may be slot-major (the lockstep
+replay's carry, ``ops/replay.py::ReplayPrograms.init_carry``: ``(R, B, ...)``
+tensors seen through ``transpose(0, 1)``, so a slot is one contiguous block),
+and every method but the per-row ones below works on either.
 Slots are host ints (``frame % R``): sessions that tick in lockstep share
 one slot, so a ring access is a shared-index slice.  A consecutive window
-of frames wraps the ring at most once, so window reads and writes are at
-most two slices each.  The frame numbers a save writes into ``frames`` may
-come from a device tensor instead (``stamp``), as the JAX scan takes its
-frame as a traced input: a CUDA graph captured at one frame then writes
-the right numbers at every frame of its slot.
+of frames wraps the ring at most once, so it is at most two slices
+(``spans``).  The frame numbers a save writes into ``frames`` may come from
+a device tensor instead (``stamp``), as the JAX scan takes its frame as a
+traced input: a CUDA graph captured at one frame then writes the right
+numbers at every frame of its slot.
 
 Sessions that do not tick in lockstep (the pool of ``parallel.session_pool``,
 where each session saves and loads its own frame) use ``save_rows`` and
@@ -66,7 +70,7 @@ class DeviceStateRing:
         """``frame % R`` for a host-int frame (frame >= 0)."""
         return frame % self.length
 
-    def _spans(self, first_frame: int, n: int):
+    def spans(self, first_frame: int, n: int):
         """(ring slice, window slice) pairs covering ``n`` consecutive frames
         from ``first_frame``: one pair, or two where the window wraps."""
         if n > self.length:
@@ -77,20 +81,6 @@ class DeviceStateRing:
         if k < n:
             spans.append((slice(0, n - k), slice(k, n)))
         return spans
-
-    def read_window(self, buf: torch.Tensor, first_frame: int, n: int) -> torch.Tensor:
-        """``(B, n, ...)`` entries of a ``(B, R, ...)`` buffer for ``n``
-        consecutive frames (a view when the window does not wrap)."""
-        spans = self._spans(first_frame, n)
-        if len(spans) == 1:
-            return buf[:, spans[0][0]]
-        return torch.cat([buf[:, rs] for rs, _ in spans], dim=1)
-
-    def write_window(self, buf: torch.Tensor, first_frame: int, vals: torch.Tensor) -> None:
-        """In place: ``buf``'s slots for ``vals.shape[1]`` consecutive
-        frames from ``first_frame`` take ``vals`` (``(B, n, ...)``)."""
-        for rs, ws in self._spans(first_frame, vals.shape[1]):
-            buf[:, rs] = vals[:, ws]
 
     # -- save / load (in place) ------------------------------------------
 
@@ -125,26 +115,23 @@ class DeviceStateRing:
         return ring
 
     def save_many(
-        self, ring: Any, first_frame: int, states: Any, checksums: torch.Tensor,
-        stamps: Optional[torch.Tensor] = None,
+        self, ring: Any, first_frame: int, states: Any, checksums: torch.Tensor
     ) -> Any:
         """Write ``n`` consecutive saves (frames ``first_frame ..
         first_frame + n - 1``, n <= R so the slots are distinct) in at most
         two slice copies per buffer.  ``states`` leaves are ``(B, n, ...)``,
-        ``checksums`` is ``(B, n, 4)``; the frame numbers written are
-        ``stamps`` (``(B, n)`` int32) where given, else those frames."""
-        n = checksums.shape[1]
-        tree_map(
-            lambda buf, leaf: self.write_window(buf, first_frame, leaf),
-            ring["states"],
-            states,
-        )
-        self.write_window(ring["checksums"], first_frame, checksums)
-        if stamps is None:
-            stamps = torch.arange(
-                first_frame, first_frame + n, dtype=torch.int32, device=checksums.device
-            ).expand(checksums.shape[0], n)
-        self.write_window(ring["frames"], first_frame, stamps)
+        ``checksums`` is ``(B, n, 4)``."""
+        b, n = checksums.shape[:2]
+        frames = torch.arange(first_frame, first_frame + n, dtype=torch.int32,
+                              device=checksums.device).expand(b, n)
+
+        def write(buf: torch.Tensor, vals: torch.Tensor) -> None:
+            for rs, ws in self.spans(first_frame, n):
+                buf[:, rs] = vals[:, ws]
+
+        tree_map(write, ring["states"], states)
+        write(ring["checksums"], checksums)
+        write(ring["frames"], frames)
         return ring
 
     def load(self, ring: Any, frame: int) -> Any:

@@ -7,6 +7,7 @@ than pos, rot, vel and every digest would differ from the JAX package's."""
 
 from __future__ import annotations
 
+import inspect
 from typing import Any, Callable, List
 
 
@@ -30,3 +31,24 @@ def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
     if tree is None:
         return None
     return fn(tree, *rest)
+
+
+def tree_copy_(dst: Any, src: Any) -> Any:
+    """In place: each leaf of ``dst`` takes the matching leaf of ``src``
+    (``Tensor.copy_``); returns ``dst``."""
+    tree_map(lambda d, s: d.copy_(s), dst, src)
+    return dst
+
+
+def writing_into(fn: Callable[..., Any]) -> Callable[..., Any]:
+    """``fn`` as a call ``(*args, out=tree)`` that writes its result into
+    ``out``'s tensors and returns ``out``: ``fn`` itself where it takes an
+    ``out`` parameter (it writes there in place), else ``fn``'s result
+    copied there."""
+    if "out" in inspect.signature(fn).parameters:
+        return fn
+
+    def into(*args: Any, out: Any) -> Any:
+        return tree_copy_(out, fn(*args))
+
+    return into

@@ -4,8 +4,8 @@ Pinned here: the kernel route is bitwise the eager body and the NumPy
 oracle ``advance_np`` at P = 2, 3, 4 and every batch size up to 2^20 (and
 0), on seeded states, on edge states (positions at the window, velocities
 at the speed clamp, headings 0 and 255, all 16 input masks), on any int32
-state and on inputs of every integer dtype; it reads ring-slot views and
-window-input slices as ``steady_body`` makes them, in place, copies a leaf
+state and on inputs of every integer dtype; it reads the slot views and
+window-input slices of a session-major ring in place, copies a leaf
 of any other layout and refuses what it cannot read; both session
 entries carry bitwise what the same session carries on the eager route
 over two ring periods; and a traced steady tick runs exactly nine advance
@@ -162,9 +162,8 @@ def test_ring_slot_views_and_window_slices(card, players):
     for frame in range(D, D + R):  # every phase: windows that wrap and that do not
         slot = ring.slot(frame - D)
         st = {k: v[:, slot] for k, v in bufs.items()}
-        window = ring.read_window(inputs, frame - D, D)
         for j in range(D):
-            inp = window[:, j]
+            inp = inputs[:, ring.slot(frame - D + j)]
             read, _ = bg._card_leaves(st, inp)
             assert all(a.data_ptr() == x.data_ptr() and a.stride() == x.stride()
                        for a, x in zip(read, (st["pos"], st["vel"], st["rot"], inp)))

@@ -524,10 +524,11 @@ def test_state_digest_routes_cpu_tensors_to_the_plain_version():
 def _emulated_launch(calls):
     """A stand-in for the kernel launch that runs ``_emulate`` over the
     table the wrapper built, so the CUDA wrapper path runs on the CPU."""
-    def launch(entries, rows, width, device, mix, offset, raw):
+    def launch(entries, rows, width, device, mix, offset, raw, out=None):
         calls.append(rows)
-        lanes = _emulate(entries, rows, width, None if raw else mix, offset)
-        return torch.from_numpy(lanes.view(np.int32).copy())
+        lanes = torch.from_numpy(
+            _emulate(entries, rows, width, None if raw else mix, offset).view(np.int32).copy())
+        return lanes if out is None else out.copy_(lanes)
     return launch
 
 
@@ -536,8 +537,9 @@ class _FakeCuda:
 
 
 def test_wrapper_path_over_a_session_matches_jax(monkeypatch):
-    # the card's route -- leaf table over ring views and B*d stacked rows --
-    # through the numpy emulation of the kernel, against the JAX session
+    # the card's route -- leaf table over ring views and the window's ring
+    # slots in place -- through the numpy emulation of the kernel, against
+    # the JAX session
     calls = []
     monkeypatch.setattr(tdg, "_launch", _emulated_launch(calls))
     monkeypatch.setattr(tdg, "_device_of", lambda tensors, what: _FakeCuda())
@@ -550,8 +552,14 @@ def test_wrapper_path_over_a_session_matches_jax(monkeypatch):
     )
     before = tdg.state_digest.launches
     port.run_ticks(inputs)
-    assert tdg.state_digest.launches - before == len(calls) == 2 * ticks
-    assert calls[2 * (d + 1)::2] == [d] * (ticks - d - 1)  # the folded resim digests
+    progs = port.programs
+    assert tdg.state_digest.launches - before == len(calls) == sum(
+        progs.digest_calls(f) for f in range(ticks))
+    # the resim digests: one launch a contiguous span of the window's slots
+    want = [1, 1] * (d + 1)
+    for f in range(d + 1, ticks):
+        want += [rs.stop - rs.start for rs, _ in progs.ring.spans(f - d + 1, d)] + [1]
+    assert calls == want
     jx = JaxSession(JaxBoxGame(2).advance, JaxBoxGame(2).init_state(),
                     jnp.zeros((2,), jnp.uint8), check_distance=d)
     jx.run_ticks(inputs)

@@ -169,9 +169,12 @@ def test_device_synctest_carry_matches_jax_at_d16(start):
 
 def test_batched_sessions_match_single_sessions_and_launch_twice_per_tick(monkeypatch):
     """B = 3 worlds in one ``BatchedSessions`` at d = 16, on the card's
-    wrapper path (emulated on the CPU): 2 digest launches per tick (the live
-    row batch and the folded B x 16 resim rows), 0 mismatches, and each
-    session's carry equal to a single session's on the same inputs."""
+    wrapper path (emulated on the CPU): a warmup tick's 2 digest launches,
+    a steady tick's one a contiguous span of its window's B x 16 ring rows
+    (two spans where the window wraps) and the live row batch, 0
+    mismatches, and each session's carry equal to a single session's on the
+    same inputs.  (The name is older: every tick launched twice when the
+    window was stacked.)"""
     calls = []
     monkeypatch.setattr(tdg, "_launch", _emulated_launch(calls))
     monkeypatch.setattr(tdg, "_device_of", lambda tensors, what: _FakeCuda())
@@ -181,9 +184,13 @@ def test_batched_sessions_match_single_sessions_and_launch_twice_per_tick(monkey
                             batch_size=3, check_distance=d, max_prediction=d, device="cpu")
     before = tdg.state_digest.launches
     assert batch.run_ticks(ins)["mismatches"] == 0
-    assert tdg.state_digest.launches - before == len(calls) == 2 * ticks
-    steady = calls[2 * (d + 1):]
-    assert steady[0::2] == [3 * d] * (ticks - d - 1) and steady[1::2] == [3] * (ticks - d - 1)
+    progs = batch.programs
+    assert tdg.state_digest.launches - before == len(calls) == sum(
+        progs.digest_calls(f) for f in range(ticks))
+    want = [3, 3] * (d + 1)
+    for f in range(d + 1, ticks):
+        want += [3 * (rs.stop - rs.start) for rs, _ in progs.ring.spans(f - d + 1, d)] + [3]
+    assert calls == want
     for b in range(3):
         one = DeviceSyncTestSession(world.advance, world.init_state_np(), np.zeros(2, np.uint8),
                                     check_distance=d, max_prediction=d, device="cpu")

@@ -1,6 +1,6 @@
 """The steady tick's layer marks on the card.
 
-Each CUDA graph of the replay's steady tick holds nine mark kernels
+Each CUDA graph of the replay's steady tick holds seven mark kernels
 (``ggrs_mark_<layer>``, ``csrc/digest.cu``), one where each stretch of a
 layer's work begins (``ops/replay.py::steady_body``).  Pinned here: after
 capture every mark node is disabled; the marks are enabled while a profiler
@@ -29,7 +29,7 @@ from ggrs_tpu_torch.ops import replay as replay_mod
 from ggrs_tpu_torch.utils.tree import tree_leaves
 
 D = 8
-ORDER = ["ring", "advance", "ring", "digest", "ring", "compare", "advance", "digest", "ring"]
+ORDER = ["advance", "digest", "ring", "compare", "advance", "digest", "ring"]
 ENTRIES = {"single": 1, "batched": 4096}
 
 

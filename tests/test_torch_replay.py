@@ -199,8 +199,9 @@ def test_ring_save_where_and_window_wrap():
     vals = torch.arange(2 * 3 * 3, dtype=torch.int32).reshape(2, 3, 3)
     ring.save_many(buf, 3, {"x": vals}, torch.zeros((2, 3, 4), dtype=torch.int32))
     assert buf["frames"].tolist() == [[4, 5, -1, 3], [4, 5, -1, 3]]
+    assert ring.spans(3, 3) == [(slice(3, 4), slice(0, 1)), (slice(0, 2), slice(1, 3))]
     np.testing.assert_array_equal(
-        ring.read_window(buf["states"]["x"], 3, 3).numpy(), vals.numpy()
+        buf["states"]["x"][:, [3, 0, 1]].numpy(), vals.numpy()
     )
 
 
@@ -270,5 +271,13 @@ def test_every_tick_makes_two_digest_calls(b, d):
     assert calls == [b, b] * (d + 1)
     del calls[:]
     progs.run_steady(carry, inputs[:, d + 1:], d + 1)
-    assert calls == [b * d, b] * 4  # the window's B*d rows, then the live advance
+    # a steady tick digests its window one contiguous span of ring slots at a
+    # time (B rows a slot; two spans where the window wraps), then the live state
+    want = []
+    for f in range(d + 1, d + 5):
+        spans = [b * (rs.stop - rs.start) for rs, _ in progs.ring.spans(f - d + 1, d)]
+        assert progs.digest_calls(f) == len(spans) + 1 and sum(spans) == b * d
+        want += [*spans, b]
+    assert calls == want
+    assert progs.digest_calls(d) == 2  # a warmup tick
     assert int(carry["mismatches"].sum()) == 0

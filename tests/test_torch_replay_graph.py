@@ -174,7 +174,8 @@ def test_run_steady_on_the_cpu_is_the_eager_tick():
 @pytest.mark.parametrize("b,d", [(1, 8), (3, 2)])
 def test_graph_launches_move_from_the_capture_onto_each_replay(b, d, monkeypatch):
     # the digest's card route, emulated: the steady body "captured" under
-    # GraphLaunches.capturing() launches its two digests, which are taken
+    # GraphLaunches.capturing() launches its digests (one a contiguous span
+    # of the window's ring slots, then the live state's), which are taken
     # off the counters again and added back once per replay
     calls = []
     monkeypatch.setattr(tdg, "_launch", _emulated_launch(calls))
@@ -185,17 +186,22 @@ def test_graph_launches_move_from_the_capture_onto_each_replay(b, d, monkeypatch
                              device="cpu")
     inputs = torch.zeros((b, d + 1, 2), dtype=torch.uint8)
     progs.run_warmup(carry, inputs, 0)
-    before = (tdg.state_digest.launches, tdg.lane_sums_rows.launches)
-    launches = tdg.GraphLaunches()
-    with launches.capturing():
-        progs.steady_body(carry, d + 1)
-    assert (launches.counts[tdg.state_digest], launches.counts[tdg.lane_sums_rows]) == (2, 0)
-    assert calls[-2:] == [b * d, b]  # the window's rows, then the live advance's
-    assert (tdg.state_digest.launches, tdg.lane_sums_rows.launches) == before
-    for _ in range(5):
-        launches.replayed()
-    assert tdg.state_digest.launches - before[0] == 10
-    assert tdg.lane_sums_rows.launches == before[1]
+    r = progs.ring.length
+    for frame in range(d + 1, d + 1 + r):  # every phase, the window wrapping or not
+        spans = [b * (rs.stop - rs.start) for rs, _ in progs.ring.spans(frame - d + 1, d)]
+        n = progs.digest_calls(frame)
+        assert n == len(spans) + 1
+        before = (tdg.state_digest.launches, tdg.lane_sums_rows.launches)
+        launches = tdg.GraphLaunches()
+        with launches.capturing():
+            progs.steady_body(carry, frame)
+        assert (launches.counts[tdg.state_digest], launches.counts[tdg.lane_sums_rows]) == (n, 0)
+        assert calls[-n:] == [*spans, b]  # the window's spans of rows, then the live advance's
+        assert (tdg.state_digest.launches, tdg.lane_sums_rows.launches) == before
+        for _ in range(5):
+            launches.replayed()
+        assert tdg.state_digest.launches - before[0] == 5 * n
+        assert tdg.lane_sums_rows.launches == before[1]
 
 
 def test_a_failed_capture_leaves_the_counters_as_they_were():

@@ -4,8 +4,9 @@
   run_ticks``) emit one ``ggrs:tick`` span tree: ``upload``, ``warmup`` or
   ``replay``, the batch's ``reduce``, and ``read`` inside the tick with
   ``check=True`` or on its own in a later ``verify()``.
-- An eager ``steady_body`` emits its nine ``ggrs:layer.*`` spans in the
-  layers' order.
+- An eager ``steady_body`` emits its seven ``ggrs:layer.*`` spans in the
+  layers' order (the test's name is older: the tick had nine before its
+  window was advanced into its ring slots).
 - ``trace_span`` enters no ``record_function`` while no profiler runs.
 - ``GraphSet``: a capture that takes marks keeps one mark node a ``layer``,
   disabled; ``Graph.replay`` enables them under a profiler and disables
@@ -33,7 +34,7 @@ from ggrs_tpu_torch.utils import tracing
 
 ROOT = Path(__file__).resolve().parent.parent
 D = 3
-ORDER = ["ring", "advance", "ring", "digest", "ring", "compare", "advance", "digest", "ring"]
+ORDER = ["advance", "digest", "ring", "compare", "advance", "digest", "ring"]
 
 
 def _session(entry):
@@ -186,7 +187,7 @@ def _marked_tick_graph():
 def test_a_marked_capture_keeps_a_disabled_mark_a_layer(stand_in):
     _, graph = _marked_tick_graph()
     assert stand_in["launched"] == ORDER
-    assert graph.marks == tuple(range(1001, 1010))
+    assert graph.marks == tuple(range(1001, 1001 + len(ORDER)))
     assert stand_in["calls"] == [(n, False) for n in graph.marks]
     assert not graph.marks_on
 

@@ -4,8 +4,8 @@ Pinned here: the kernel route is bitwise the eager body at B = 0, 1, 7,
 4,096 and the benchmark cell's B, on seeded states crowded
 with bullets beside the ships (so that hits, full slot sets, the speed limit
 and wall bounces all occur), on states that frames reach and on inputs of
-every integer dtype; it reads ring-slot views and window-input slices as
-``steady_body`` makes them, in place, copies a leaf of any other layout and
+every integer dtype; it reads the slot views and window-input slices of a
+session-major ring in place, copies a leaf of any other layout and
 refuses what it cannot read; one launch a frame; both session entries carry
 bitwise what the same session carries on the eager route over two ring
 periods; and a traced steady tick runs exactly nine advance kernels, all
@@ -141,9 +141,8 @@ def test_ring_slot_views_and_window_slices(card, batch):
     for frame in (D, D + R - 1):  # a window that does not wrap and one that does
         slot = ring.slot(frame - D)
         st = {k: v[:, slot] for k, v in bufs.items()}
-        window = ring.read_window(inputs, frame - D, D)
         for j in (0, D - 1):
-            inp = window[:, j]
+            inp = inputs[:, ring.slot(frame - D + j)]
             every, _ = vw._card_leaves(st, inp)
             assert all(a.data_ptr() == x.data_ptr() and a.stride() == x.stride()
                        for a, x in zip(every, (*(st[k] for k in vw.LEAVES), inp)))
