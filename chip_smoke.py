@@ -493,6 +493,7 @@ from ggrs_tpu_torch.obs import (
     validate_chrome_trace,
     validate_exposition,
 )
+from ggrs_tpu_torch.games import _card as card_mod
 from ggrs_tpu_torch.games import boxgame as boxgame_mod
 from ggrs_tpu_torch.games import vectorwar as vectorwar_mod
 from ggrs_tpu_torch.games.vectorwar import VectorWar
@@ -1148,9 +1149,9 @@ def vectorwar_drive(inputs: np.ndarray, kernel: bool) -> tuple:
     (``kernel`` False) on the eager body's: the carry, and the advance
     kernel's launches counted from 0 just before the drive."""
     game = VectorWar()
-    on_card = vectorwar_mod._on_card
+    on_card = card_mod.on_card
     if not kernel:
-        vectorwar_mod._on_card = lambda state, inputs: False
+        card_mod.on_card = lambda *tensors: False
     try:
         sess = BatchedSessions(game.advance, game.init_state_np(), np.zeros(4, np.uint8),
                                batch_size=inputs.shape[0], check_distance=D, max_prediction=D)
@@ -1161,7 +1162,7 @@ def vectorwar_drive(inputs: np.ndarray, kernel: bool) -> tuple:
         torch.cuda.synchronize()
         return sess.carry, vectorwar_mod._advance_kernel.launches, sess.programs.warmup_ticks
     finally:
-        vectorwar_mod._on_card = on_card
+        card_mod.on_card = on_card
 
 
 def phase_vectorwar_advance() -> dict:

@@ -1,18 +1,35 @@
-"""What the games' hand-written advance kernels share: the route's test, the
-checks of a call on the card, the leaves' layout as a kernel reads it, the
-launch with its counts, and the advance counter.
+"""The games' hand-written advance kernels: their route, their ``out``
+contract, their counts, and the checks and the layout of a call on the card.
 
-A game's kernel reads each state leaf and the inputs in place at their own
-session stride, so a ring slot view, a slice of the window's inputs and
+A game with a kernel makes one ``Kernel`` (``games/boxgame.py``,
+``games/vectorwar.py``) from what is its own: its leaf names, its ``read``
+(the shape check, then ``check_call`` and ``read_in_place``), its library
+entry and the arguments it passes it.  Its ``advance`` is one call of
+``Kernel.advance``, which decides the rest:
+
+- the route: a call with a tensor on a CUDA card (``on_card``) takes the
+  kernel, others the game's eager body, as does every call of a game
+  without a kernel (BoxGame's float variant);
+- ``out`` (a ring slot the replay hands the advance to write into): on the
+  kernel's route ``outputs`` checks it, or makes the new state where it is
+  not given, and the kernel writes it whole; on the eager route the result
+  is copied into it;
+- the counts: the process registry's ``ggrs_game_advance_total`` (labels
+  ``game``, ``route="kernel"`` or ``"eager"``) counts the kernel's launches
+  made from Python (a CUDA graph that captured one counts it once; its
+  replays launch it with no Python; an empty batch launches nothing) and
+  the eager body's calls; the ``Kernel``'s own ``launches`` counts as
+  ``ops/kernels.py::count_launches`` does (a graph's capture moves its
+  launches onto its replays).
+
+A kernel reads each state leaf and the inputs in place at their own session
+stride, so a ring slot view, a slice of the window's inputs and
 speculation's expanded branch rows need no copy.  ``check_call`` refuses
 what no kernel reads (leaves that are not int32 tensors, inputs that are
 not integers, tensors on several devices); ``read_in_place`` gives each
 tensor's row stride in bytes, copying a tensor contiguous where its rows are
 not evenly strided rows of contiguous inner dimensions, and refuses rows
-that a kernel loads in 8-byte pairs where they are not 8-byte aligned;
-``outputs`` makes the new state's tensors, or checks the caller's ``out``
-(a ring slot the replay hands the advance to write into), and ``launch``
-calls the library, raises on a CUDA error and counts the launch.
+that a kernel loads in 8-byte pairs where they are not 8-byte aligned.
 """
 
 from __future__ import annotations
@@ -23,18 +40,12 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import torch
 
 from ..obs.registry import default_registry
-from ..ops.digest import _row_stride, count_launch
+from ..ops.kernels import call, count_launch, count_launches, row_stride
+from ..utils.tree import tree_copy_
 
 ADVANCES = default_registry().counter(
     "ggrs_game_advance_total",
     "Game advances by game and route: kernel launches made from Python, eager calls",
-    labels=("game", "route"),
-)
-
-IN_PLACE = default_registry().counter(
-    "ggrs_game_advance_in_place_total",
-    "Game advances that wrote into the caller's out, by game and route: kernel launches made "
-    "from Python, eager calls",
     labels=("game", "route"),
 )
 
@@ -78,7 +89,7 @@ def read_in_place(game: str, tensors: Sequence[torch.Tensor], lead: int,
     for x, stride in zip(tensors, _row_strides(layouts, lead)):
         if stride is None:
             x = x.contiguous()
-            stride = _row_stride(x.shape, x.stride(), lead)
+            stride = row_stride(x.shape, x.stride(), lead)
         out.append(x)
         strides.append(stride * x.element_size())
     if any(out[i].data_ptr() % 8 or strides[i] % 8 for i in paired):
@@ -88,9 +99,9 @@ def read_in_place(game: str, tensors: Sequence[torch.Tensor], lead: int,
 
 @functools.lru_cache(maxsize=256)
 def _row_strides(layouts: tuple, lead: int) -> tuple:
-    """``_row_stride`` of each ``(shape, strides)``, remembered: a replay's
+    """``row_stride`` of each ``(shape, strides)``, remembered: a replay's
     warmup and captures give the same few layouts again and again."""
-    return tuple(_row_stride(shape, strides, lead) for shape, strides in layouts)
+    return tuple(row_stride(shape, strides, lead) for shape, strides in layouts)
 
 
 def _extent(x: torch.Tensor) -> Tuple[int, int]:
@@ -132,18 +143,53 @@ def outputs(game: str, names: Sequence[str], leaves: Sequence[torch.Tensor],
     return got
 
 
-def launch(game: str, fn: Callable[..., int], args: Sequence[Any], device: torch.device,
-           counted: Callable, children: Sequence[Any]) -> None:
-    """One launch of a game's kernel: the library's ``fn(*args, stream)`` on
-    ``device``'s current stream (the library launches on the current
-    device); raises on a CUDA error, else counts it in the wrapper
-    ``counted``'s ``launches`` (``ops.digest.count_launch``: a graph's
-    capture moves its launches onto its replays) and in each of the
-    registry's ``children``."""
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{game} advance kernel launch failed: CUDA error {err}")
-    count_launch(counted)
-    for child in children:
-        child.inc()
+class Kernel:
+    """A game's advance kernel and its route (module docstring).
+
+    ``game`` names the game in errors, and lowercased in the registry's
+    labels; ``names`` are the state's leaves the kernel writes, in its
+    order.  ``read(state, inputs)`` gives those leaves and the inputs as the
+    kernel reads them and the bytes from one session's row to the next of
+    each, or raises where the kernel cannot read the call; ``args(read,
+    strides, new, rows)`` the library's arguments but the stream, for
+    ``rows`` sessions written into ``new``; ``entry()`` the library's
+    function, looked up at each launch."""
+
+    def __init__(self, game: str, names: Sequence[str],
+                 read: Callable[[Any, Any], Tuple[tuple, tuple]],
+                 args: Callable[[tuple, tuple, Dict[str, torch.Tensor], int], tuple],
+                 entry: Callable[[], Callable[..., int]]) -> None:
+        self.game = game
+        self.names = tuple(names)
+        self._read, self._args, self._entry = read, args, entry
+        self._launched = ADVANCES.labels(game=game.lower(), route="kernel")
+        self._eager = ADVANCES.labels(game=game.lower(), route="eager")
+        count_launches(self)
+
+    def __call__(self, state: Any, inputs: torch.Tensor,
+                 out: Optional[Any] = None) -> Dict[str, torch.Tensor]:
+        """One launch on the inputs' card and current stream: the new state
+        in tensors made here, or in ``out``'s (``outputs``), written whole
+        by the kernel; no launch for an empty batch."""
+        every, strides = self._read(state, inputs)
+        inp = every[-1]
+        new = outputs(self.game, self.names, every[:-1], inp.device, out, read=every)
+        rows = inp.numel() // inp.shape[-1]
+        if rows:
+            call(f"{self.game} advance", self._entry(), self._args(every, strides, new, rows),
+                 inp.device)
+            count_launch(self)
+            self._launched.inc()
+        return new
+
+    def advance(self, eager: Callable[[Any, Any], Dict[str, torch.Tensor]], state: Any,
+                inputs: Any, out: Optional[Any] = None,
+                kernel: bool = True) -> Dict[str, torch.Tensor]:
+        """One step: the kernel where ``kernel`` and the call is on the card,
+        else ``eager(state, inputs)``; where ``out`` is given the new state
+        is written there and ``out`` returned."""
+        if kernel and on_card(inputs, *(state[k] for k in self.names)):
+            return self(state, inputs, out)
+        self._eager.inc()
+        new = eager(state, inputs)
+        return new if out is None else tree_copy_(out, new)

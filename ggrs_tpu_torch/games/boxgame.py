@@ -16,20 +16,16 @@ float32.  Inputs are one ``uint8`` bitmask per player, ``(B, P)``
 
 On the card the fixed variant's step is one launch of a hand-written CUDA
 kernel a frame (``csrc/boxgame.cu``), which reads each leaf in place and
-writes the new state once.  The route follows the tensors alone: a call
-with a tensor on a CUDA card takes the kernel, or raises where the kernel
-cannot read it (leaves not int32, inputs not of an integer dtype, tensors on
-several devices, shapes other than ``(..., P, 2)`` / ``(..., P)`` of the same
-sessions, ``pos`` or
-``vel`` rows not 8-byte aligned); a leaf that is not evenly strided rows of
-contiguous inner dimensions is copied contiguous first.  CPU tensors and
-the float variant take the eager body, the same integers in 31 PyTorch
-operations.  The process registry's ``ggrs_game_advance_total`` (labels
-``game="boxgame"``, ``route="kernel"`` or ``"eager"``) counts the kernel's
-launches made from Python (a CUDA graph that captured one counts it once;
-its replays launch the kernel with no Python; an empty batch launches
-nothing) and the eager body's calls; ``ggrs_game_advance_in_place_total``
-(the same labels) counts those of them that wrote into a caller's ``out``.
+writes the new state once.  The route, ``out`` and the counts are
+``games/_card.py``'s: a call with a tensor on a CUDA card takes the kernel,
+or raises where the kernel cannot read it (leaves not int32, inputs not of
+an integer dtype, tensors on several devices, shapes other than
+``(..., P, 2)`` / ``(..., P)`` of the same sessions, ``pos`` or ``vel`` rows
+not 8-byte aligned); a leaf that is not evenly strided rows of contiguous
+inner dimensions is copied contiguous first.  CPU tensors and the float
+variant take the eager body, the same integers in 31 PyTorch operations.
+The process registry's ``ggrs_game_advance_total`` counts both routes under
+``game="boxgame"``.
 """
 
 from __future__ import annotations
@@ -45,9 +41,7 @@ from .. import _build
 from ..convert import from_numpy
 from ..core.config import Config
 from ..core.device import DeviceLike
-from ..ops.digest import count_launches
-from ..utils.tree import tree_copy_
-from ._card import ADVANCES, IN_PLACE, check_call, launch, on_card, outputs, read_in_place
+from ._card import Kernel, check_call, read_in_place
 
 BOX_INPUT_UP = 1 << 0
 BOX_INPUT_DOWN = 1 << 1
@@ -105,11 +99,6 @@ def _decode_buttons(inputs: Any) -> Tuple[Any, Any]:
 
 # -- the kernel route (csrc/boxgame.cu) --------------------------------------
 
-_KERNEL_LAUNCHES = ADVANCES.labels(game="boxgame", route="kernel")
-_EAGER_CALLS = ADVANCES.labels(game="boxgame", route="eager")
-_KERNEL_IN_PLACE = IN_PLACE.labels(game="boxgame", route="kernel")
-_EAGER_IN_PLACE = IN_PLACE.labels(game="boxgame", route="eager")
-
 # the kernel's player counts
 _KERNEL_PLAYERS = (2, 3, 4)
 
@@ -139,11 +128,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _on_card(state: Any, inputs: Any) -> bool:
-    """Whether the call has a tensor on a CUDA card (the kernel's route)."""
-    return on_card(inputs, state["pos"], state["vel"], state["rot"])
-
-
 def _card_leaves(state: Any, inputs: Any) -> Tuple[Tuple[torch.Tensor, ...], Tuple[int, ...]]:
     """``pos``, ``vel``, ``rot`` and ``inputs`` as the kernel reads them, and
     the bytes from one session's row to the next of each: checked (int32
@@ -165,37 +149,19 @@ def _card_leaves(state: Any, inputs: Any) -> Tuple[Tuple[torch.Tensor, ...], Tup
     return read_in_place("BoxGame", leaves, lead, paired=(0, 1), paired_names="pos and vel")
 
 
-def _advance_kernel(state: Any, inputs: torch.Tensor,
-                    out: Optional[Any] = None) -> Dict[str, torch.Tensor]:
-    """One launch of the kernel on the inputs' card and current stream: the
-    new state in three tensors made here (``torch.empty``, inside a capture
-    too), or in ``out``'s where given (``games/_card.py::outputs`` checks
-    them), written whole by the kernel; no launch for an empty batch.
-    ``_advance_kernel.launches`` counts the launches as the digest's
-    counters count theirs (``ops.digest.count_launches``: a graph's capture
-    moves its launches onto its replays), and the registry's
-    ``route="kernel"`` children count the launches made from Python, those
-    into an ``out`` in ``ggrs_game_advance_in_place_total`` too."""
-    (pos, vel, rot, inp), strides = _card_leaves(state, inputs)
-    dev = inp.device
-    children = (_KERNEL_LAUNCHES,) if out is None else (_KERNEL_LAUNCHES, _KERNEL_IN_PLACE)
-    new = outputs("BoxGame", ("pos", "vel", "rot"), (pos, vel, rot), dev, out,
-                  read=(pos, vel, rot, inp))
-    players = inp.shape[-1]
-    rows = inp.numel() // players
-    if rows == 0:
-        return new
-    lut, _ = _device_consts(dev)
-    args = (
-        players, rows, pos.data_ptr(), strides[0], vel.data_ptr(), strides[1],
+def _kernel_args(read: tuple, strides: tuple, new: Dict[str, torch.Tensor], rows: int) -> tuple:
+    """``ggrs_boxgame_advance``'s arguments but the stream."""
+    pos, vel, rot, inp = read
+    lut, _ = _device_consts(inp.device)
+    return (
+        inp.shape[-1], rows, pos.data_ptr(), strides[0], vel.data_ptr(), strides[1],
         rot.data_ptr(), strides[2], inp.data_ptr(), strides[3], inp.element_size(),
         new["pos"].data_ptr(), new["vel"].data_ptr(), new["rot"].data_ptr(), lut.data_ptr(),
     )
-    launch("boxgame", _lib().ggrs_boxgame_advance, args, dev, _advance_kernel, children)
-    return new
 
 
-count_launches(_advance_kernel)
+_advance_kernel = Kernel("BoxGame", ("pos", "vel", "rot"), _card_leaves, _kernel_args,
+                         lambda: _lib().ggrs_boxgame_advance)
 
 
 class BoxGame:
@@ -256,20 +222,10 @@ class BoxGame:
         The fixed variant on the card is the kernel, else the eager body
         (module docstring); both give the same integers.  Where ``out`` is
         given (leaves of the state's shapes, e.g. a ring slot) the new state
-        is written there and ``out`` returned: the kernel writes it directly
-        (contiguous int32 leaves that overlap nothing it reads, or it
-        raises), the eager body's result is copied in."""
-        if self.variant == "fixed" and _on_card(state, inputs):
-            return _advance_kernel(state, inputs, out)
-        _EAGER_CALLS.inc()
-        if self.variant == "float":
-            new = self._advance_float(state, inputs)
-        else:
-            new = self._advance_fixed(state, inputs)
-        if out is None:
-            return new
-        _EAGER_IN_PLACE.inc()
-        return tree_copy_(out, new)
+        is written there and ``out`` returned (``games/_card.py``)."""
+        fixed = self.variant == "fixed"
+        return _advance_kernel.advance(self._advance_fixed if fixed else self._advance_float,
+                                       state, inputs, out, kernel=fixed)
 
     def _advance_fixed(self, state: Any, inputs: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The fixed-point step as eager PyTorch: the CPU route and the plain

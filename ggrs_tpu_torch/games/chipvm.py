@@ -21,14 +21,13 @@ pc advances by 2 (wrapping) unless a JNZ takes.
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
 from ..convert import from_numpy
 from ..core.device import DeviceLike
-from ..utils.tree import tree_copy_
 
 MEM_SIZE = 256
 NUM_REGS = 4
@@ -106,12 +105,9 @@ class ChipVM:
 
     # -- advance: torch, batch-native, branchless -------------------------
 
-    def advance(self, state: Any, inputs: torch.Tensor,
-                out: Optional[Any] = None) -> Dict[str, torch.Tensor]:
+    def advance(self, state: Any, inputs: torch.Tensor) -> Dict[str, torch.Tensor]:
         """One frame = ``steps`` fetch/decode/execute cycles for B machines.
-        ``inputs``: (B, P) uint8.  Where ``out`` is given (leaves of the
-        state's shapes, e.g. a ring slot) the new state is copied there and
-        ``out`` returned."""
+        ``inputs``: (B, P) uint8."""
         lane, rlane = _lanes(inputs.device)
 
         def fetch(mem: torch.Tensor, addr: torch.Tensor) -> torch.Tensor:
@@ -152,8 +148,7 @@ class ChipVM:
             seq = pc + 2  # uint8: wraps at 256, fixed 2-byte slots
             take = (kind == 6) & (new_ra != 0)
             pc = torch.where(take, imm, seq)
-        new = {"mem": mem, "regs": regs, "pc": pc}
-        return new if out is None else tree_copy_(out, new)
+        return {"mem": mem, "regs": regs, "pc": pc}
 
     # -- advance: numpy oracle ------------------------------------------
 

@@ -23,14 +23,13 @@ package and in the NumPy oracle.  Systems per frame:
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
 from ..convert import from_numpy
 from ..core.device import DeviceLike
-from ..utils.tree import tree_copy_
 
 _FP = 16
 _ONE = 1 << _FP
@@ -100,11 +99,8 @@ class EcsWorld:
 
     # -- advance: torch, batch-native ------------------------------------
 
-    def advance(self, state: Any, inputs: torch.Tensor,
-                out: Optional[Any] = None) -> Dict[str, torch.Tensor]:
-        """One frame for B worlds.  ``inputs``: (B, P) u8 bitmasks.  Where
-        ``out`` is given (leaves of the state's shapes, e.g. a ring slot)
-        the new state is copied there and ``out`` returned."""
+    def advance(self, state: Any, inputs: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """One frame for B worlds.  ``inputs``: (B, P) u8 bitmasks."""
         spawn, window = _device_consts(self.num_players, self.epp, inputs.device)
         inp = inputs.to(torch.int32)
         up = (inp >> 0) & 1
@@ -147,8 +143,7 @@ class EcsWorld:
         pos = torch.where(dead.unsqueeze(-1), spawn, pos)
         vel = torch.where(dead.unsqueeze(-1), 0, vel)
         health = torch.where(dead, _MAX_HEALTH, health)
-        new = {"health": health, "owner": owner, "pos": pos, "rally": rally, "vel": vel}
-        return new if out is None else tree_copy_(out, new)
+        return {"health": health, "owner": owner, "pos": pos, "rally": rally, "vel": vel}
 
     # -- advance: numpy oracle ------------------------------------------
 

@@ -24,7 +24,7 @@ independent NumPy oracle over decoded commands; the two agree exactly.
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,7 +34,6 @@ from ..core.config import Config, InputPredictor
 from ..core.device import DeviceLike
 from ..core.types import AdvanceFrame, LoadGameState, SaveGameState
 from ..core.varrec import VARREC_HEADER_BYTES, envelope_pack
-from ..utils.tree import tree_copy_
 
 CMD_BYTES = 4
 CMD_MOVE = 1
@@ -158,12 +157,9 @@ class RtsCmd:
 
     # -- advance: torch, batch-native, branchless, from envelope bytes --
 
-    def advance(self, state: Any, envelopes: torch.Tensor,
-                out: Optional[Any] = None) -> Dict[str, torch.Tensor]:
+    def advance(self, state: Any, envelopes: torch.Tensor) -> Dict[str, torch.Tensor]:
         """One frame for B sessions from raw varrec envelope bytes
-        ``u8 (B, P, S)``.  Where ``out`` is given (leaves of the state's
-        shapes, e.g. a ring slot) the new state is copied there and ``out``
-        returned.
+        ``u8 (B, P, S)``.
 
         The command count comes from the u16 envelope header.  Players are
         independent within a frame, so all (session, player) pairs run at
@@ -197,8 +193,7 @@ class RtsCmd:
             res = torch.where(can, res - BUILD_COST, res)
             bonus = (((op0 ^ op1) & 3) == 0).to(torch.int32)
             built = torch.where(can, built + 1 + bonus, built)
-        new = {"built": built, "res": res, "units": units}
-        return new if out is None else tree_copy_(out, new)
+        return {"built": built, "res": res, "units": units}
 
     # -- helpers for session-driven runs ---------------------------------
 

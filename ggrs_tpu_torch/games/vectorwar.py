@@ -24,21 +24,17 @@ thrust 1, brake 2, rotate left 4, rotate right 8, fire 16.
 
 On the card the step is one launch of a hand-written CUDA kernel a frame
 (``csrc/vectorwar.cu``, a warp a session), which reads each leaf in place at
-its own session stride and writes the new state once.  The route follows the
-tensors alone: a call with a tensor on a CUDA card takes the kernel, or
-raises where the kernel cannot read it (``games/_card.py``: leaves not int32,
-inputs not of an integer dtype, tensors on several devices; shapes other than
-the ones above of the same sessions; pair rows not 8-byte aligned); a leaf
-that is not evenly strided rows of contiguous inner dimensions is copied
-contiguous first.  CPU tensors take the eager body.  Both compute the same
-integers on every state whose positions and velocities lie within
-+-2^29 (every frame stays far inside; an int32 sum wraps on both routes).
-The process registry's ``ggrs_game_advance_total`` (labels
-``game="vectorwar"``, ``route="kernel"`` or ``"eager"``) counts the kernel's
-launches made from Python (a CUDA graph that captured one counts it once; an
-empty batch launches nothing) and the eager body's calls;
-``ggrs_game_advance_in_place_total`` (the same labels) counts those of them
-that wrote into a caller's ``out``.
+its own session stride and writes the new state once.  The route, ``out``
+and the counts are ``games/_card.py``'s: a call with a tensor on a CUDA card
+takes the kernel, or raises where the kernel cannot read it (leaves not
+int32, inputs not of an integer dtype, tensors on several devices; shapes
+other than the ones above of the same sessions; pair rows not 8-byte
+aligned); a leaf that is not evenly strided rows of contiguous inner
+dimensions is copied contiguous first.  CPU tensors take the eager body.
+Both compute the same integers on every state whose positions and
+velocities lie within +-2^29 (every frame stays far inside; an int32 sum
+wraps on both routes).  The process registry's ``ggrs_game_advance_total``
+counts both routes under ``game="vectorwar"``.
 """
 
 from __future__ import annotations
@@ -53,9 +49,7 @@ import torch
 from .. import _build
 from ..convert import from_numpy
 from ..core.device import DeviceLike
-from ..ops.digest import count_launches
-from ..utils.tree import tree_copy_
-from ._card import ADVANCES, IN_PLACE, check_call, launch, on_card, outputs, read_in_place
+from ._card import Kernel, check_call, read_in_place
 
 INPUT_THRUST = 1 << 0
 INPUT_BRAKE = 1 << 1
@@ -103,10 +97,6 @@ def _device_consts(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor, to
 
 # -- the kernel route (csrc/vectorwar.cu) ------------------------------------
 
-_KERNEL_LAUNCHES = ADVANCES.labels(game="vectorwar", route="kernel")
-_EAGER_CALLS = ADVANCES.labels(game="vectorwar", route="eager")
-_KERNEL_IN_PLACE = IN_PLACE.labels(game="vectorwar", route="kernel")
-_EAGER_IN_PLACE = IN_PLACE.labels(game="vectorwar", route="eager")
 # the leaves the kernel loads in 8-byte pairs
 _PAIRED = tuple(i for i, k in enumerate(LEAVES) if k in ("bullet_pos", "bullet_vel", "pos", "vel"))
 
@@ -135,11 +125,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _on_card(state: Any, inputs: Any) -> bool:
-    """Whether the call has a tensor on a CUDA card (the kernel's route)."""
-    return on_card(inputs, *(state[k] for k in LEAVES))
-
-
 def _card_leaves(state: Any, inputs: Any) -> Tuple[Tuple[torch.Tensor, ...], Tuple[int, ...]]:
     """The nine leaves (``LEAVES`` order) and ``inputs`` as the kernel reads
     them, and the bytes from one session's row to the next of each
@@ -160,36 +145,19 @@ def _card_leaves(state: Any, inputs: Any) -> Tuple[Tuple[torch.Tensor, ...], Tup
                          paired_names="bullet_pos, bullet_vel, pos and vel")
 
 
-def _advance_kernel(state: Any, inputs: torch.Tensor,
-                    out: Optional[Any] = None) -> Dict[str, torch.Tensor]:
-    """One launch of the kernel on the inputs' card and current stream: the
-    new state in nine tensors made here (``torch.empty``, inside a capture
-    too), or in ``out``'s where given (``games/_card.py::outputs`` checks
-    them), written whole by the kernel; no launch for an empty batch.
-    ``_advance_kernel.launches`` counts the launches as the digest's
-    counters count theirs (``ops.digest.count_launches``), and the
-    registry's ``route="kernel"`` children count the launches made from
-    Python, those into an ``out`` in ``ggrs_game_advance_in_place_total``
-    too."""
-    every, strides = _card_leaves(state, inputs)
-    leaves, inp = every[:-1], every[-1]
-    dev = inp.device
-    children = (_KERNEL_LAUNCHES,) if out is None else (_KERNEL_LAUNCHES, _KERNEL_IN_PLACE)
-    new = outputs("VectorWar", LEAVES, leaves, dev, out, read=every)
-    rows = inp.numel() // SHIPS
-    if rows == 0:
-        return new
-    lut, _, _ = _device_consts(dev)
+def _kernel_args(read: tuple, strides: tuple, new: Dict[str, torch.Tensor], rows: int) -> tuple:
+    """``ggrs_vectorwar_advance``'s arguments but the stream."""
+    leaves, inp = read[:-1], read[-1]
+    lut, _, _ = _device_consts(inp.device)
     ptrs = (ctypes.c_void_p * len(LEAVES))(*(x.data_ptr() for x in leaves))
     row_bytes = (ctypes.c_int64 * len(LEAVES))(*strides[:-1])
     outs = (ctypes.c_void_p * len(LEAVES))(*(new[k].data_ptr() for k in LEAVES))
-    args = (rows, ptrs, row_bytes, inp.data_ptr(), strides[-1], inp.element_size(), outs,
+    return (rows, ptrs, row_bytes, inp.data_ptr(), strides[-1], inp.element_size(), outs,
             lut.data_ptr())
-    launch("vectorwar", _lib().ggrs_vectorwar_advance, args, dev, _advance_kernel, children)
-    return new
 
 
-count_launches(_advance_kernel)
+_advance_kernel = Kernel("VectorWar", LEAVES, _card_leaves, _kernel_args,
+                         lambda: _lib().ggrs_vectorwar_advance)
 
 
 def _isqrt(n: torch.Tensor) -> torch.Tensor:
@@ -236,17 +204,8 @@ class VectorWar:
         the kernel, else the eager body (module docstring); both give the
         same integers.  Where ``out`` is given (leaves of the state's
         shapes, e.g. a ring slot) the new state is written there and ``out``
-        returned: the kernel writes it directly (contiguous int32 leaves
-        that overlap nothing it reads, or it raises), the eager body's
-        result is copied in."""
-        if _on_card(state, inputs):
-            return _advance_kernel(state, inputs, out)
-        _EAGER_CALLS.inc()
-        new = self._advance_eager(state, inputs)
-        if out is None:
-            return new
-        _EAGER_IN_PLACE.inc()
-        return tree_copy_(out, new)
+        returned (``games/_card.py``)."""
+        return _advance_kernel.advance(self._advance_eager, state, inputs, out)
 
     def _advance_eager(self, state: Any, inputs: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The step as eager PyTorch, every ship at once: the CPU route and

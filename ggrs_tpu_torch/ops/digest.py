@@ -28,27 +28,21 @@ CUDA tensor to the kernel (or the call raises).  There is no switch and no
 size threshold.
 
 ``state_digest.launches`` and ``lane_sums_rows.launches`` count the
-kernel's launches on the card, as does the ``launches`` of every other
-wrapper given to ``count_launches`` (BoxGame's advance kernel).  A wrapper
-called while a CUDA graph is captured launches nothing yet, and each replay
-of the graph launches again without calling it: ``GraphLaunches`` moves the
-capture's count onto the replays, so the counts keep meaning kernels the
-card ran.  A capture takes only its own thread's launches: what other
-threads launch meanwhile stays on the counters.
+kernel's launches on the card (``ops/kernels.py``: a graph's capture moves
+its launches onto its replays).
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 import math
-import threading
-from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from .. import _build
+from .kernels import call, count_launch, count_launches, row_stride
 
 MASK32 = 0xFFFFFFFF
 PRIME_A = 40503
@@ -117,27 +111,6 @@ def as_u32_words(x: torch.Tensor) -> torch.Tensor:
     return rows.view(torch.int32)
 
 
-def _row_stride(shape, strides, batch_dims: int):
-    """Elements from one row to the next of a tensor of this shape and these
-    strides, where its first ``batch_dims`` axes index evenly strided rows
-    whose elements are contiguous; None otherwise."""
-    expect = 1
-    for size, stride in zip(reversed(shape[batch_dims:]), reversed(strides[batch_dims:])):
-        if size != 1 and stride != expect:
-            return None
-        expect *= size
-    row, span = None, 1
-    for size, stride in zip(reversed(shape[:batch_dims]), reversed(strides[:batch_dims])):
-        if size == 1:
-            continue
-        if row is None:
-            row = stride
-        elif stride != row * span:
-            return None
-        span *= size
-    return expect if row is None else row
-
-
 @functools.lru_cache(maxsize=256)
 def _plan(batch_dims: int, leaves: tuple) -> Tuple[int, int, tuple]:
     """``(rows, width, entries)`` for leaves given as ``(shape, strides,
@@ -159,7 +132,7 @@ def _plan(batch_dims: int, leaves: tuple) -> Tuple[int, int, tuple]:
             rows = r
         elif r != rows:
             raise ValueError(f"state_digest: leaves hold {rows} and {r} rows")
-        stride = _row_stride(shape, strides, batch_dims)
+        stride = row_stride(shape, strides, batch_dims)
         nbytes = math.prod(shape[batch_dims:]) * item
         if nbytes:
             entries.append((i, None if stride is None else stride * item, nbytes, width))
@@ -260,19 +233,11 @@ def _launch(
     segs = -(-width // SEG_WORDS) if width > GROUP_MAX_WORDS else 0
     scratch = torch.empty((rows * segs, 4), dtype=torch.int32, device=device) if segs > 1 else None
     table = (ctypes.c_longlong * (4 * len(entries)))(*[v for e in entries for v in e])
-    fn = _lib().ggrs_state_digest
     args = (
         table, len(entries), rows, width, int(raw), *mix, offset & MASK32,
         out.data_ptr(), None if scratch is None else scratch.data_ptr(),
-        torch.cuda.current_stream(device).cuda_stream,
     )
-    if device.index == torch.cuda.current_device():
-        err = fn(*args)
-    else:  # the library launches on the current device
-        with torch.cuda.device(device):
-            err = fn(*args)
-    if err != 0:
-        raise RuntimeError(f"digest kernel launch failed: CUDA error {err}")
+    call("digest", _lib().ggrs_state_digest, args, device)
     return out
 
 
@@ -358,8 +323,6 @@ def state_digest(
     return digests if out is None else out.copy_(digests)
 
 
-
-
 def _check(words: torch.Tensor) -> None:
     if not isinstance(words, torch.Tensor):
         raise TypeError(f"lane_sums_rows: expected a tensor, got {type(words).__name__}")
@@ -385,72 +348,6 @@ def lane_sums_rows(words: torch.Tensor, offset: int = 0) -> torch.Tensor:
     if rows:
         count_launch(lane_sums_rows)
     return out
-
-
-
-
-# the wrappers whose ``launches`` follow their kernels into CUDA graphs
-_COUNTED: List[Any] = []
-# the capture in progress on each thread (by thread id), if any
-_captures: Dict[int, "GraphLaunches"] = {}
-
-
-def count_launches(wrapper: Any) -> Any:
-    """Give ``wrapper`` a ``launches`` count, from 0, that ``count_launch``
-    adds to and ``GraphLaunches`` moves from a graph's capture onto its
-    replays; returns ``wrapper``."""
-    wrapper.launches = 0
-    _COUNTED.append(wrapper)
-    return wrapper
-
-
-def count_launch(wrapper: Any) -> None:
-    """One launch of ``wrapper``'s kernel.  While another thread captures a
-    graph, the launch is noted as foreign to that capture, which then leaves
-    it counted."""
-    wrapper.launches += 1
-    if _captures:
-        me = threading.get_ident()
-        for tid, graph in list(_captures.items()):
-            if tid != me and wrapper in graph.foreign:
-                graph.foreign[wrapper] += 1
-
-
-class GraphLaunches:
-    """The counted launches one CUDA graph holds.
-
-    ``capturing()`` wraps the graph's capture: it records how much each
-    counter grew on this thread (the launches the graph captured) and sets
-    it back, since a capture runs no kernel; launches that other threads
-    counted meanwhile (``foreign``) stay counted.  ``replayed()`` adds the
-    graph's counts to the counters, once for each replay of the graph."""
-
-    def __init__(self) -> None:
-        self.counts: Dict[Any, int] = {}
-        self.foreign: Dict[Any, int] = {}
-
-    @contextlib.contextmanager
-    def capturing(self) -> Iterator[None]:
-        before = {w: w.launches for w in _COUNTED}
-        self.foreign = dict.fromkeys(before, 0)
-        tid = threading.get_ident()
-        outer = _captures.get(tid)
-        _captures[tid] = self
-        try:
-            yield
-        finally:
-            if outer is None:
-                del _captures[tid]
-            else:
-                _captures[tid] = outer
-            f = self.foreign
-            self.counts = {w: w.launches - n - f[w] for w, n in before.items()}
-            for w, n in before.items():
-                w.launches = n + f[w]
-
-    def replayed(self) -> None:
-        for w, n in self.counts.items():
-            w.launches += n
 
 
 count_launches(state_digest)

@@ -9,9 +9,9 @@ so nothing a capture allocates outlives it, and the graphs of a set can
 replay in any order.  ``GraphSet.capture(body)`` records ``body`` (a
 function of no arguments over those buffers) as a ``Graph``; its
 ``replay`` runs the recorded kernels again on whatever the buffers then
-hold.  The counted launches the capture recorded (the digest's and
-BoxGame's advance kernel's) move onto the replays
-(``digest.GraphLaunches``), so their ``launches`` keep counting kernels
+hold.  The counted launches the capture recorded (the digest's and the
+games' advance kernels') move onto the replays
+(``kernels.GraphLaunches``), so their ``launches`` keep counting kernels
 the card ran.
 
 A capture runs nothing, so whatever ``body`` does once lazily (a game's
@@ -51,7 +51,7 @@ from ..obs.registry import default_registry
 from ..utils.tracing import marking, profiling, trace_span
 from ..utils.tree import tree_leaves, tree_map
 from . import marks as layer_marks
-from .digest import GraphLaunches
+from .kernels import GraphLaunches
 
 # held for each capture, and by ``synchronize``
 CAPTURE_LOCK = threading.RLock()

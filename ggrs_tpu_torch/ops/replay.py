@@ -113,9 +113,9 @@ class ReplayPrograms:
     ``advance`` is batch-native and pure: it takes state leaves ``(B, ...)``
     and inputs ``(B, ...)`` and returns new tensors without writing its
     arguments (the loaded state is a view of the ring).  Where it takes an
-    ``out`` (every bundled game's does: the leaves to write) the steady
-    tick hands it the ring slot or live state to write; otherwise its result
-    is copied there.  ``checksum`` likewise, with ``out`` the digests'
+    ``out`` (the games with a kernel, ``games/_card.py``: the leaves to
+    write) the steady tick hands it the ring slot or live state to write;
+    otherwise its result is copied there.  ``checksum`` likewise, with ``out`` the digests'
     rows."""
 
     ring: DeviceStateRing
@@ -320,7 +320,7 @@ class TickGraphs:
     replay one at a time, on the caller's stream, in any order.  They stay
     valid while the carry's tensors do; ``load_checkpoint`` copies into
     them in place.  Each replay adds its graph's digest launches to the
-    counters (``digest.GraphLaunches``).
+    counters (``kernels.GraphLaunches``).
 
     A capture runs nothing, so whatever a tick does once lazily (the games'
     device constants, the digest library's first launch) must have run

@@ -26,6 +26,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from ggrs_tpu_torch import BatchedSessions, BoxGame, DeviceSyncTestSession
+from ggrs_tpu_torch.games import _card
 from ggrs_tpu_torch.games import boxgame as bg
 from ggrs_tpu_torch.obs.registry import default_registry
 from ggrs_tpu_torch.ops.ring import DeviceStateRing
@@ -224,7 +225,7 @@ def test_entries_carry_bitwise_the_eager_route(card, entry, monkeypatch):
     # d + 1 a steady tick (the graphs' replays)
     assert _count("kernel") - before[0] >= (D + 1) + R * (D + 1)
     assert bg._advance_kernel.launches - before[1] == (D + 1) + 2 * R * (D + 1)
-    monkeypatch.setattr(bg, "_on_card", lambda state, inputs: False)
+    monkeypatch.setattr(_card, "on_card", lambda *tensors: False)
     eager_before = _count("eager")
     twin = _session(entry, card)
     _ticks(entry, twin, inputs, 0, ticks)

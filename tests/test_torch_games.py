@@ -10,7 +10,6 @@ views, expanded rows, copies, the calls it refuses), the launch count through
 graph replays and the kernel's build entry (the kernel itself is held to
 the eager body on the card, ``test_torch_boxgame_kernel_card.py``)."""
 
-import contextlib
 import ctypes
 import hashlib
 from pathlib import Path
@@ -27,9 +26,10 @@ from ggrs_tpu.games.chipvm import ChipVM as JaxChipVM
 
 import ggrs_tpu_torch._build as tbuild
 from ggrs_tpu_torch import BoxGame, ChipVM, from_numpy, to_numpy
+from ggrs_tpu_torch.games import _card
 from ggrs_tpu_torch.games import boxgame as boxgame_mod
 from ggrs_tpu_torch.obs.registry import default_registry
-from ggrs_tpu_torch.ops.digest import GraphLaunches, count_launch
+from ggrs_tpu_torch.ops.kernels import GraphLaunches, count_launch
 
 FRAMES = 200
 ROOT = Path(__file__).resolve().parents[1]
@@ -138,7 +138,7 @@ def _batch(game, b):
 def test_cpu_tensors_and_the_float_variant_take_the_eager_route(variant):
     game = BoxGame(2, variant)
     state, inputs = _batch(game, 3), torch.full((3, 2), 5, dtype=torch.uint8)
-    assert not boxgame_mod._on_card(state, inputs)
+    assert not _card.on_card(inputs, *state.values())
     before = (_advances("kernel"), _advances("eager"))
     out = game.advance(state, inputs)
     assert (_advances("kernel"), _advances("eager")) == (before[0], before[1] + 1)
@@ -156,11 +156,11 @@ class _FakeCard:
     def __init__(self, monkeypatch):
         self.calls, self.want, self.err = [], None, 0
         lib = type("Lib", (), {"ggrs_boxgame_advance": staticmethod(self.launch)})
-        monkeypatch.setattr(boxgame_mod, "_on_card", lambda state, inputs: True)
+        monkeypatch.setattr(_card, "on_card", lambda *tensors: True)
         monkeypatch.setattr(boxgame_mod, "_lib", lambda: lib)
         monkeypatch.setattr(torch.cuda, "current_stream",
                             lambda device=None: type("S", (), {"cuda_stream": 0})())
-        monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+        monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
 
     def launch(self, *args):
         self.calls.append(args)

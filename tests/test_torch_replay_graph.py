@@ -41,6 +41,7 @@ from ggrs_tpu_torch import (
     to_numpy,
 )
 from ggrs_tpu_torch.ops import digest as tdg
+from ggrs_tpu_torch.ops.kernels import GraphLaunches
 from ggrs_tpu_torch.ops.replay import I32_MAX
 from ggrs_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -192,7 +193,7 @@ def test_graph_launches_move_from_the_capture_onto_each_replay(b, d, monkeypatch
         n = progs.digest_calls(frame)
         assert n == len(spans) + 1
         before = (tdg.state_digest.launches, tdg.lane_sums_rows.launches)
-        launches = tdg.GraphLaunches()
+        launches = GraphLaunches()
         with launches.capturing():
             progs.steady_body(carry, frame)
         assert (launches.counts[tdg.state_digest], launches.counts[tdg.lane_sums_rows]) == (n, 0)
@@ -206,7 +207,7 @@ def test_graph_launches_move_from_the_capture_onto_each_replay(b, d, monkeypatch
 
 def test_a_failed_capture_leaves_the_counters_as_they_were():
     before = tdg.state_digest.launches
-    launches = tdg.GraphLaunches()
+    launches = GraphLaunches()
     with pytest.raises(RuntimeError):
         with launches.capturing():
             tdg.state_digest.launches += 1

@@ -44,6 +44,7 @@ from ggrs_tpu_torch import (
 )
 from ggrs_tpu_torch.convert import from_numpy
 from ggrs_tpu_torch.ops import digest as tdg
+from ggrs_tpu_torch.ops.kernels import GraphLaunches
 from ggrs_tpu_torch.ops import graphs as graphs_mod
 from ggrs_tpu_torch.ops.executor import ExecutorGraphs
 from ggrs_tpu_torch.ops.ring import DeviceStateRing
@@ -73,7 +74,7 @@ class _Replayer:
         self.body = body
 
     def replay(self):
-        with tdg.GraphLaunches().capturing():
+        with GraphLaunches().capturing():
             self.body()
 
 

@@ -11,13 +11,15 @@ window in its own slots.  Pinned here:
   the window wrapping the ring and not) the carry has the old shapes over
   slot-major storage and is bitwise an independent replay made of the
   game's own advance and digest (and, where the JAX package has the game,
-  the JAX carry), for BoxGame fixed and float, VectorWar, ChipVM (the
-  ``copy_`` route of ``out``) and an advance that takes no ``out``;
+  the JAX carry), for BoxGame fixed and float, VectorWar, and ChipVM and a
+  caller's own BoxGame step, which take no ``out`` (the replay copies their
+  results into the slot);
 - a checkpoint round-trips into the slot-major carry's own buffers;
 - the session pool's ring stays session-major;
 - ``out`` on the games' kernel route (a stand-in library on CPU tensors):
-  the slot's pointers go to the kernel, refusals raise before any launch,
-  and ``ggrs_game_advance_in_place_total`` counts the in-place advances.
+  the slot's pointers go to the kernel and the slot's tensors come back,
+  refusals raise before any launch; on the eager route every steady
+  advance is handed its slot, and the carry keeps its tensors.
 """
 
 import contextlib
@@ -35,6 +37,7 @@ from ggrs_tpu.parallel import BatchedSessions as JaxBatchedSessions
 from ggrs_tpu.parallel import make_mesh as jax_make_mesh
 
 from ggrs_tpu_torch import BatchedSessions, BoxGame, ChipVM, DeviceSyncTestSession, to_numpy
+from ggrs_tpu_torch.games import _card
 from ggrs_tpu_torch.games import boxgame as boxgame_mod
 from ggrs_tpu_torch.games import vectorwar as vectorwar_mod
 from ggrs_tpu_torch.games.vectorwar import VectorWar
@@ -187,11 +190,6 @@ def test_the_pool_ring_stays_session_major():
 # -- out on the kernel route, with a stand-in library on CPU tensors ----------
 
 
-def _in_place(game, route):
-    return default_registry().value("ggrs_game_advance_in_place_total", game=game,
-                                    route=route) or 0.0
-
-
 def _advances(game, route):
     return default_registry().value("ggrs_game_advance_total", game=game, route=route) or 0.0
 
@@ -210,11 +208,11 @@ def _stand_in_card(monkeypatch, name):
     mod, _, entry, _ = KERNELS[name]
     calls = []
     lib = type("Lib", (), {entry: staticmethod(lambda *args: calls.append(args) or 0)})
-    monkeypatch.setattr(mod, "_on_card", lambda state, inputs: True)
+    monkeypatch.setattr(_card, "on_card", lambda *tensors: True)
     monkeypatch.setattr(mod, "_lib", lambda: lib)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: type("S", (), {"cuda_stream": 0})())
-    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
     yield calls
 
 
@@ -237,18 +235,20 @@ def test_kernel_writes_a_slot_in_place_and_counts_it(monkeypatch, name):
     ring = _slot_major_ring(game, 9)
     st, out = {k: v[:, 3] for k, v in ring.items()}, {k: v[:, 4] for k, v in ring.items()}
     inputs = torch.zeros((B, players), dtype=torch.uint8)
-    before = (_in_place(name, "kernel"), _advances(name, "kernel"), mod._advance_kernel.launches)
+    before = (_advances(name, "kernel"), _advances(name, "eager"), mod._advance_kernel.launches)
     with _stand_in_card(monkeypatch, name) as calls:
         got = game.advance(st, inputs, out=out)
         assert len(calls) == 1
-        keys = ("pos", "vel", "rot") if name == "boxgame" else vectorwar_mod.LEAVES
-        assert _out_pointers(name, calls[0]) == [out[k].data_ptr() for k in keys]
-        assert all(got[k] is out[k] for k in keys)
-        after = (_in_place(name, "kernel"), _advances(name, "kernel"), mod._advance_kernel.launches)
-        assert after == (before[0] + 1, before[1] + 1, before[2] + 1)
-        game.advance(st, inputs)  # a lone advance: fresh outputs, not in place
-        assert _in_place(name, "kernel") == before[0] + 1
-        assert _out_pointers(name, calls[1]) != [out[k].data_ptr() for k in keys]
+        keys = mod._advance_kernel.names
+        slot = [out[k].data_ptr() for k in keys]
+        assert _out_pointers(name, calls[0]) == slot
+        assert sorted(got) == sorted(keys) and all(got[k] is out[k] for k in keys)
+        after = (_advances(name, "kernel"), _advances(name, "eager"), mod._advance_kernel.launches)
+        assert after == (before[0] + 1, before[1], before[2] + 1)
+        fresh = game.advance(st, inputs)  # a lone advance: fresh outputs, not the slot
+        assert _out_pointers(name, calls[1]) == [fresh[k].data_ptr() for k in keys] != slot
+        after = (_advances(name, "kernel"), _advances(name, "eager"), mod._advance_kernel.launches)
+        assert after == (before[0] + 2, before[1], before[2] + 2)
 
 
 @pytest.mark.parametrize("name", sorted(KERNELS))
@@ -282,12 +282,30 @@ def test_kernel_route_refuses_an_out_it_cannot_write(monkeypatch, name):
 def test_eager_steady_ticks_count_their_advances_in_place(name):
     game = BoxGame(2) if name == "boxgame" else VectorWar()
     players = 2 if name == "boxgame" else 4
-    sess = BatchedSessions(game.advance, game.init_state_np(), np.zeros(players, np.uint8),
+    outs = []
+
+    def step(state, inputs, out=None):
+        if out is not None:
+            outs.append([x.data_ptr() for x in tree_leaves(out)])
+        got = game.advance(state, inputs, out)
+        assert out is None or all(got[k] is out[k] for k in out)
+        return got
+
+    sess = BatchedSessions(step, game.init_state_np(), np.zeros(players, np.uint8),
                            batch_size=B, check_distance=D, device="cpu")
     inputs = np.zeros((B, D + 1 + 4, players), np.uint8)
-    before = (_in_place(name, "eager"), _advances(name, "eager"))
+    before = (_advances(name, "kernel"), _advances(name, "eager"))
     sess.run_ticks(inputs[:, :D + 1])  # the warmup ticks advance into fresh tensors
-    assert _in_place(name, "eager") == before[0]
+    assert outs == []
+    carry = [x.data_ptr() for x in tree_leaves(sess.carry)]
+    states, live = sess.carry["ring"]["states"], sess.carry["live"]
+    r = sess.programs.ring.length
+    slots = [[x[:, i].data_ptr() for x in tree_leaves(states)] for i in range(r)]
+    slots.append([x.data_ptr() for x in tree_leaves(live)])
     sess.run_ticks(inputs[:, D + 1:])
-    assert _in_place(name, "eager") - before[0] == 4 * (D + 1)
+    # every steady advance is handed a ring slot or the live state, and the
+    # carry keeps its tensors
+    assert len(outs) == 4 * (D + 1) and all(o in slots for o in outs)
+    assert [x.data_ptr() for x in tree_leaves(sess.carry)] == carry
+    assert _advances(name, "kernel") == before[0]
     assert _advances(name, "eager") - before[1] == (D + 1) + 4 * (D + 1)

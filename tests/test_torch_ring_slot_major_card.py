@@ -11,9 +11,10 @@ VectorWar on their advance kernels:
   kernel in its graph and no copy in its ring layer, and exactly the
   kernels its phase predicts, layer by layer (``_predicted_layers``: the
   window wraps the ring in 7 phases of 9);
-- ``ggrs_game_advance_in_place_total`` counts 9 of the 9 advances of each
-  captured steady tick, none of a lone advance or of a scrub window, and
-  no replay adds to it;
+- each captured steady tick launches its 9 advances from Python, each
+  into its ring slot or the live state (the output pointers handed to the
+  library), a lone advance and a scrub window into fresh tensors, and no
+  replay launches from Python; the carry keeps its tensors;
 - the carry after the run is bitwise the same sessions' on the eager
   bodies: all of them on the card, the first ``CPU_ROWS`` on the CPU;
 - the kernel wrappers refuse an ``out`` that is not contiguous rows, is not
@@ -34,6 +35,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from ggrs_tpu_torch import BatchedSessions, BoxGame, build_scrub_program
+from ggrs_tpu_torch.games import _card
 from ggrs_tpu_torch.games import boxgame as boxgame_mod
 from ggrs_tpu_torch.games import vectorwar as vectorwar_mod
 from ggrs_tpu_torch.games.vectorwar import VectorWar
@@ -64,9 +66,31 @@ def card():
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def _in_place(name):
-    return default_registry().value("ggrs_game_advance_in_place_total", game=name,
-                                    route="kernel") or 0.0
+def _launched(name):
+    return default_registry().value("ggrs_game_advance_total", game=name, route="kernel") or 0.0
+
+
+def _spy(monkeypatch, name):
+    """The output pointers of each launch of the game's kernel made from
+    Python, in the kernel's leaf order, as the launches go on."""
+    seen, call = [], _card.call
+
+    def spy(what, fn, args, device):
+        outs = args[11:14] if name == "boxgame" else args[6]  # a ctypes array
+        seen.append(list(outs))
+        call(what, fn, args, device)
+
+    monkeypatch.setattr(_card, "call", spy)
+    return seen
+
+
+def _carry_slots(name, carry, r):
+    """Each ring slot's and the live state's pointers, in the kernel's leaf
+    order."""
+    keys = GAMES[name][4]._advance_kernel.names
+    states, live = carry["ring"]["states"], carry["live"]
+    return [[states[k][:, i].data_ptr() for k in keys] for i in range(r)] + \
+        [[live[k].data_ptr() for k in keys]]
 
 
 def _session(name, device):
@@ -131,19 +155,27 @@ def test_every_phase_runs_its_window_in_place(card, name, tmp_path, monkeypatch)
     at = D + 1 + r  # the warmup, then a ring period: every phase captured
     ticks = at + r + 2
     inputs = _inputs(name, ticks)
-    before = _in_place(name)
+    seen = _spy(monkeypatch, name)
+    before = _launched(name)
     sess.run_ticks(inputs[:, :D + 1], check=True)
-    assert _in_place(name) == before  # the warmup's advances write fresh tensors
+    slots = _carry_slots(name, sess.carry, r)
+    carry = [x.data_ptr() for x in tree_leaves(sess.carry)]
+    # the warmup's advances write fresh tensors
+    assert len(seen) == _launched(name) - before == D + 1
+    assert not [p for p in seen if p in slots]
     for t in range(D + 1, at):
         sess.run_ticks(inputs[:, t:t + 1], check=True)
     (graphs,) = programs.tick_graphs
     assert graphs.captures == r
-    assert _in_place(name) - before == (D + 1) * r  # 9 of 9 a captured tick
+    # 9 of 9 a captured tick into the carry
+    captured = seen[D + 1:]
+    assert len(captured) == _launched(name) - before - (D + 1) == (D + 1) * r
+    assert all(p in slots for p in captured)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for t in range(at, at + r):
             sess.run_ticks(inputs[:, t:t + 1], check=True)
         torch.cuda.synchronize()
-    assert _in_place(name) - before == (D + 1) * r  # replays launch with no Python
+    assert len(seen) == _launched(name) - before == (D + 1) * (r + 1)  # no Python in a replay
     per_tick = _graph_kernels(prof, tmp_path)
     assert len(per_tick) == r
     kernel = GAMES[name][3]
@@ -164,19 +196,20 @@ def test_every_phase_runs_its_window_in_place(card, name, tmp_path, monkeypatch)
     assert {len(ring.spans(f - D + 1, D)) for f in range(at, at + r)} == {1, 2}
     sess.run_ticks(inputs[:, at + r:], check=True)
     torch.cuda.synchronize()
-    # a lone advance and a scrub window write fresh tensors: nothing in place
-    count = _in_place(name)
+    assert [x.data_ptr() for x in tree_leaves(sess.carry)] == carry
+    # a lone advance and a scrub window write fresh tensors, not the carry
+    count = len(seen)
     live = tree_map(lambda x: x[:4], sess.carry["live"])
     game.advance(live, torch.from_numpy(inputs[:4, 0]).to(card))
     scrub = build_scrub_program(game.advance, card)
     scrub(tree_map(lambda x: x[0], live), torch.from_numpy(inputs[0, :3]).to(card))
     torch.cuda.synchronize()
-    assert _in_place(name) == count
+    assert len(seen) > count and not [p for p in seen[count:] if p in slots]
 
     # the same ticks on the eager bodies: every session on the card, and the
     # first CPU_ROWS on the CPU (kept short: see CPU_ROWS)
     got = tree_leaves(sess.carry)
-    monkeypatch.setattr(GAMES[name][4], "_on_card", lambda state, inputs: False)
+    monkeypatch.setattr(_card, "on_card", lambda *tensors: False)
     _, twin = _session(name, card)
     twin.run_ticks(inputs, check=True)
     torch.cuda.synchronize()

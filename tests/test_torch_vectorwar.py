@@ -5,7 +5,6 @@ over VectorWar against the reference replay's expected carry; and the
 kernel route's wrapper (the route, the counter, the layout it hands the
 library) with CPU tensors standing in for the card's."""
 
-import contextlib
 import ctypes
 import hashlib
 from pathlib import Path
@@ -17,7 +16,7 @@ import torch
 from benchmark.reference import replay as ref_replay
 from benchmark.reference import vectorwar as ref
 from ggrs_tpu_torch import _build as tbuild
-from ggrs_tpu_torch.games import VectorWar
+from ggrs_tpu_torch.games import VectorWar, _card
 from ggrs_tpu_torch.games import vectorwar as vw
 from ggrs_tpu_torch.obs.registry import default_registry
 from ggrs_tpu_torch.parallel.batch import BatchedSessions
@@ -262,11 +261,11 @@ class _FakeCard:
     def __init__(self, monkeypatch):
         self.calls, self.want, self.err = [], None, 0
         lib = type("Lib", (), {"ggrs_vectorwar_advance": staticmethod(self.launch)})
-        monkeypatch.setattr(vw, "_on_card", lambda state, inputs: True)
+        monkeypatch.setattr(_card, "on_card", lambda *tensors: True)
         monkeypatch.setattr(vw, "_lib", lambda: lib)
         monkeypatch.setattr(torch.cuda, "current_stream",
                             lambda device=None: type("S", (), {"cuda_stream": 0})())
-        monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+        monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
 
     def launch(self, rows, leaves, strides, inp, inp_stride, item, outs, lut, stream):
         self.calls.append({"rows": rows, "leaves": list(leaves),
@@ -282,7 +281,7 @@ class _FakeCard:
 def test_cpu_tensors_take_the_eager_route():
     game, st = VectorWar(), _i32(_batch(3))
     inputs = torch.full((3, 4), FIRE, dtype=torch.uint8)
-    assert not vw._on_card(st, inputs)
+    assert not _card.on_card(inputs, *st.values())
     before = (_advances("kernel"), _advances("eager"), vw._advance_kernel.launches)
     out = game.advance(st, inputs)
     assert (_advances("kernel"), _advances("eager"), vw._advance_kernel.launches) == \
