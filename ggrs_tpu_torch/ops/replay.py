@@ -41,17 +41,21 @@ Digests are int32 tensors holding u32 bit patterns.  Slots are host ints
 the frame NUMBERS a tick writes (the ring's ``frames``, ``first_bad``) come
 from the carry's ``frame``, which each tick advances by one, as the JAX
 scan takes its frames as traced inputs.  ``run_*`` never reads a value back
-to the host and never synchronises.
+to the host and never synchronises, but for ``run_ticks`` where both of the
+stage's buffers are still being sent (``ops/stage.py``).
 
 The JAX package jits its scan of ticks into one XLA program.  The port's
 counterpart on the card is a CUDA graph: ``run_steady`` on a CUDA carry
 runs each steady tick as one input copy and one replay of the graph of its
-phase ``frame % R`` (``TickGraphs``).  A tick's slots depend on its frame
-only through the phase, and its frame numbers come from the device, so
-the graph captured at frame F is the tick at every frame F + kR.  The
-eager ``steady_tick`` is the graph's plain version and what a CPU carry
-runs.  The warmup ticks stay eager: d + 1 of them per session, each in
-another phase.  ``build_scrub_program`` graphs a window of advances the
+phase ``frame % R`` (``TickGraphs``).  ``run_ticks``, both SyncTest
+entries' call, stages a call's host inputs once in the carry's persistent
+pinned block (``ops/stage.py``), so that input copy is one host-to-device
+copy from the tick's pinned row straight into its input ring slot.  A
+tick's slots depend on its frame only through the phase, and its frame
+numbers come from the device, so the graph captured at frame F is the tick
+at every frame F + kR.  The eager ``steady_tick`` is the graph's plain
+version and what a CPU carry runs.  The warmup ticks stay eager: d + 1 of
+them per session, each in another phase.  ``build_scrub_program`` graphs a window of advances the
 same way.
 """
 
@@ -64,13 +68,23 @@ import torch
 
 from ..convert import from_numpy
 from ..core.device import DeviceLike, resolve_device
+from ..obs.registry import default_registry
 from ..utils.tracing import layer, trace_span
 from ..utils.tree import tree_copy_, tree_leaves, tree_map, writing_into
 from .checksum import CHECKSUM_LANES, checksum_device
 from .graphs import Graph, GraphSet
 from .ring import DeviceStateRing
+from .stage import InputStage
 
 I32_MAX = 2**31 - 1
+
+UPLOADS = default_registry().counter(
+    "ggrs_tick_upload_total",
+    "SyncTest ticks by how their inputs reached the input ring: staged (a pinned row "
+    "sent into the slot), device (a CUDA tensor copied there), host (a CPU carry)",
+    labels=("route",),
+)
+_UPLOADED = {route: UPLOADS.labels(route=route) for route in ("staged", "device", "host")}
 
 AdvanceFn = Callable[[Any, Any], Any]  # (states (B, ...), inputs (B, ...)) -> states
 ChecksumFn = Callable[[Any], torch.Tensor]  # states (B, ...) -> (B, 4) int32
@@ -106,6 +120,12 @@ def _carry_key(carry: Any) -> tuple:
     return tuple((x.data_ptr(), tuple(x.shape), x.stride(), x.dtype) for x in tree_leaves(carry))
 
 
+def _stage_key(carry: Any) -> tuple:
+    """What a carry's input stage is bound to: its input ring's addresses,
+    shapes and dtypes (a few leaves, where ``_carry_key`` reads them all)."""
+    return tuple((x.data_ptr(), tuple(x.shape), x.dtype) for x in tree_leaves(carry["inputs"]))
+
+
 @dataclass(frozen=True)
 class ReplayPrograms:
     """Tick programs over a fixed (advance, ring, check_distance).
@@ -124,6 +144,10 @@ class ReplayPrograms:
     checksum: ChecksumFn
     # the steady tick's graphs of each CUDA carry, by _carry_key
     _graphs: Dict[tuple, "TickGraphs"] = field(
+        default_factory=dict, init=False, repr=False, compare=False
+    )
+    # the input stage of each CUDA carry that ``run_ticks`` has run, by _stage_key
+    _stages: Dict[tuple, InputStage] = field(
         default_factory=dict, init=False, repr=False, compare=False
     )
     # devices on which this program has run a tick eagerly (run_warmup, or
@@ -162,6 +186,11 @@ class ReplayPrograms:
         """The steady tick's graphs, one ``TickGraphs`` per CUDA carry that
         ``run_steady`` has run."""
         return list(self._graphs.values())
+
+    @property
+    def input_stages(self) -> List[InputStage]:
+        """The input stages, one per CUDA carry that ``run_ticks`` has run."""
+        return list(self._stages.values())
 
     # -- carry ---------------------------------------------------------
 
@@ -207,18 +236,21 @@ class ReplayPrograms:
     # -- ticks ---------------------------------------------------------
 
     def _store_input(self, carry: Any, frame: int, inp: Any) -> None:
+        """``inp`` (leaves ``(B, ...)``) into the input ring's slot of
+        ``frame``, one copy a leaf: from a pinned row an asynchronous
+        host-to-device copy."""
         i = self.ring.slot(frame)
-        tree_map(lambda buf, leaf: buf[:, i].copy_(leaf), carry["inputs"], inp)
+        tree_map(lambda buf, leaf: buf[:, i].copy_(leaf, non_blocking=True), carry["inputs"], inp)
 
-    def warmup_tick(self, carry: Any, inp: Any, frame: int) -> None:
-        """[Save, Advance] -- the pre-rollback request pattern."""
+    def warmup_body(self, carry: Any, frame: int) -> None:
+        """[Save, Advance] -- the pre-rollback request pattern, reading the
+        frame's input from its slot."""
         ring, hist = self.ring, carry["hist"]
         live = carry["live"]
         cs = self.checksum(live)
         ring.save(carry["ring"], frame, live, cs, stamp=carry["frame"])
         hist[:, ring.slot(frame)] = cs
-        self._store_input(carry, frame, inp)
-        new_live = self.advance(live, inp)
+        new_live = self.advance(live, _tick_slice(carry["inputs"], ring.slot(frame)))
         # first-seen digest for frame+1 comes from this live advance; later
         # resimulations of that frame are compared against it
         hist[:, ring.slot(frame + 1)] = self.checksum(new_live)
@@ -281,42 +313,95 @@ class ReplayPrograms:
         with layer("ring"):
             carry["frame"].add_(1)
 
-    def _run(self, tick: Callable, carry: Any, tick_inputs: Any, start_frame: int) -> Any:
-        """``tick`` over the ticks axis (axis 1) of ``tick_inputs``, leaves
-        ``(B, n, ...)``; tick ``t`` runs frame ``start_frame + t``."""
+    def _run(self, body: Callable, carry: Any, tick_inputs: Any, start_frame: int,
+             stored: int) -> Any:
+        """Over the ticks axis (axis 1) of ``tick_inputs``, leaves ``(B, n,
+        ...)``: tick ``t`` stores its input in the slot of frame ``start_frame
+        + t`` (the first ``stored`` ticks' are there already), then runs
+        ``body(carry, frame)``."""
         n = tree_leaves(tick_inputs)[0].shape[1]
         for t in range(n):
-            tick(carry, _tick_slice(tick_inputs, t), start_frame + t)
+            if t >= stored:
+                self._store_input(carry, start_frame + t, _tick_slice(tick_inputs, t))
+            body(carry, start_frame + t)
         return carry
 
-    def run_warmup(self, carry: Any, tick_inputs: Any, start_frame: int) -> Any:
+    def run_warmup(self, carry: Any, tick_inputs: Any, start_frame: int, stored: int = 0) -> Any:
         with trace_span("ggrs:tick.warmup"):
             self._eager_on.add(carry["frame"].device)
-            return self._run(self.warmup_tick, carry, tick_inputs, start_frame)
+            return self._run(self.warmup_body, carry, tick_inputs, start_frame, stored)
 
-    def run_steady(self, carry: Any, tick_inputs: Any, start_frame: int) -> Any:
-        """The steady ticks: eager ``steady_tick``s on a CPU carry; on a
-        CUDA carry, per tick one input copy and one replay of the phase's
-        graph (``TickGraphs``)."""
+    def run_steady(self, carry: Any, tick_inputs: Any, start_frame: int, stored: int = 0) -> Any:
+        """The steady ticks, per tick one input copy, then an eager
+        ``steady_body`` on a CPU carry, or on a CUDA carry one replay of
+        the phase's graph (``TickGraphs``)."""
         with trace_span("ggrs:tick.replay"):
             if carry["frame"].device.type != "cuda":
-                return self._run(self.steady_tick, carry, tick_inputs, start_frame)
+                return self._run(self.steady_body, carry, tick_inputs, start_frame, stored)
             key = _carry_key(carry)
             graphs = self._graphs.get(key)
             if graphs is None:
                 graphs = self._graphs[key] = TickGraphs(self, carry)
-            return self._run(graphs.tick, carry, tick_inputs, start_frame)
+            return self._run(graphs.run, carry, tick_inputs, start_frame, stored)
+
+    def run_ticks(self, carry: Any, inputs: Any, start_frame: int) -> int:
+        """One call of a SyncTest entry on ``carry``, from frame
+        ``start_frame``: ``inputs`` (leaves ``(B, n, ...)``: numpy arrays or
+        tensors) uploaded in ``ggrs:tick.upload``, then the ticks before
+        ``warmup_ticks`` through ``run_warmup`` and the rest through
+        ``run_steady``.  Returns n.
+
+        The upload, on a CUDA carry: host leaves copied once into the
+        carry's ``InputStage``, whose row of each tick is sent straight into
+        the tick's input ring slot just before the tick runs, the first
+        tick's inside the upload; CUDA tensor leaves copied there device
+        to device.  On a CPU carry the leaves are converted as
+        ``from_numpy`` converts them.  ``ggrs_tick_upload_total`` counts the
+        ticks by route."""
+        n = tree_leaves(inputs)[0].shape[1]
+        if n == 0:
+            return 0
+        dev = carry["frame"].device
+        stage = None
+        with trace_span("ggrs:tick.upload"):
+            if dev.type != "cuda":
+                route, rows = "host", from_numpy(inputs, dev)
+            else:
+                on_card = all(isinstance(x, torch.Tensor) and x.is_cuda
+                              for x in tree_leaves(inputs))
+                if on_card:
+                    route, rows = "device", inputs
+                else:
+                    key = _stage_key(carry)
+                    stage = self._stages.get(key)
+                    if stage is None:
+                        stage = self._stages[key] = InputStage(dev)
+                    route, rows = "staged", stage.put(inputs)
+            _UPLOADED[route].inc(n)
+            self._store_input(carry, start_frame, _tick_slice(rows, 0))
+        try:
+            n_warm = self.split_at_warmup(start_frame, n)
+            if n_warm:
+                self.run_warmup(carry, tree_map(lambda a: a[:, :n_warm], rows), start_frame,
+                                stored=1)
+            if n > n_warm:
+                self.run_steady(carry, tree_map(lambda a: a[:, n_warm:], rows),
+                                start_frame + n_warm, stored=int(n_warm == 0))
+        finally:
+            if stage is not None:
+                stage.sent()
+        return n
 
 
 class TickGraphs:
     """The steady tick of one CUDA carry as CUDA graphs, one per phase
     ``frame % R``, each captured the first time its phase comes up.
 
-    ``tick`` stores the tick's input in the input ring's slot of its phase
-    (the one copy before the replay), then replays the phase's graph of
-    ``steady_body``, which reads the input there.  A graph writes only into
-    the carry, and nothing its capture allocates outlives the capture, so
-    the R graphs share one private memory pool (the first capture's): they
+    ``run`` replays the graph of the tick's phase of ``steady_body``, which
+    reads the tick's input in its input ring slot (stored there by the one
+    copy before the replay, ``ReplayPrograms._run``).  A graph writes only
+    into the carry, and nothing its capture allocates outlives the capture,
+    so the R graphs share one private memory pool (the first capture's): they
     replay one at a time, on the caller's stream, in any order.  They stay
     valid while the carry's tensors do; ``load_checkpoint`` copies into
     them in place.  Each replay adds its graph's digest launches to the
@@ -350,10 +435,8 @@ class TickGraphs:
     def pool(self):
         return self.set.pool
 
-    def tick(self, carry: Any, inp: Any, frame: int) -> None:
-        programs = self.programs
-        programs._store_input(carry, frame, inp)
-        phase = programs.ring.slot(frame)
+    def run(self, carry: Any, frame: int) -> None:
+        phase = self.programs.ring.slot(frame)
         graph = self.graphs.get(phase)
         if graph is None:
             graph = self.graphs[phase] = self._capture(carry, frame)

@@ -319,18 +319,11 @@ class BatchedSessions:
         n = leaf0.shape[1]
         if n == 0:
             return {"mismatches": 0, "first_bad": I32_MAX} if check else None
-        n_warm = self._programs.split_at_warmup(self._ticks_run, n)
         with trace_span("ggrs:tick"):
             for lo, dev, carry in self._shards:
                 with _on(dev):
-                    with trace_span("ggrs:tick.upload"):
-                        rows = from_numpy(tree_map(lambda a: a[lo:lo + self._rows], inputs), dev)
-                    if n_warm:
-                        head = tree_map(lambda a: a[:, :n_warm], rows)
-                        self._programs.run_warmup(carry, head, self._ticks_run)
-                    if n > n_warm:
-                        tail = tree_map(lambda a: a[:, n_warm:], rows)
-                        self._programs.run_steady(carry, tail, self._ticks_run + n_warm)
+                    self._programs.run_ticks(
+                        carry, tree_map(lambda a: a[lo:lo + self._rows], inputs), self._ticks_run)
             self._ticks_run += n
             with trace_span("ggrs:tick.reduce"):
                 self._last_stats = self._reduce()

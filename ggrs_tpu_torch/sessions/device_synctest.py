@@ -29,7 +29,12 @@ from ..ops.graphs import synchronize
 from ..ops.replay import I32_MAX, ReplayPrograms, build_replay_programs
 from ..utils.checkpoint import load_pytree, save_pytree
 from ..utils.tracing import trace_span
-from ..utils.tree import tree_leaves, tree_map
+from ..utils.tree import tree_map
+
+
+def _one_session(leaf: Any) -> Any:
+    """A ``(n, ...)`` input leaf as the batch of one, ``(1, n, ...)``: a view."""
+    return leaf.unsqueeze(0) if isinstance(leaf, torch.Tensor) else np.asarray(leaf)[None]
 
 
 class DeviceSyncTestSession:
@@ -126,20 +131,10 @@ class DeviceSyncTestSession:
         first-seen checksum.  ``check=False`` defers the check to
         ``verify()``: the call then reads nothing back from the device."""
         with trace_span("ggrs:tick"):
-            with trace_span("ggrs:tick.upload"):
-                inputs = tree_map(lambda a: a.unsqueeze(0), from_numpy(inputs, self.device))
-            n = tree_leaves(inputs)[0].shape[1]
-            if n == 0:
-                return
-            n_warm = self._programs.split_at_warmup(self._ticks_run, n)
-            if n_warm:
-                head = tree_map(lambda a: a[:, :n_warm], inputs)
-                self._programs.run_warmup(self._carry, head, self._ticks_run)
-            if n > n_warm:
-                tail = tree_map(lambda a: a[:, n_warm:], inputs)
-                self._programs.run_steady(self._carry, tail, self._ticks_run + n_warm)
+            n = self._programs.run_ticks(self._carry, tree_map(_one_session, inputs),
+                                         self._ticks_run)
             self._ticks_run += n
-            if check:
+            if check and n:
                 self._raise_on_mismatch()
 
     def verify(self) -> None:
