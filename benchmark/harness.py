@@ -5,19 +5,20 @@ check, and the result line.
 CPU tests call it with ``device="cpu"`` at a small size.  In order:
 
 1. the traffic's start and input block from the seed, and the program on
-   the device;
-2. warm-up: the replay's warmup ticks, then two ring periods of steady
-   ticks (the first captures each phase's CUDA graph), so that nothing is
-   built or captured in the window; ``setup_s`` ends here, measured from
-   the end of ``import torch`` (``run.py``);
+   the device through the cell's entry (``program.entry``);
+2. warm-up: the entry's ``warmup_calls``, so that nothing is built or
+   captured in the window; ``setup_s`` ends here, measured from the end of
+   ``import torch`` (``run.py``);
 3. the window: closed-loop calls until ``seconds`` have passed, each timed
-   on the host clock from the call to its return;
+   on the host clock from the call to its return; the rate divides the
+   entry's ``resim_frames`` of the window's calls by its wall seconds;
 4. the device's peak memory; with ``trace``, a second of calls split at
    their read with no tracer running (``Run.split``), then ``trace_ticks``
    more calls and three lone advances under the profiler, read by the
    cell's per-layer metric readers;
-5. the program's carry to the host, the program freed, and the reference
-   run over every tick the program ran, then compared (``check.py``).
+5. the entry's check: the program freed but for what it produced, the
+   reference run over every call the program ran, each count held to its
+   limit (``check.verdict``); its seconds are printed before its counts.
 """
 
 from __future__ import annotations
@@ -30,9 +31,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from . import check, spec, trace
-from .program import Program
-from .reference import replay as ref_replay
+from . import check, program, spec, trace
 from .traffic import Traffic
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "ggrs_tpu")
@@ -66,23 +65,21 @@ def _device_info(device: str, peak: int) -> Dict:
 
 
 class Run:
-    """The state of one run: the cell, its traffic, the program, the calls."""
+    """The state of one run: the cell, its traffic, the program through the
+    cell's entry (``program``), the calls.  ``sessions`` replaces the mix's
+    B, for the generator and the entry alike."""
 
     def __init__(self, cell: spec.Cell, seed: int, device: str, sessions: Optional[int],
                  advance: Optional[Callable], marks: List) -> None:
         self.cell, self.device = cell, device
         self.reference = spec.game_module(cell, "reference")
-        self.traffic = Traffic(cell.traffic, cell.config, self.reference, seed, sessions)
+        mix = cell.traffic if sessions is None else dict(cell.traffic, sessions=sessions)
+        self.traffic = Traffic(mix, cell.config, self.reference, seed)
         marks.append(("traffic", time.perf_counter()))
-        self.program = Program(cell.config, self.traffic.entry, self.traffic.sessions,
-                               self.traffic.start_numpy(), device, advance)
+        self.program = program.entry(cell, mix, self.traffic.start_numpy(), device, advance)
         marks.append(("program", time.perf_counter()))
         self.calls = 0
         self.failed = 0
-
-    @property
-    def ticks(self) -> int:
-        return self.calls * self.traffic.ticks_per_call
 
     def call(self) -> bool:
         ok = self.program.call(self.traffic.call_inputs(self.calls))
@@ -90,9 +87,7 @@ class Run:
         return ok
 
     def warm(self) -> None:
-        p = self.program
-        n = self.traffic.ticks_per_call
-        for _ in range(-(-(p.warmup_ticks + 2 * p.ring_length) // n)):
+        for _ in range(self.program.warmup_calls):
             self.call()
         _sync(self.device)
 
@@ -113,7 +108,7 @@ class Run:
 
     def split(self, seconds: float) -> float:
         """Closed-loop ticks for ``seconds`` with no tracer running, each
-        split at its read (``Program.launch``, then ``Program.read``): the
+        split at its read (the entry's ``launch``, then its ``read``): the
         mean host microseconds of the part before the read."""
         clock = time.perf_counter
         spent, n = 0.0, 0
@@ -151,16 +146,13 @@ class Run:
         return trace.profile(body, card=self.device != "cpu"), calls
 
     def check(self) -> Tuple[bool, Dict, List[str]]:
-        got = self.program.carry()
-        ticks, ring = self.ticks, self.program.ring_length
-        self.program.close()
-        ref_dev = "cpu" if self.device == "cpu" or self.traffic.sessions < 64 else self.device
-        start = {k: v.to(ref_dev).expand(self.traffic.sessions, *v.shape)
-                 for k, v in self.traffic.start.items()}
-        want = ref_replay.expected_carry(
-            self.reference, self.cell.config, start, self.traffic.tick_inputs_on(ref_dev),
-            ticks, ring)
-        return check.verdict(check.compare(got, want))
+        """The entry's check after the window; its lines lead with the
+        check's wall seconds."""
+        t0 = time.perf_counter()
+        values = self.program.check(self.reference, self.traffic, self.calls)
+        seconds = time.perf_counter() - t0
+        ok, table, lines = check.verdict(values, self.program.limits)
+        return ok, table, [f"check took {seconds:.3f} s"] + lines
 
 
 def read_metrics(cell: spec.Cell, run: Run, tr: trace.Trace, calls: int,
@@ -168,9 +160,11 @@ def read_metrics(cell: spec.Cell, run: Run, tr: trace.Trace, calls: int,
     """The cell's per-layer metrics.  ``window_ms_per_tick`` is the measured
     window's wall time a tick and ``enqueue_us`` the split pass's host time
     a tick before the read, both on the host clock with no tracer
-    running."""
-    ctx = {"cell": cell, "trace": tr, "calls": calls, "enqueue_us": enqueue_us,
-           "ticks": calls * run.traffic.ticks_per_call, "sessions": run.traffic.sessions,
+    running; ``entry`` is the cell's entry, for a reader of what only that
+    entry counts."""
+    ctx = {"cell": cell, "entry": run.program, "trace": tr, "calls": calls,
+           "enqueue_us": enqueue_us, "ticks": calls * run.traffic.ticks_per_call,
+           "sessions": run.program.sessions,
            "window_ms_per_tick": window_ms_per_tick,
            "kind": torch.cuda.get_device_name(0) if run.device != "cpu" else "cpu"}
     out = {}
@@ -274,9 +268,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool, device: s
                       f"advance_busy_us {adv} traced_tick_us {(hi - lo) / calls:.3f} "
                       f"window_tick_us {per_tick * 1e3:.3f} enqueue_us {enqueue_us:.3f}")
     else:
-        b, d = run.traffic.sessions, int(cell.config["check_distance"])
-        n = run.traffic.ticks_per_call
-        rate, tail = b * d * attempted * n / window_s, p95(times)
+        rate, tail = run.program.resim_frames(attempted) / window_s, p95(times)
         # a client's cells report the same quantities under names of their
         # own, whose bounds follow a host-paced client's spread
         values = {"resim_frames_per_s": rate, "tick_ms_p95": tail,

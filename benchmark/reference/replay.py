@@ -18,7 +18,8 @@ ticks (T >= R) the carry therefore holds, for every session:
 
 ``expected_carry`` computes all of it with the game's reference and the
 reference digest, in the layout the program's batched carry has, as int64
-tensors on the CPU.
+tensors on the device the start lies on (the card, where a check compares
+there).
 """
 
 from __future__ import annotations
@@ -49,38 +50,39 @@ def run_live(game: ModuleType, config: dict, start: Dict[str, torch.Tensor],
 
 def expected_carry(game: ModuleType, config: dict, start: Dict[str, torch.Tensor],
                    inputs_at: Callable[[int], torch.Tensor], ticks: int, ring: int) -> dict:
-    """The carry after ``ticks`` ticks; ``start`` leaves are (B, ...) on the
-    device the reference runs on, ``inputs_at(t)`` is tick t's (B, P) u8
-    input there."""
+    """The carry after ``ticks`` ticks, on ``start``'s device; ``start``
+    leaves are (B, ...) on the device the reference runs on, ``inputs_at(t)``
+    is tick t's (B, P) u8 input there."""
     if ticks < ring + 1:
         raise ValueError(f"{ticks} ticks do not fill a ring of {ring}")
     states = run_live(game, config, start, inputs_at, ticks, ring + 1)  # frames T-R .. T
     t_end = ticks
     frames = list(range(t_end - ring, t_end + 1))
     by_frame = dict(zip(frames, states))
-    b = next(iter(start.values())).shape[0]
+    first = next(iter(start.values()))
+    b, dev = first.shape[0], first.device
 
-    def cpu(x):
-        return x.to("cpu", torch.int64)
+    def wide(x):
+        return x.to(torch.int64)
 
     slots = [None] * ring
     for g in frames[:-1]:
         slots[g % ring] = g
-    ring_states = {k: torch.stack([cpu(by_frame[g][k]) for g in slots], dim=1)
+    ring_states = {k: torch.stack([wide(by_frame[g][k]) for g in slots], dim=1)
                    for k in start}
-    ring_digest = torch.stack([cpu(ref_digest.digest(by_frame[g])) for g in slots], dim=1)
-    ring_frames = torch.tensor(slots, dtype=torch.int64).expand(b, ring).clone()
-    input_ring = torch.stack([cpu(inputs_at(g)) for g in slots], dim=1)
+    ring_digest = torch.stack([wide(ref_digest.digest(by_frame[g])) for g in slots], dim=1)
+    ring_frames = torch.tensor(slots, dtype=torch.int64, device=dev).expand(b, ring).clone()
+    input_ring = torch.stack([wide(inputs_at(g)) for g in slots], dim=1)
     hist_slots = [None] * ring
     for g in frames[1:]:
         hist_slots[g % ring] = g
-    hist = torch.stack([cpu(ref_digest.digest(by_frame[g])) for g in hist_slots], dim=1)
+    hist = torch.stack([wide(ref_digest.digest(by_frame[g])) for g in hist_slots], dim=1)
     return {
-        "live": {k: cpu(v) for k, v in by_frame[t_end].items()},
-        "frame": torch.full((b,), t_end, dtype=torch.int64),
+        "live": {k: wide(v) for k, v in by_frame[t_end].items()},
+        "frame": torch.full((b,), t_end, dtype=torch.int64, device=dev),
         "ring": {"states": ring_states, "checksums": ring_digest, "frames": ring_frames},
         "inputs": input_ring,
         "hist": hist,
-        "mismatches": torch.zeros((b,), dtype=torch.int64),
-        "first_bad": torch.full((b,), I32_MAX, dtype=torch.int64),
+        "mismatches": torch.zeros((b,), dtype=torch.int64, device=dev),
+        "first_bad": torch.full((b,), I32_MAX, dtype=torch.int64, device=dev),
     }

@@ -7,11 +7,44 @@ and metrics.  Everything else is a file of its own under ``benchmark/``:
   gives), with its game's plain reference in ``reference/<game>.py`` and
   its bytes in ``roofline/<game>.py``;
 - ``traffic/<traffic>.json``: a traffic mix, the parameters that
-  ``traffic.py``'s one generator reads;
+  ``traffic.py``'s one generator reads, and any keys its entry reads;
+- ``entries/<entry>.py``: the session entry a mix names (``entry``), which
+  drives the program's session kind and checks it;
 - ``metrics/<metric>.py``: the reader of one per-layer metric.
 
-So a cell, a configuration or a metric is added as new files and new
-entries, and no existing file changes.
+So a cell, a configuration, a session kind or a metric is added as new
+files and new entries, and no existing file changes.
+
+**The entry's contract.**  ``entries/<entry>.py`` defines ``Entry``, which
+``program.entry`` loads by path from the cell's root and builds as
+``Entry(config, traffic, start, device, advance)``: the configuration, the
+raw traffic mix (every key, those the generator reads and those only this
+entry reads), the start as int32 numpy leaves, the device, and the step
+that replaces the game's ``advance`` (None: the game's own; the control and
+the faults of ``variants.py`` plug in there).  It provides:
+
+- ``call(rows) -> bool``: one closed-loop call on the call's ``(n, B, P)``
+  input rows (``Traffic.call_inputs``), returning once its result is on the
+  host; False where the program reported a failure;
+- ``launch(rows)`` and ``read() -> bool``: ``call`` split at its read;
+- ``warmup_calls``: the calls set-up makes so that nothing is built or
+  captured in the window;
+- ``sessions`` (B) and ``game`` (the configuration's game, whose lone
+  advances the traced run times);
+- ``resim_frames(calls) -> int``: the frames a window of ``calls`` calls
+  resimulates, which ``resim_frames_per_s`` divides by the window's wall
+  seconds.  It is fixed by the traffic and the configuration (SyncTest:
+  B × d × ``ticks_per_call`` × calls), or it is a count of the program's
+  that the entry's own check holds against the plain reference.  A count
+  the program reports and nothing checks is not admissible: an entry whose
+  rollbacks vary in depth with the network counts its frames so, checked;
+- ``limits`` ({name: limit}) and ``check(reference, traffic, calls) ->
+  {name: count}``: after the window, the program freed but for what it
+  produced, the plain reference (``reference``, the game's module) run on
+  the generator's inputs (``traffic``) over every call made, and each
+  named count computed from the program's output and the reference's;
+  ``check.verdict`` holds each to its limit;
+- ``close()``: frees the program's device memory.
 """
 
 from __future__ import annotations

@@ -39,7 +39,6 @@ def main(argv=None) -> int:
     from benchmark import harness, spec
 
     cell = spec.load_cell(args.workload)
-    d = int(cell.config["check_distance"])
     card = args.device != "cpu"
     for b in (int(s) for s in args.sessions.split(",")):
         if card:
@@ -50,11 +49,10 @@ def main(argv=None) -> int:
         if card:
             torch.cuda.synchronize()
         ordered = sorted(times)
-        ticks = len(times) * run.traffic.ticks_per_call
         print(json.dumps({"workload": cell.name, "sessions": b, "calls": len(times),
                           "mean_ms": sum(times) / len(times),
                           "p50_ms": ordered[len(ordered) // 2], "p95_ms": harness.p95(times),
-                          "resim_frames_per_s": b * d * ticks / window_s,
+                          "resim_frames_per_s": run.program.resim_frames(len(times)) / window_s,
                           "memory_peak_bytes": torch.cuda.max_memory_allocated() if card else 0}),
               flush=True)
         run.program.close()

@@ -1,13 +1,16 @@
 """The harness on the CPU at small sizes: the result line's keys, the traced
-run's readers, the control and the faults reading false, a cell added as a
-new entry, and ``run.py``'s refusals."""
+run's readers, the control and the faults reading false, the SyncTest
+entries' frame count, a cell added as a new entry, a session entry added as
+a new file, and ``run.py``'s refusals."""
 
+import dataclasses
 import json
 import os
 import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import pytest
 
@@ -92,6 +95,97 @@ def test_a_cell_is_a_new_entry(tmp_path):
     traced, _ = _run("boxgame2-d8-b64", None, traced=True, root=tmp_path)
     assert "session.enqueue_us_per_tick" in traced["metrics"]
     assert all(p.read_bytes() == b for p, b in before.items())
+
+
+@pytest.mark.parametrize("n", [1, 8])
+@pytest.mark.parametrize("name,sessions", CELLS, ids=[c[0] for c in CELLS])
+def test_synctest_entries_count_b_d_ticks(name, sessions, n):
+    """Every SyncTest tick rolls back d frames in each of B sessions, at one
+    tick a call and at eight (a dispatch-ahead mix)."""
+    cell = spec.load_cell(name)
+    cell = dataclasses.replace(cell, traffic=dict(cell.traffic, ticks_per_call=n))
+    run = harness.Run(cell, 2**31 + 9, "cpu", sessions, None, [])
+    b, d = run.traffic.sessions, cell.config["check_distance"]
+    assert run.program.sessions == b == (sessions or cell.traffic["sessions"])
+    for calls in (0, 1, 7, 3061):
+        assert run.program.resim_frames(calls) == b * d * n * calls
+    run.program.close()
+
+
+# a batched SyncTest entry of another name: it reads a key of its own in
+# its mix, counts the frames of part of the batch, and adds a check count
+NEW_ENTRY = '''"""Entry ``batched_part``: the batched entry, its frames counted over
+``counted_sessions`` of its sessions, its check adding the sessions whose
+frame counter is not the ticks run."""
+
+import torch
+
+from benchmark.entries import batched
+
+
+class Entry(batched.Entry):
+    limits = dict(batched.Entry.limits, frame_rows_off=0)
+
+    def __init__(self, config, traffic, start, device, advance=None):
+        super().__init__(config, traffic, start, device, advance)
+        self.counted = int(traffic["counted_sessions"])
+
+    def resim_frames(self, calls):
+        return self.counted * self.check_distance * self.ticks_per_call * calls
+
+    def check(self, reference, traffic, calls):
+        frames = self.sess.carry["frame"].to("cpu", torch.int64)
+        off = int((frames != calls * self.ticks_per_call).sum())
+        return dict(super().check(reference, traffic, calls), frame_rows_off=off)
+'''
+
+
+def test_an_entry_is_a_new_file(tmp_path, monkeypatch):
+    """``boxgame2-d8-part``: a session entry of its own, added as a new
+    module under ``entries/``, a new traffic mix carrying a key only that
+    entry reads, and one new workload in BENCHMARK.json (and its name in the
+    metrics' lists); the run finds the entry by name in its own checkout,
+    reports its check counts and divides its frame count by the window, and
+    no existing file of the benchmark changes."""
+    copy = tmp_path / "benchmark"
+    shutil.copytree(ROOT / "benchmark", copy, ignore=shutil.ignore_patterns("_cache", "__pycache__"))
+    (copy / "entries" / "batched_part.py").write_text(NEW_ENTRY)
+    mix = dict(json.loads((ROOT / "benchmark" / "traffic" / "closed-b1.json").read_text()),
+               entry="batched_part", sessions=8, counted_sessions=3)
+    (copy / "traffic" / "closed-part.json").write_text(json.dumps(mix))
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    bench["workloads"].append({"name": "boxgame2-d8-part", "config": "boxgame2-d8",
+                               "traffic": "closed-part", "chips": 1, "why": "a new entry"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "boxgame2-d8-b1769472" in m.get("workloads", ()):
+            m["workloads"].append("boxgame2-d8-part")
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    before = {p: p.read_bytes() for p in (ROOT / "benchmark").rglob("*.py")}
+    windows = []
+    real_window = harness.Run.window
+
+    def window(run, seconds):
+        times, window_s = real_window(run, seconds)
+        windows.append(window_s)
+        return times, window_s
+
+    monkeypatch.setattr(harness.Run, "window", window)
+    line, lines = _run("boxgame2-d8-part", None, root=tmp_path)
+    assert line["correct"] is True and line["failed"] == 0
+    assert set(line["checks"]) == {"live_rows_off", "ring_rows_off", "digest_rows_off",
+                                   "frame_rows_off"}
+    assert line["checks"]["frame_rows_off"] == {"value": 0, "limit": 0}
+    assert "check frame_rows_off 0 limit 0" in lines
+    rate = line["metrics"]["resim_frames_per_s"]["value"]
+    assert rate == pytest.approx(3 * 8 * line["attempted"] / windows[0], rel=1e-12)
+    traced, _ = _run("boxgame2-d8-part", None, traced=True, root=tmp_path)
+    assert traced["correct"] is True and "frame_rows_off" in traced["checks"]
+    assert "session.enqueue_us_per_tick" in traced["metrics"]
+    assert all(p.read_bytes() == b for p, b in before.items())
+    assert not (ROOT / "benchmark" / "entries" / "batched_part.py").exists()
+    added = {p.relative_to(copy) for p in copy.rglob("*") if p.is_file()
+             and "__pycache__" not in p.parts and not (ROOT / "benchmark" / p.relative_to(copy)).exists()}
+    assert added == {Path("entries/batched_part.py"), Path("traffic/closed-part.json")}
 
 
 def _command(args, cwd):

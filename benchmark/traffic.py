@@ -2,8 +2,9 @@
 
 A traffic mix (``traffic/<name>.json``) holds:
 
-- ``entry``: ``"batched"`` (B sessions in ``BatchedSessions``) or
-  ``"single"`` (one ``DeviceSyncTestSession``);
+- ``entry``: the session entry, ``entries/<entry>.py`` (``"batched"``: B
+  sessions in ``BatchedSessions``; ``"single"``: one
+  ``DeviceSyncTestSession``), which ``program.entry`` loads;
 - ``sessions``: B;
 - ``loop``: ``"closed"``, the next call starts when the last returned;
 - ``ticks_per_call``: ticks a ``run_ticks`` call carries (1: a live host,
@@ -15,8 +16,11 @@ A traffic mix (``traffic/<name>.json``) holds:
 - ``trace_ticks``: ticks the traced run profiles after its window.
 
 Every session starts from the game's start.  The same seed gives the same
-inputs, which both the program and the reference take.  Further keys (such
-as ``sessions_from``, the derivation of ``sessions``) are for the reader.
+inputs, which both the program and the reference take.  The generator
+reads ``sessions``, ``loop``, ``ticks_per_call`` and ``inputs`` alone; the
+whole mix goes to the entry untouched, so an entry reads keys of its own
+there (a network's latency and loss, say).  Further keys (such as
+``sessions_from``, the derivation of ``sessions``) are for the reader.
 """
 
 from __future__ import annotations
@@ -29,17 +33,13 @@ import torch
 
 
 class Traffic:
-    def __init__(self, traffic: dict, config: dict, reference: ModuleType, seed: int,
-                 sessions: int = None) -> None:
+    def __init__(self, traffic: dict, config: dict, reference: ModuleType, seed: int) -> None:
         if traffic["loop"] != "closed":
             raise ValueError(f"loop {traffic['loop']!r}: only a closed loop is generated")
         proc = traffic["inputs"]
         if proc["process"] != "uniform_bits":
             raise ValueError(f"input process {proc['process']!r} is not known")
-        self.entry = traffic["entry"]
-        self.sessions = int(traffic["sessions"] if sessions is None else sessions)
-        if self.entry == "single" and self.sessions != 1:
-            raise ValueError("a single session's traffic has 1 session")
+        self.sessions = int(traffic["sessions"])
         self.ticks_per_call = int(traffic["ticks_per_call"])
         self.block_ticks = int(proc["block_ticks"])
         if self.block_ticks % self.ticks_per_call:
@@ -62,14 +62,11 @@ class Traffic:
         return {k: v.to(torch.int32).numpy() for k, v in self.start.items()}
 
     def call_inputs(self, call: int) -> np.ndarray:
-        """Call ``call``'s inputs in the entry's layout: (B, n, P) for the
-        batch, (n, P) for one session (n ticks a call)."""
+        """Call ``call``'s inputs, (n, B, P) for n ticks a call: a view of
+        the block, which the entry puts in its session's layout."""
         n = self.ticks_per_call
         at = (call * n) % self.block_ticks
-        rows = self.block[at:at + n]  # (n, B, P)
-        if self.entry == "single":
-            return rows[:, 0]
-        return rows.transpose(1, 0, 2)
+        return self.block[at:at + n]
 
     def tick_inputs_on(self, device: torch.device):
         """``t -> (B, P)`` u8 tensor of tick t on ``device`` (the block sent
